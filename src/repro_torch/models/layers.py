@@ -1,0 +1,240 @@
+"""Transformer building blocks: plain functions on tensors.
+
+Mirrors ``repro.models.layers``: parameters are nested dicts with the same
+leaf names, projections stay fused 2-D ([d, H*hd]), and activations keep
+the same layouts (x [B,T,D], per-layer cache [B,Smax,KV,hd]).
+
+Two differences from JAX shape the code:
+  * ``torch.einsum``/``matmul`` refuse mixed dtypes where JAX promotes
+    (an fp32 q against the bf16 cache), so operands are cast to the type
+    JAX would compute in (``torch.promote_types``);
+  * ``lax.dynamic_update_slice`` clamps an out-of-range write; the port
+    writes the cache by slice, in place, and raises on overflow instead.
+The tensor-parallel head padding (``pad_tp``) is an exact zero-pad that
+does nothing on one device, so it is not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ArchConfig
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------- initializers
+
+def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * std).to(dtype)
+
+
+def _dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+                dtype) -> torch.Tensor:
+    return _normal(gen, (in_dim, out_dim), (2.0 / (in_dim + out_dim)) ** 0.5,
+                   dtype)
+
+
+def init_attention(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dev = gen.device
+    p: Params = {
+        "wq": _dense_init(gen, d, H * hd, dtype),
+        "wk": _dense_init(gen, d, KV * hd, dtype),
+        "wv": _dense_init(gen, d, KV * hd, dtype),
+        "wo": _dense_init(gen, H * hd, d, dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(H * hd, dtype=dtype, device=dev)
+        p["bk"] = torch.zeros(KV * hd, dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(KV * hd, dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones(hd, dtype=dtype, device=dev)
+    return p
+
+
+def init_mlp(d: int, f: int, gen: torch.Generator, dtype) -> Params:
+    return {
+        "w1": _dense_init(gen, d, f, dtype),   # gate
+        "w3": _dense_init(gen, d, f, dtype),   # up
+        "w2": _dense_init(gen, f, d, dtype),   # down
+    }
+
+
+def init_block(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+    dev = gen.device
+    return {
+        "ln1": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+        "attn": init_attention(cfg, gen, dtype),
+        "ln2": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+        "mlp": init_mlp(cfg.d_model, cfg.d_ff, gen, dtype),
+    }
+
+
+# ------------------------------------------------------------------- primitives
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, T, H, hd]; positions: [B, T]."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., None].float() * freqs            # [B, T, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the dtype JAX's einsum would promote the pair to."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    gate = torch.nn.functional.silu(_mm(x, p["w1"]))
+    return _mm(gate * _mm(x, p["w3"]), p["w2"])
+
+
+# ------------------------------------------------------------------- attention
+
+def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
+    """QKV projections (+bias, qk-norm, RoPE) -> q [B,T,H,hd], k/v [B,T,KV,hd]."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, t, _ = x.shape
+    q, k, v = _mm(x, p["wq"]), _mm(x, p["wk"]), _mm(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, t, H, hd)
+    k = k.reshape(b, t, KV, hd)
+    v = v.reshape(b, t, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _sdpa(cfg: ArchConfig, q, k, v, q_pos, k_pos, k_valid=None):
+    """Grouped-query scaled-dot-product attention with causal (+SWA) mask.
+
+    q [B,Tq,H,hd], k/v [B,Tk,KV,hd]; *_pos absolute positions [B,Tq]/[B,Tk].
+    k_valid: optional [B,Tk] bool (cache entries actually written)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, tq = q.shape[0], q.shape[1]
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(b, tq, KV, H // KV, hd).to(dt)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(dt)).float()
+    logits = logits / (hd ** 0.5)
+    mask = q_pos[:, None, None, :, None] >= k_pos[:, None, None, None, :]
+    if cfg.swa_window:
+        near = (q_pos[:, None, None, :, None]
+                - k_pos[:, None, None, None, :]) < cfg.swa_window
+        mask = mask & near
+    if k_valid is not None:
+        mask = mask & k_valid[:, None, None, None, :]
+    logits = logits.masked_fill(~mask, -1e30)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(dt), v.to(dt))
+    return out.reshape(b, tq, H * hd)
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """cache[:, pos] = new, in place; raises where JAX would clamp."""
+    if not 0 <= pos < cache.shape[1]:
+        raise IndexError(f"cache write at slot {pos} outside [0, {cache.shape[1]})")
+    cache[:, pos:pos + 1] = new.to(cache.dtype)
+
+
+def attention_decode(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     write_pos: int, q_pos: int, n_valid: int,
+                     kv_scale: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """One-token decode against a KV cache (ring buffer for SWA).
+
+    x [B,1,D]; cache_k/v [B,Smax,KV,hd] (bf16, or int8 with kv_scale);
+    write_pos: slot to write (== q_pos for full attn, q_pos % window for SWA);
+    q_pos: absolute position of the new token (RoPE);
+    n_valid: number of populated cache slots AFTER this write.
+    The new token's k/v (and scales) are written into the given cache
+    tensors in place.  Returns (out [B,1,D], cache_k, cache_v, scales)."""
+    b = x.shape[0]
+    smax = cache_k.shape[1]
+    dev = x.device
+    positions = torch.full((b, 1), q_pos, dtype=torch.int32, device=dev)
+    q, k_new, v_new = _qkv(cfg, p, x, positions)
+
+    slot = torch.arange(smax, dtype=torch.int32, device=dev)[None, :].expand(b, smax)
+    k_valid = slot < n_valid
+    if kv_scale is not None:
+        ks, vs = kv_scale
+        k_q, k_s = _quantize_kv(k_new)
+        v_q, v_s = _quantize_kv(v_new)
+        for dst, src in ((cache_k, k_q), (cache_v, v_q), (ks, k_s), (vs, v_s)):
+            _write_slot(dst, src, write_pos)
+        # scales applied after the dot: (q.k_q)*s_k == q.(k_q*s_k) per (token, head)
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        qg = q.reshape(b, 1, KV, H // KV, hd)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), cache_k.float())
+        s = s * ks[..., 0].transpose(1, 2)[:, :, None, None, :].float()
+        s = s / (hd ** 0.5)
+        s = s.masked_fill(~k_valid[:, None, None, None, :], -1e30)
+        pr = torch.softmax(s, dim=-1)
+        pv = (pr * vs[..., 0].transpose(1, 2)[:, :, None, None, :].float()
+              ).to(torch.bfloat16)
+        outh = torch.einsum("bkgqs,bskh->bqkgh", pv, cache_v.to(torch.bfloat16))
+        out = outh.reshape(b, 1, H * hd)
+        new_scales = (ks, vs)
+    else:
+        _write_slot(cache_k, k_new, write_pos)
+        _write_slot(cache_v, v_new, write_pos)
+        zeros = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        out = _sdpa(cfg, q, cache_k, cache_v, zeros, torch.zeros_like(slot),
+                    k_valid)
+        new_scales = None
+    return _mm(out, p["wo"]), cache_k, cache_v, new_scales
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per (token, head) symmetric int8 quantization along hd."""
+    x32 = x.float()
+    scale = x32.abs().amax(-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+# ------------------------------------------------------------------- embeddings
+
+def init_embeddings(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+    V = padded_vocab(cfg)
+    p = {"tok": _normal(gen, (V, cfg.d_model), 0.02, dtype),
+         "ln_f": torch.ones(cfg.d_model, dtype=dtype, device=gen.device)}
+    if not cfg.tie_embeddings:
+        p["out"] = _dense_init(gen, cfg.d_model, V, dtype)
+    return p
+
+
+def padded_vocab(cfg: ArchConfig) -> int:
+    return (cfg.vocab + 255) // 256 * 256
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, p["ln_f"])
+    if "out" in p:
+        return _mm(x, p["out"])
+    return _mm(x, p["tok"].t())

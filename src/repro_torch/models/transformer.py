@@ -1,0 +1,182 @@
+"""Decoder-only LM, dense backbone: init, inference forward, prefill, decode.
+
+Mirrors ``repro.models.transformer`` for the dense, audio and vlm families
+(codeqwen1.5-7b, phi3-medium-14b, minicpm-2b, qwen1.5-32b, musicgen-large,
+chameleon-34b).  Layer parameters keep the reference's stacked leading
+[L] axis; a Python loop over it takes the place of ``lax.scan``.
+Prefill attention goes through ``ops.flash_attention``, so on the card
+it runs the hand-written flash kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..configs.base import ArchConfig
+from ..kernels import ops
+from . import layers
+from .layers import Params
+
+Cache = Dict[str, torch.Tensor]
+
+
+def _residual_scale(cfg: ArchConfig) -> float:
+    # minicpm: depth-scaled residual branch (scale_depth / sqrt(L))
+    return 1.4 / (cfg.n_layers ** 0.5) if cfg.depth_scaled_residual else 1.0
+
+
+def _layer(stacked: Params, i: int) -> Params:
+    """Layer ``i``'s slice of the [L]-stacked parameter tree (views, no copy)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def _stack_into(dst: Params, src: Params, i: int) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _stack_into(dst[k], v, i)
+        else:
+            dst[k][i] = v
+
+
+# ------------------------------------------------------------------ init
+
+def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
+                device="cuda") -> Params:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``.
+
+    Same tree and scales as the reference (``layers._dense_init``,
+    ``init_embeddings``); the draws differ, since the generators do.
+    Layers are drawn one at a time into the stacked leaves, so the fp32
+    draw never holds more than one layer."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    emb = layers.init_embeddings(cfg, gen, dtype)
+    first = layers.init_block(cfg, gen, dtype)
+    stacked = _empty_like_stacked(first, cfg.n_layers)
+    _stack_into(stacked, first, 0)
+    for i in range(1, cfg.n_layers):
+        _stack_into(stacked, layers.init_block(cfg, gen, dtype), i)
+    return {"emb": emb, "layers": stacked}
+
+
+def _empty_like_stacked(tree: Params, n: int) -> Params:
+    return {k: _empty_like_stacked(v, n) if isinstance(v, dict)
+            else v.new_empty((n, *v.shape)) for k, v in tree.items()}
+
+
+# ------------------------------------------------------------------ forward
+
+def _attn_full(cfg: ArchConfig, lp: Params, h: torch.Tensor,
+               positions: torch.Tensor):
+    """Self-attention over h; returns (branch output, k, v)."""
+    b, t, _ = h.shape
+    q, k, v = layers._qkv(cfg, lp["attn"], layers.rms_norm(h, lp["ln1"]),
+                          positions)
+    kvh = cfg.n_kv_heads
+    out = ops.flash_attention(q.reshape(b, t, kvh, cfg.n_heads // kvh, cfg.hd),
+                              k, v, window=cfg.swa_window)
+    out = out.reshape(b, t, cfg.n_heads * cfg.hd)
+    return layers._mm(out, lp["attn"]["wo"]), k, v
+
+
+def _positions(b: int, t: int, device) -> torch.Tensor:
+    return torch.arange(t, dtype=torch.int32, device=device)[None].expand(b, t)
+
+
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, V] (inference only)."""
+    b, t = tokens.shape
+    positions = _positions(b, t, tokens.device)
+    h = layers.embed(params["emb"], tokens)
+    rs = _residual_scale(cfg)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = h + rs * _attn_full(cfg, lp, h, positions)[0]
+        h = h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
+    return layers.unembed(params["emb"], h)
+
+
+# ------------------------------------------------------------------ serving
+
+def kv_cache_spec(cfg: ArchConfig, batch: int, smax: int, dtype_name: str):
+    """Shapes and dtypes of the per-layer-stacked KV cache."""
+    kvh, hd, L = cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    if cfg.swa_window:
+        smax = min(smax, cfg.swa_window)    # SWA: ring buffer of window size
+    if dtype_name == "int8":
+        return {
+            "k": ((L, batch, smax, kvh, hd), torch.int8),
+            "v": ((L, batch, smax, kvh, hd), torch.int8),
+            "k_scale": ((L, batch, smax, kvh, 1), torch.bfloat16),
+            "v_scale": ((L, batch, smax, kvh, 1), torch.bfloat16),
+        }
+    return {
+        "k": ((L, batch, smax, kvh, hd), torch.bfloat16),
+        "v": ((L, batch, smax, kvh, hd), torch.bfloat16),
+    }
+
+
+def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,
+            kv_dtype_name: str = "bfloat16") -> Tuple[torch.Tensor, Cache]:
+    """Process the full prompt; return (last-token logits [B,1,V], cache dict).
+
+    The cache is bf16 (or int8 + bf16 scales) whatever the params' dtype,
+    holds zero rows past the prompt, and is allocated once at its full
+    [L, ...] size."""
+    b, t = tokens.shape
+    cache_smax = min(smax, cfg.swa_window) if cfg.swa_window else smax
+    if not cfg.swa_window and t > smax:
+        raise ValueError(f"prompt of {t} tokens does not fit a cache of {smax}")
+    cache = {name: torch.zeros(shape, dtype=dt, device=tokens.device)
+             for name, (shape, dt) in
+             kv_cache_spec(cfg, b, smax, kv_dtype_name).items()}
+    positions = _positions(b, t, tokens.device)
+    h = layers.embed(params["emb"], tokens)
+    rs = _residual_scale(cfg)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        attn, k, v = _attn_full(cfg, lp, h, positions)
+        h = h + rs * attn
+        h = h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
+        # cache tail: last cache_smax positions (= all for full attention)
+        k_tail, v_tail = k[:, -cache_smax:], v[:, -cache_smax:]
+        n = k_tail.shape[1]
+        if kv_dtype_name == "int8":
+            # quantized after zero-padding, as the reference does, so the
+            # unused slots hold the scale of a zero row
+            pad = (0, 0, 0, 0, 0, cache_smax - n)
+            (kq, ks), (vq, vs) = (layers._quantize_kv(F.pad(x, pad))
+                                  for x in (k_tail, v_tail))
+            for name, x in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+                cache[name][i] = x
+        else:
+            cache["k"][i, :, :n] = k_tail
+            cache["v"][i, :, :n] = v_tail
+    return layers.unembed(params["emb"], h[:, -1:]), cache
+
+
+def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
+                cache: Cache, cache_len: int) -> Tuple[torch.Tensor, Cache]:
+    """One decode step.  token [B,1]; cache from ``prefill``; cache_len: the
+    number of positions already in it.  The new token's k/v are written into
+    ``cache`` in place.  Returns (logits [B,1,V], cache)."""
+    h = layers.embed(params["emb"], token)
+    rs = _residual_scale(cfg)
+    int8 = "k_scale" in cache
+    smax = cache["k"].shape[2]
+    write_pos = cache_len % smax if cfg.swa_window else cache_len
+    n_valid = min(cache_len + 1, smax)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8 else None
+        out, _, _, _ = layers.attention_decode(
+            cfg, lp["attn"], layers.rms_norm(h, lp["ln1"]), cache["k"][i],
+            cache["v"][i], write_pos, cache_len, n_valid, kv_scale=scales)
+        h = h + rs * out
+        h = h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
+    return layers.unembed(params["emb"], h), cache
