@@ -5,21 +5,29 @@
 
 Phases, each fatal on failure:
   (a) device: the card's name and power limit (nvidia-smi);
-  (b) build: nvcc compiles the port's CUDA sources for sm_90a;
-  (c) kernels: each kernel against its plain PyTorch version on the card,
-      with its time, the plain version's, one library call's and its bound;
-  (d) serving: full-width codeqwen1.5-7b (random bf16 weights from a seed)
-      serves 8 requests through ``BatchServer``; the flash kernel's launch
-      count over that run is checked, then prefill/decode consistency and
-      kernel-path vs plain-path prefill logits; last, one wave's prefill and
-      decode steps run under torch.profiler for device time by kernel;
-  (e) output: a ``kernels`` JSON line, a ``serving`` JSON line, the
-      nvidia-smi line, and last the ``{"ok": true, ...}`` line.
+  (b) build: nvcc compiles the port's CUDA sources for sm_90a, all at once;
+  (c) kernels: each kernel against its plain PyTorch version on the card at
+      the shapes the serving paths give it (flash attention at hd 128 and
+      112, the WKV6 and SSD scans, with ragged and nonzero-state cases),
+      with its time, the plain version's, one library call's where there is
+      one, and its bound;
+  (d) serving, one model after another, each at full published width with
+      random bf16 weights from a seed: codeqwen1.5-7b, zamba2-7b and
+      rwkv6-1.6b each serve 8 requests through ``BatchServer``.  Every
+      kernel's launch count over that run is checked against the path's
+      layers; then prefill/decode consistency and kernel-path vs plain-path
+      prefill logits, on the bf16 weights and on an fp32 copy of them
+      (``SERVE_TOL``, ``FP32_TOL``); last, one wave's prefill and decode steps run under
+      torch.profiler for device time by kernel.  Each model's weights and
+      caches are freed before the next one is made;
+  (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model,
+      the nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -37,6 +45,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import ssd_fwd  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import wkv6_fwd  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve.server import BatchServer, Request  # noqa: E402
 
@@ -44,16 +54,40 @@ from repro_torch.serve.server import BatchServer, Request  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_S = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}   # tests/test_kernels_pallas.py
-ARCH = "codeqwen1.5-7b"
-# Full-width serving vs itself and vs the plain attention path: bf16 weights
-# and activations (8-bit mantissa) through 32 layers, and a decode path whose
-# attention rounds logits and probabilities to bf16 where the flash kernel
-# keeps them in fp32.  Checked as |a-b| <= tol*(1 + |b|).
-SERVE_TOL = 5e-2
+SCAN_TOL = 3e-3     # fp32 WKV6 / SSD scans, tests/test_kernels_pallas.py:57,76-77
+# Full-width serving vs itself (decode vs prefill) and vs the plain path,
+# checked as |a-b| <= tol*(1 + |b|), twice: on the bf16 serving weights and
+# on an fp32 copy of them.  In fp32 the paths differ only in the order of
+# summation (measured <= 6.2e-5 on zamba2-7b and rwkv6-1.6b on an H100;
+# PERF.md) and, for codeqwen1.5-7b, in the bf16 KV cache its decode reads
+# whatever the weights' dtype (6.6e-4), hence FP32_TOL.  In bf16 (8-bit mantissa) a path that rounds a value to the
+# neighbouring bf16 number (the attention's probabilities, a scan's output)
+# sends a one-ulp step through every later layer, and these random-weight
+# models carry it to the logits: measured within 1.5e-2 for codeqwen1.5-7b's
+# 32 layers, 0.16 for zamba2-7b's 81 and 0.09 for rwkv6-1.6b's 24.
+SERVE_TOL = {"codeqwen1.5-7b": 5e-2, "zamba2-7b": 0.25, "rwkv6-1.6b": 0.15}
+FP32_TOL = 1e-3
+KERNELS = {"flash_attention_fwd": flash_attention_fwd, "ssd_fwd": ssd_fwd,
+           "wkv6_fwd": wkv6_fwd}
+PLAIN_OPS = {
+    "flash_attention": lambda q, k, v, window=0, q_offset=0: ref.flash_attention(
+        q, k, v, q_offset=q_offset, window=window),
+    "mamba2_ssd": ref.mamba2_ssd,
+    "wkv6": ref.rwkv6_chunked,
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 # ------------------------------------------------------------------ (a) device
@@ -82,6 +116,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: int, nbytes: int, dtype) -> dict:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def visible_pairs(tq: int, tk: int, q_offset: int, window: int) -> int:
     """(query, key) pairs the causal/window mask lets through: the work this input needs."""
     pos = q_offset + torch.arange(tq)
@@ -108,14 +148,14 @@ def flash_case(b, tq, tk, kv, g, hd, window, q_offset, dtype, seed, timed=False)
             "window": window, "q_offset": q_offset, "dtype": str(dtype).split(".")[-1],
             "max_abs_err": float(err.max()), "lse_max_abs_err": float(lse_err.max()),
             "tolerance": tol, "ok": ok}
-    log(f"  case {json.dumps(case)}")
+    log(f"  flash case {json.dumps(case)}")
     if not ok:
         raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
     if timed:
-        flops = 4 * hd * b * kv * g * visible_pairs(tq, tk, q_offset, window)
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() \
             + lse.numel() * 4
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_S * 1e3
+        case.update(bound(4 * hd * b * kv * g * visible_pairs(tq, tk, q_offset, window),
+                          nbytes, dtype))
         case["ms"] = cuda_ms(lambda: flash_attention_fwd(q, k, v, window, q_offset), 20)
         case["plain_ms"] = cuda_ms(
             lambda: ref._flash_fwd_impl(q, k, v, q_offset, window, 512, 1024), 5)
@@ -125,17 +165,118 @@ def flash_case(b, tq, tk, kv, g, hd, window, q_offset, dtype, seed, timed=False)
                       for x in (q, k, v))
         case["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True), 20)
-        case.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"  flash timed {json.dumps(case)}")
     return case
 
 
+def _chunk_rows(t: int, chunk: int):
+    return [min(chunk, t - t0) for t0 in range(0, t, chunk)]
+
+
+def wkv6_work(b, t, h, d, chunk):
+    """Flops (exponentials and logarithms apart) and bytes of ref.rwkv6_chunked
+    on real rows; K = V = d."""
+    flops = trans = 0
+    for c in _chunk_rows(t, chunk):
+        pairs = c * (c - 1) // 2
+        flops += (2 * c * d                       # log-decay cumsum, r * e^cl_prev
+                  + 2 * c * d * d                 # (r e^cl_prev) S
+                  + 4 * pairs * d                 # att: cl_prev_i - cl_j, r*k*e, sum
+                  + 3 * c * d                     # u-bonus diagonal
+                  + 2 * (pairs + c) * d + 2 * c * d   # att v, diag v, the sum of terms
+                  + 2 * c * d + 2 * c * d * d + 2 * d * d)   # state update
+        trans += 3 * c * d + pairs * d + d        # log w, e^cl_prev, carry, pairs, e^cl_last
+    heads = b * h
+    nbytes = 4 * (5 * b * t * h * d + h * d + 2 * b * h * d * d)
+    return flops * heads, trans * heads, nbytes
+
+
+def ssd_work(b, t, h, p, n, chunk):
+    """Flops (exponentials apart) and bytes of ref.mamba2_ssd on real rows; C B^T
+    is counted once per batch, as the function needs it."""
+    flops = trans = shared = 0
+    for c in _chunk_rows(t, chunk):
+        pairs = c * (c + 1) // 2
+        shared += 2 * pairs * n                   # C B^T, causal half
+        flops += (2 * c                           # A dt, cumsum
+                  + 3 * pairs                     # cl_i - cl_j, G*L, *dt_j
+                  + 2 * c * p * n + c * p         # e^cl (C S^T)
+                  + 2 * pairs * p + c * p         # M x, the sum of terms
+                  + 2 * c + c * p + 2 * c * p * n + 2 * p * n)   # state update
+        trans += pairs + 2 * c + 1
+    nbytes = 4 * (2 * b * t * h * p + b * t * h + h + 2 * b * t * n + 2 * b * h * p * n)
+    return flops * b * h + shared * b, trans * b * h, nbytes
+
+
+def _scan_errors(got, want):
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel_err = max(float(((g - w).abs() / (1 + w.abs())).max()) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    return abs_err, rel_err, finite
+
+
+def scan_case(name, kernel, plain, inputs, shape, work=None):
+    got = kernel(*inputs)
+    torch.cuda.synchronize()
+    want = plain(*inputs)
+    abs_err, rel_err, finite = _scan_errors(got, want)
+    case = {"shape": shape, "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "tolerance": SCAN_TOL, "ok": finite and rel_err <= SCAN_TOL}
+    log(f"  {name} case {json.dumps(case)}")
+    if not case["ok"]:
+        raise AssertionError(f"{name} kernel disagrees with its plain version "
+                             f"(y and final state): {case}")
+    if work is not None:
+        flops, trans, nbytes = work
+        case.update(bound(flops, nbytes, torch.float32), exps=trans)
+        case["ms"] = cuda_ms(lambda: kernel(*inputs), 20)
+        case["plain_ms"] = cuda_ms(lambda: plain(*inputs), 3, warmup=1)
+        case["library_ms"] = None     # no single PyTorch call computes the scan
+        log(f"  {name} timed {json.dumps(case)}")
+    return case
+
+
+def wkv6_inputs(seed, b, t, h, d=64):
+    """tests/test_kernels_pallas.py's value ranges, and a nonzero state."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    return (n(b, t, h, d) * 0.5, n(b, t, h, d) * 0.5, n(b, t, h, d) * 0.5,
+            torch.sigmoid(n(b, t, h, d) - 1.0), n(h, d) * 0.3, n(b, h, d, d) * 0.2)
+
+
+def ssd_inputs(seed, b, t, h, p=64, n=64):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    return (r(b, t, h, p) * 0.5, F.softplus(r(b, t, h) - 1.0), -r(h).abs(),
+            r(b, t, n) * 0.5, r(b, t, n) * 0.5, r(b, h, p, n) * 0.2)
+
+
 def phase_kernels():
-    log("(c) flash kernel vs plain version on the card")
-    main = flash_case(4, 2048, 2048, 32, 1, 128, 0, 0, torch.bfloat16, 10, timed=True)
-    others = [flash_case(1, 1000, 1100, 2, 4, 64, 256, 100, torch.float32, 11),
-              flash_case(2, 333, 333, 4, 2, 32, 0, 0, torch.bfloat16, 12)]
-    return main, others
+    log("(c) kernels vs their plain versions on the card")
+    flash = {"main": flash_case(4, 2048, 2048, 32, 1, 128, 0, 0, torch.bfloat16, 10,
+                                timed=True),
+             # zamba2-7b's shared attention block: 32 heads of 112
+             "hd112": flash_case(4, 2048, 2048, 32, 1, 112, 0, 0, torch.bfloat16, 13,
+                                 timed=True),
+             "others": [flash_case(1, 1000, 1100, 2, 4, 64, 256, 100, torch.float32, 11),
+                        flash_case(2, 333, 333, 4, 2, 32, 0, 0, torch.bfloat16, 12)]}
+    # the main-path shapes (rwkv6-1.6b: B=4, H=32, K=V=64; zamba2-7b: Bt=4,
+    # H=112, P=N=64), then a ragged T and a T shorter than one chunk
+    wkv6 = {"main": scan_case("wkv6", wkv6_fwd, ref.rwkv6_chunked,
+                              wkv6_inputs(20, 4, 2048, 32),
+                              {"B": 4, "T": 2048, "H": 32, "K": 64, "V": 64, "chunk": 64},
+                              wkv6_work(4, 2048, 32, 64, 64)),
+            "others": [scan_case("wkv6", wkv6_fwd, ref.rwkv6_chunked,
+                                 wkv6_inputs(21 + t, 2, t, 32),
+                                 {"B": 2, "T": t, "H": 32, "K": 64, "V": 64, "chunk": 64})
+                       for t in (1000, 37)]}
+    ssd = {"main": scan_case("ssd", ssd_fwd, ref.mamba2_ssd, ssd_inputs(30, 4, 2048, 112),
+                             {"Bt": 4, "T": 2048, "H": 112, "P": 64, "N": 64, "chunk": 128},
+                             ssd_work(4, 2048, 112, 64, 64, 128)),
+           "others": [scan_case("ssd", ssd_fwd, ref.mamba2_ssd, ssd_inputs(31 + t, 2, t, 112),
+                                {"Bt": 2, "T": t, "H": 112, "P": 64, "N": 64, "chunk": 128})
+                      for t in (1000, 100)]}
+    return flash, wkv6, ssd
 
 
 # ------------------------------------------------------------------ (d) serving
@@ -160,11 +301,20 @@ def timed_api(api, stats):
                                decode=wrap("decode", api.decode))
 
 
-def phase_serving():
-    cfg = get_arch(ARCH)
-    log(f"(d) serving {ARCH} at full width: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab}")
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one prefill wave: one per layer that runs a kernel."""
+    if cfg.family == "ssm":
+        return {"wkv6_fwd": cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"ssd_fwd": cfg.n_layers,
+                "flash_attention_fwd": cfg.n_layers // cfg.attn_every}
+    return {"flash_attention_fwd": cfg.n_layers}
+
+
+def phase_serving(arch: str):
+    cfg = get_arch(arch)
+    log(f"(d) serving {arch} at full width: {json.dumps(dataclasses.asdict(cfg))}")
+    torch.cuda.reset_peak_memory_stats()
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init(0, torch.bfloat16, "cuda")
@@ -183,16 +333,18 @@ def phase_serving():
     srv.api = timed_api(srv.api, stats)
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention_fwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     done = srv.serve(reqs)
     wall = time.perf_counter() - t0
-    launches = flash_attention_fwd.launches
+    counts = launches()
 
     waves = -(-n_req // batch)
-    if launches != cfg.n_layers * waves:
-        raise AssertionError(f"flash kernel launched {launches} times on the serving "
-                             f"path, expected {cfg.n_layers} layers x {waves} waves")
+    want = {name: n * waves for name, n in expected_launches(cfg).items()}
+    want = {name: want.get(name, 0) for name in KERNELS}
+    if counts != want:
+        raise AssertionError(f"{arch}: kernel launches on the serving path {counts}, "
+                             f"expected {want} ({waves} waves)")
     if sorted(r.rid for r in done) != list(range(n_req)):
         raise AssertionError("not every request was served")
     for r in done:
@@ -200,9 +352,9 @@ def phase_serving():
             raise AssertionError(f"request {r.rid}: bad output {r.out}")
     padded = sum(batch * max(lengths[w * batch:(w + 1) * batch]) for w in range(waves))
     serving = {
-        "arch": ARCH, "requests": n_req, "batch": batch, "smax": smax,
-        "max_new": max_new, "prompt_lengths": lengths, "waves": waves,
-        "flash_launches": launches, "prompt_tokens": sum(lengths),
+        "arch": arch, "layers": cfg.n_layers, "params": n_params, "requests": n_req,
+        "batch": batch, "smax": smax, "max_new": max_new, "prompt_lengths": lengths,
+        "waves": waves, "launches": counts, "prompt_tokens": sum(lengths),
         "prefill_padded_tokens": padded,
         "prefill_s": stats["prefill"], "decode_s": stats["decode"], "wall_s": wall,
         "prefill_tok_s": sum(lengths) / stats["prefill"],
@@ -210,8 +362,14 @@ def phase_serving():
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log(f"  served: {json.dumps(serving)}")
-    serving.update(check_consistency(cfg, api, params))
+    del srv
+    serving["consistency"] = check_consistency(cfg, api, params, SERVE_TOL[arch])
+    params32 = _tree_map(lambda x: x.float(), params)
+    serving["consistency_fp32"] = check_consistency(cfg, api, params32, FP32_TOL)
+    del params32
+    free_device_memory()
     serving["profile"] = profile_wave(cfg, api, params, batch, max(lengths), smax)
+    serving["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return serving
 
 
@@ -220,7 +378,11 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def check_consistency(cfg, api, params):
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def check_consistency(cfg, api, params, tol: float):
     """decode(prefill(x)) vs prefill(x + token) (tests/test_models_smoke.py), and
     kernel-path vs plain-path prefill logits, on the full-width weights."""
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -230,21 +392,24 @@ def check_consistency(cfg, api, params):
         logits_p, cache = api.prefill(params, toks, t + 8)
         nxt = logits_p[:, -1, :cfg.vocab].argmax(-1)
         logits_d, _ = api.decode(params, nxt[:, None], cache, t)
+        del cache
         full, _ = api.prefill(params, torch.cat([toks, nxt[:, None]], 1), t + 8)
-        ok_d, err_d = rel_close(logits_d[:, 0], full[:, -1], SERVE_TOL)
+        ok_d, err_d = rel_close(logits_d[:, 0], full[:, -1], tol)
 
-        kernel_launches = flash_attention_fwd.launches
-        saved = ops.flash_attention
-        ops.flash_attention = lambda q, k, v, window=0, q_offset=0: ref.flash_attention(
-            q, k, v, q_offset=q_offset, window=window)
+        before = launches()
+        saved = {name: getattr(ops, name) for name in PLAIN_OPS}
+        for name, fn in PLAIN_OPS.items():
+            setattr(ops, name, fn)
         try:
             plain_p, _ = api.prefill(params, toks, t + 8)
         finally:
-            ops.flash_attention = saved
-        if flash_attention_fwd.launches != kernel_launches:
-            raise AssertionError("the plain-path prefill launched the kernel")
-        ok_k, err_k = rel_close(logits_p, plain_p, SERVE_TOL)
-    res = {"consistency_B": b, "consistency_T": t, "tolerance": SERVE_TOL,
+            for name, fn in saved.items():
+                setattr(ops, name, fn)
+        if launches() != before:
+            raise AssertionError("the plain-path prefill launched a kernel")
+        ok_k, err_k = rel_close(logits_p, plain_p, tol)
+    res = {"weights": str(next(_leaves(params)).dtype).split(".")[-1],
+           "consistency_B": b, "consistency_T": t, "tolerance": tol,
            "decode_vs_prefill_err": err_d, "kernel_vs_plain_prefill_err": err_k,
            "logit_absmax": float(full.float().abs().max())}
     log(f"  consistency: {json.dumps(res)}")
@@ -292,7 +457,22 @@ def profile_wave(cfg, api, params, batch: int, t: int, smax: int, steps: int = 4
     return res
 
 
+def free_device_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main
+
+def kernel_line(name, source, replaces, case, launches_by_path, **extra):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+            "max_abs_err": case["max_abs_err"], "tolerance": case["tolerance"],
+            "ms": case["ms"], "kernel_ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"], "shape": case["shape"],
+            "flops": case["flops"], "bytes": case["bytes"], **extra}
+
 
 def main() -> None:
     smi = device_line()
@@ -300,35 +480,53 @@ def main() -> None:
     log(f"(a) device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
+    sources = ["flash_attention", "rwkv6_scan", "mamba2_ssd"]
     t0 = time.perf_counter()
-    _build.build("flash_attention")
+    _build.build_all(sources)
     build_s = time.perf_counter() - t0
-    log(f"(b) built flash_attention.cu in {build_s:.1f} s")
-    for line in _build.build_logs.get("flash_attention", "").splitlines():
-        if any(w in line for w in ("Compiling entry", "registers", "spill")):
-            log(f"  ptxas: {line.strip()}")
+    log(f"(b) built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s")
+    for src in sources:
+        for line in _build.build_logs.get(src, "").splitlines():
+            if any(w in line for w in ("Compiling entry", "registers", "spill")):
+                log(f"  ptxas {src}: {line.strip()}")
 
-    main_case, other_cases = phase_kernels()
-    serving = phase_serving()
+    flash, wkv6, ssd = phase_kernels()
+    peaks = [torch.cuda.max_memory_allocated() / 1e9]
+    free_device_memory()
+    servings = {}
+    for arch in ("codeqwen1.5-7b", "zamba2-7b", "rwkv6-1.6b"):
+        servings[arch] = phase_serving(arch)
+        peaks.append(servings[arch]["phase_peak_mem_gb"])
+        free_device_memory()
 
-    kernel = {
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:70",
-        "launches": serving["flash_launches"],
-        "max_abs_err": main_case["max_abs_err"], "tolerance": main_case["tolerance"],
-        "ms": main_case["ms"], "kernel_ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
-        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
-        "shape": main_case["shape"], "dtype": main_case["dtype"],
-        "flops": main_case["flops"], "bytes": main_case["bytes"],
-        "other_cases": other_cases,
-    }
-    print(json.dumps({"kernels": [kernel], "device": name, "nvidia_smi": smi,
-                      "build_s": build_s}))
-    print(json.dumps({"serving": serving, "device": name, "nvidia_smi": smi}))
+    def by_path(kernel):
+        return {a: s["launches"][kernel] for a, s in servings.items() if s["launches"][kernel]}
+
+    kernels = [
+        kernel_line("flash_attention_fwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:70", flash["main"],
+                    by_path("flash_attention_fwd"), dtype=flash["main"]["dtype"],
+                    library="torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
+                    hd112=flash["hd112"], other_cases=flash["others"]),
+        kernel_line("wkv6_fwd", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                    "src/repro/kernels/rwkv6_scan.py:68", wkv6["main"], by_path("wkv6_fwd"),
+                    dtype="float32", exps=wkv6["main"]["exps"], library=None,
+                    max_rel_err=wkv6["main"]["max_rel_err"], other_cases=wkv6["others"]),
+        kernel_line("ssd_fwd", "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+                    "src/repro/kernels/mamba2_ssd.py:65", ssd["main"], by_path("ssd_fwd"),
+                    dtype="float32", exps=ssd["main"]["exps"], library=None,
+                    max_rel_err=ssd["main"]["max_rel_err"], other_cases=ssd["others"]),
+    ]
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was not launched on any serving path")
+    print(json.dumps({"kernels": kernels, "device": name, "nvidia_smi": smi,
+                      "build_s": build_s, "script_peak_mem_gb": max(peaks),
+                      "script_s": time.perf_counter() - t_start}))
+    for serving in servings.values():
+        print(json.dumps({"serving": serving, "device": name, "nvidia_smi": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

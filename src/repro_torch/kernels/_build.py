@@ -13,8 +13,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -50,6 +51,12 @@ def build(name: str) -> Path:
     build_logs[name] = proc.stdout + proc.stderr
     os.replace(tmp, out)
     return out
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile several sources at once, one ``nvcc`` process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -231,6 +231,7 @@ cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
+    case 112: return launch<T, 112>(p, stream);   // zamba2-7b's shared attention block
     case 128: return launch<T, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }

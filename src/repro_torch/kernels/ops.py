@@ -12,6 +12,8 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_fwd
+from .mamba2_ssd import ssd_fwd
+from .rwkv6_scan import wkv6_fwd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -23,3 +25,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, q_offset=q_offset, window=window)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor, chunk: int = 64):
+    """Chunked RWKV6 WKV recurrence with a state in and out.
+    r,k,w [B,T,H,K]; v [B,T,H,V]; u [H,K]; state [B,H,K,V] -> (y, state)."""
+    if r.is_cuda:
+        return wkv6_fwd(r, k, v, w, u, state, chunk)
+    if r.device.type == "cpu":
+        return ref.rwkv6_chunked(r, k, v, w, u, state, chunk)
+    raise ValueError(f"wkv6: no kernel for device {r.device}")
+
+
+def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, state: torch.Tensor, chunk: int = 128):
+    """Chunked Mamba2 SSD scan with a state in and out.
+    x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B,C [Bt,T,N]; state [Bt,H,P,N] -> (y, state)."""
+    if x.is_cuda:
+        return ssd_fwd(x, dt, A, B, C, state, chunk)
+    if x.device.type == "cpu":
+        return ref.mamba2_ssd(x, dt, A, B, C, state, chunk)
+    raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")

@@ -1,11 +1,15 @@
 """Plain PyTorch versions of the port's kernels (the correctness yardstick).
 
-Mirrors ``repro.kernels.ref`` for the flash-attention forward: the same
-blockwise online softmax, the same padding, the same sliding-window span
-and the same rounding points (logits in fp32 from exact products, the
-probabilities rounded to v's dtype before the PV product).  The CPU tests
-hold these to the JAX functions; ``chip_smoke.py`` holds the CUDA kernel
-to them on the card.
+Mirrors ``repro.kernels.ref``:
+  * the flash-attention forward: the same blockwise online softmax, the
+    same padding, the same sliding-window span and the same rounding points
+    (logits in fp32 from exact products, the probabilities rounded to v's
+    dtype before the PV product);
+  * the RWKV6 WKV recurrence and the Mamba2 SSD scan, each as its per-step
+    oracle (``*_naive``) and its chunked form, with a state in and the final
+    state out.
+The CPU tests hold these to the JAX functions; ``chip_smoke.py`` holds the
+CUDA kernels to them on the card.
 """
 
 from __future__ import annotations
@@ -111,3 +115,122 @@ def attention_naive(q, k, v, q_offset: int = 0, window: int = 0):
     s = s.masked_fill(~mask[None, None, None], NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+
+
+# ================================================================= RWKV6 (WKV)
+
+def rwkv6_naive(r, k, v, w, u, state):
+    """Per-step WKV6 recurrence oracle.
+
+    r,k,w: [B,T,H,K]; v: [B,T,H,V]; u: [H,K]; state: [B,H,K,V].
+    y_t = r_t · (S_{t-1} + (u ⊙ k_t) v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    Returns (y [B,T,H,V], final state)."""
+    ys = []
+    S = state
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + u[None, :, :, None] * kv))
+        S = w[:, t][..., None] * S + kv
+    return torch.stack(ys, 1), S
+
+
+def rwkv6_chunked(r, k, v, w, u, state, chunk: int = 64):
+    """Chunked WKV6 (the formulation the WKV6 kernel computes).
+
+    Within a chunk, pairwise decays exp(cl_prev_i - cl_j) of the log-decay
+    cumsums; across chunks, the [B,H,K,V] state.  T is padded to a whole
+    number of chunks with w = 1 (no decay), which keeps the state exact."""
+    b, t, h, kdim = r.shape
+    vdim = v.shape[-1]
+    pad = (-t) % chunk
+    if pad:
+        r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    nt = r.shape[1] // chunk
+
+    def chunks(a, d):   # [B,T,H,d] -> [nt,B,H,c,d]
+        return a.reshape(b, nt, chunk, h, d).permute(1, 0, 3, 2, 4)
+
+    rc, kc, wc = (chunks(a, kdim) for a in (r, k, w))
+    vc = chunks(v, vdim)
+    mask = torch.arange(chunk, device=r.device)[:, None] > torch.arange(
+        chunk, device=r.device)[None, :]
+    uf = u.float()
+    S = state.float()
+    ys = []
+    for i in range(nt):
+        r_f, k_f, v_f = rc[i].float(), kc[i].float(), vc[i].float()
+        logw = torch.log(torch.clamp(wc[i].float(), min=1e-30))
+        cl = torch.cumsum(logw, dim=2)          # [B,H,c,K] inclusive
+        cl_prev = cl - logw                     # exclusive
+        y_state = torch.einsum("bhck,bhkv->bhcv", r_f * torch.exp(cl_prev), S)
+        diff = cl_prev[:, :, :, None, :] - cl[:, :, None, :, :]   # [B,H,i,j,K]
+        D = torch.exp(torch.clamp(diff, max=30.0)) * mask[None, None, :, :, None]
+        att = torch.einsum("bhik,bhijk,bhjk->bhij", r_f, D, k_f)
+        diag = torch.einsum("bhik,hk,bhik->bhi", r_f, uf, k_f)
+        y = (y_state + torch.einsum("bhij,bhjv->bhiv", att, v_f)
+             + diag[..., None] * v_f)
+        cl_last = cl[:, :, -1, :]
+        carry_w = torch.exp(torch.clamp(cl_last[:, :, None, :] - cl, max=30.0))
+        S = (torch.exp(cl_last)[..., None] * S
+             + torch.einsum("bhjk,bhjv->bhkv", carry_w * k_f, v_f))
+        ys.append(y.to(r.dtype))
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, nt * chunk, h, vdim)
+    return y[:, :t], S
+
+
+# ================================================================ Mamba2 (SSD)
+
+def mamba2_naive(x, dt, A, B, C, state):
+    """Per-step SSD oracle.  x: [Bt,T,H,P]; dt: [Bt,T,H]; A: [H] (negative);
+    B,C: [Bt,T,N]; state: [Bt,H,P,N].
+    h_t = exp(A dt_t) h_{t-1} + dt_t * x_t B_t^T ;  y_t = h_t C_t"""
+    ys = []
+    h = state
+    for t in range(x.shape[1]):
+        decay = torch.exp(A * dt[:, t])[..., None, None]          # [Bt,H,1,1]
+        upd = torch.einsum("bhp,bn->bhpn", x[:, t] * dt[:, t][..., None], B[:, t])
+        h = decay * h + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C[:, t]))
+    return torch.stack(ys, 1), h
+
+
+def mamba2_ssd(x, dt, A, B, C, state, chunk: int = 128):
+    """Chunked SSD (Mamba2's dual form; the formulation the SSD kernel
+    computes).  T is padded with dt = 0 and x = 0, which keeps the state
+    exact."""
+    bt, t, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-t) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    nt = x.shape[1] // chunk
+    xc = x.reshape(bt, nt, chunk, h, p).permute(1, 0, 3, 2, 4)   # [nt,b,h,c,p]
+    dtc = dt.reshape(bt, nt, chunk, h).permute(1, 0, 3, 2)       # [nt,b,h,c]
+    Bc = B.reshape(bt, nt, chunk, n).transpose(0, 1)             # [nt,b,c,n]
+    Cc = C.reshape(bt, nt, chunk, n).transpose(0, 1)
+    mask = torch.arange(chunk, device=x.device)[:, None] >= torch.arange(
+        chunk, device=x.device)[None, :]
+    Af = A.float()
+    S = state.float()
+    ys = []
+    for i in range(nt):
+        x_f, dt_f = xc[i].float(), dtc[i].float()
+        B_f, C_f = Bc[i].float(), Cc[i].float()
+        cl = torch.cumsum(Af[None, :, None] * dt_f, dim=-1)       # [b,h,c]
+        y_state = torch.einsum("bhpn,bcn,bhc->bhcp", S, C_f, torch.exp(cl))
+        diff = cl[:, :, :, None] - cl[:, :, None, :]
+        L = torch.exp(torch.clamp(diff, max=30.0)) * mask[None, None]
+        G = torch.einsum("bin,bjn->bij", C_f, B_f)
+        M = G[:, None] * L                                         # [b,h,i,j]
+        y = y_state + torch.einsum("bhij,bhj,bhjp->bhip", M, dt_f, x_f)
+        cl_last = cl[:, :, -1]
+        decay_tail = torch.exp(torch.clamp(cl_last[:, :, None] - cl, max=30.0))
+        S = (torch.exp(cl_last)[..., None, None] * S
+             + torch.einsum("bhc,bhcp,bcn->bhpn", decay_tail * dt_f, x_f, B_f))
+        ys.append(y)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(bt, nt * chunk, h, p)
+    return y[:, :t].to(x.dtype), S

@@ -2,8 +2,9 @@
 
 Random-initialises the reduced configuration of ``--arch`` in fp32 from a
 fixed seed (there is no checkpoint restore), then serves a batch of
-synthetic requests through prefill + KV-cached decode and prints the
-generated tokens."""
+synthetic requests through prefill + cached decode and prints the
+generated tokens.  Every family but moe is served (``--arch rwkv6-1.6b``,
+``--arch zamba2-7b``, the dense ones)."""
 
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ does nothing on one device, so it is not carried over.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -73,6 +73,40 @@ def init_block(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
         "ln2": torch.ones(cfg.d_model, dtype=dtype, device=dev),
         "mlp": init_mlp(cfg.d_model, cfg.d_ff, gen, dtype),
     }
+
+
+# -------------------------------------------------------- [L]-stacked layers
+
+def init_stacked(n: int, init_one: Callable[[], Params]) -> Params:
+    """``n`` draws of ``init_one()`` stacked on a leading [n] axis, as the
+    reference's ``jax.vmap`` over layer keys lays them out.  Layers are drawn
+    one at a time into the stacked leaves, so the fp32 draw never holds more
+    than one layer."""
+    first = init_one()
+    stacked = _empty_like_stacked(first, n)
+    _stack_into(stacked, first, 0)
+    for i in range(1, n):
+        _stack_into(stacked, init_one(), i)
+    return stacked
+
+
+def _empty_like_stacked(tree: Params, n: int) -> Params:
+    return {k: _empty_like_stacked(v, n) if isinstance(v, dict)
+            else v.new_empty((n, *v.shape)) for k, v in tree.items()}
+
+
+def _stack_into(dst: Params, src: Params, i: int) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _stack_into(dst[k], v, i)
+        else:
+            dst[k][i] = v
+
+
+def layer_slice(stacked: Params, i: int) -> Params:
+    """Layer ``i``'s slice of an [L]-stacked parameter tree (views, no copy)."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
 
 
 # ------------------------------------------------------------------- primitives

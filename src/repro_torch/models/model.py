@@ -8,7 +8,10 @@
     cache_spec    = api.cache_spec(batch, smax, kv_dtype)  # {name: (shape, dtype)}
 
 musicgen-large and chameleon-34b reuse the dense backbone; their modality
-frontends are stubs, as in the reference: the inputs are token ids.
+frontends are stubs, as in the reference: the inputs are token ids.  For
+rwkv6 (family ``ssm``) and zamba2 (``hybrid``) the cache is the model's
+recurrent state (and, for zamba2, the shared block's K/V): a dict the
+server hands back to ``decode`` unread.
 """
 
 from __future__ import annotations
@@ -19,12 +22,10 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ArchConfig
-from . import transformer
+from . import rwkv6, transformer, zamba2
 
 _NOT_PORTED = {
     "moe": "ROADMAP.md, open item 1.6 (models/moe.py)",
-    "ssm": "ROADMAP.md, open item 1.7 (models/rwkv6.py)",
-    "hybrid": "ROADMAP.md, open item 1.8 (models/zamba2.py)",
 }
 
 
@@ -43,6 +44,31 @@ def get_model(cfg: ArchConfig) -> ModelApi:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to PyTorch yet; "
             f"see {_NOT_PORTED[cfg.family]}")
+    if cfg.family == "ssm":          # rwkv6
+        return ModelApi(
+            cfg=cfg,
+            init=lambda seed=0, dtype=torch.bfloat16, device="cuda":
+                rwkv6.init_params(cfg, seed, dtype, device),
+            forward=lambda p, toks: rwkv6.forward(cfg, p, toks)[0],
+            prefill=lambda p, toks, smax=0, kv="bfloat16":
+                rwkv6.prefill(cfg, p, toks, smax, kv),
+            decode=lambda p, tok, cache, cache_len:
+                rwkv6.decode_step(cfg, p, tok, cache, cache_len),
+            cache_spec=lambda batch, smax=0, kv="bfloat16": rwkv6.state_spec(cfg, batch),
+        )
+    if cfg.family == "hybrid":       # zamba2
+        return ModelApi(
+            cfg=cfg,
+            init=lambda seed=0, dtype=torch.bfloat16, device="cuda":
+                zamba2.init_params(cfg, seed, dtype, device),
+            forward=lambda p, toks: zamba2.forward(cfg, p, toks)[0],
+            prefill=lambda p, toks, smax, kv="bfloat16":
+                zamba2.prefill(cfg, p, toks, smax, kv),
+            decode=lambda p, tok, cache, cache_len:
+                zamba2.decode_step(cfg, p, tok, cache, cache_len),
+            cache_spec=lambda batch, smax, kv="bfloat16":
+                zamba2.state_spec(cfg, batch, smax, kv),
+        )
     # dense / audio / vlm use the transformer backbone
     return ModelApi(
         cfg=cfg,

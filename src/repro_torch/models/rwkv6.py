@@ -1,0 +1,191 @@
+"""RWKV6 "Finch", the attention-free RNN LM (rwkv6-1.6b).
+
+Mirrors ``repro.models.rwkv6``: data-dependent token shift (ddlerp with a
+shared low-rank projection), data-dependent per-channel decay
+w_t = exp(-exp(w0 + lora(x_t))), and the same parameter tree with layers
+stacked on [L].  At T > 1 the WKV recurrence goes through ``ops.wkv6``, so
+on the card it runs the hand-written WKV6 kernel; a single decode step
+takes the per-step ``ref.rwkv6_naive``, as the reference does.
+
+State per layer: tmix shift [B,d], cmix shift [B,d] (both in the compute
+dtype, as the reference returns them, whatever ``state_spec`` says) and
+the fp32 wkv state [B,H,K,V].
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..configs.base import ArchConfig
+from ..kernels import ops, ref
+from . import layers
+from .layers import Params, _dense_init, _mm, _normal
+
+MAA_RANK = 32     # token-shift lora rank
+DECAY_RANK = 64   # decay lora rank
+
+State = Dict[str, torch.Tensor]
+
+
+def init_layer(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    hd = cfg.ssm_head_dim
+    H = d // hd
+    dev = gen.device
+
+    def full(shape, value, dt=dtype):
+        return torch.full(shape, value, dtype=dt, device=dev)
+
+    return {
+        "ln1": full((d,), 1.0),
+        "tmix": {
+            "maa_x": full((d,), 0.0),
+            "maa_rkvwg": full((5, d), 0.0),
+            "maa_w1": _dense_init(gen, d, 5 * MAA_RANK, dtype),
+            "maa_w2": _normal(gen, (5, MAA_RANK, d), 0.02, dtype),
+            "decay": full((d,), -4.0, torch.float32),       # w0
+            "decay_w1": _dense_init(gen, d, DECAY_RANK, dtype),
+            "decay_w2": _dense_init(gen, DECAY_RANK, d, dtype),
+            "u": _normal(gen, (H, hd), 0.3, torch.float32),   # "time_faaaa" bonus
+            "wr": _dense_init(gen, d, d, dtype),
+            "wk": _dense_init(gen, d, d, dtype),
+            "wv": _dense_init(gen, d, d, dtype),
+            "wg": _dense_init(gen, d, d, dtype),
+            "wo": _dense_init(gen, d, d, dtype),
+            "ln_x": full((d,), 1.0),
+        },
+        "ln2": full((d,), 1.0),
+        "cmix": {
+            "maa_k": full((d,), 0.0),
+            "maa_r": full((d,), 0.0),
+            "wk": _dense_init(gen, d, f, dtype),
+            "wv": _dense_init(gen, f, d, dtype),
+            "wr": _dense_init(gen, d, d, dtype),
+        },
+    }
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
+                device="cuda") -> Params:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``: the
+    reference's tree and scales, other draws."""
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    return {"emb": layers.init_embeddings(cfg, gen, dtype),
+            "layers": layers.init_stacked(cfg.n_layers,
+                                          lambda: init_layer(cfg, gen, dtype))}
+
+
+# ------------------------------------------------------------------ pieces
+
+def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Token shift: x_{t-1} with ``prev`` filling t=0.  x [B,T,d], prev [B,d]."""
+    return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _tmix_inputs(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
+    """Data-dependent lerp (ddlerp) producing the 5 mixed inputs r,k,v,w,g."""
+    sx = _shift(x, x_prev) - x
+    xxx = x + sx * p["maa_x"]
+    m = torch.tanh(_mm(xxx, p["maa_w1"]))
+    m = m.reshape(*m.shape[:2], 5, MAA_RANK)
+    dt = torch.promote_types(m.dtype, p["maa_w2"].dtype)
+    mm = torch.einsum("btfr,frd->fbtd", m.to(dt), p["maa_w2"].to(dt))
+    return [x + sx * (p["maa_rkvwg"][i] + mm[i]) for i in range(5)]   # xr,xk,xv,xw,xg
+
+
+def tmix(cfg: ArchConfig, p: Params, x: torch.Tensor, x_prev: torch.Tensor,
+         wkv_state: torch.Tensor, chunk: int = 64):
+    d = cfg.d_model
+    hd = cfg.ssm_head_dim
+    H = d // hd
+    b, t, _ = x.shape
+    xr, xk, xv, xw, xg = _tmix_inputs(p, x, x_prev)
+    r = _mm(xr, p["wr"]).reshape(b, t, H, hd).float()
+    k = _mm(xk, p["wk"]).reshape(b, t, H, hd).float()
+    v = _mm(xv, p["wv"]).reshape(b, t, H, hd).float()
+    g = F.silu(_mm(xg, p["wg"]))
+    ww = p["decay"] + _mm(torch.tanh(_mm(xw, p["decay_w1"])), p["decay_w2"]).float()
+    w = torch.exp(-torch.exp(ww)).reshape(b, t, H, hd)
+    if t == 1:
+        y, new_state = ref.rwkv6_naive(r, k, v, w, p["u"], wkv_state)
+    else:
+        y, new_state = ops.wkv6(r, k, v, w, p["u"], wkv_state, chunk)
+    y = layers.rms_norm(y.reshape(b, t, d).to(x.dtype), p["ln_x"]) * g
+    # the shift states are copies: a view would keep the layer's whole input alive
+    return _mm(y, p["wo"]), x[:, -1, :].clone(), new_state
+
+
+def cmix(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
+    sx = _shift(x, x_prev) - x
+    xk = x + sx * p["maa_k"]
+    xr = x + sx * p["maa_r"]
+    k = torch.square(F.relu(_mm(xk, p["wk"])))
+    return torch.sigmoid(_mm(xr, p["wr"])) * _mm(k, p["wv"]), x[:, -1, :].clone()
+
+
+# ------------------------------------------------------------------ model
+
+def state_spec(cfg: ArchConfig, batch: int):
+    d = cfg.d_model
+    hd = cfg.ssm_head_dim
+    H = d // hd
+    L = cfg.n_layers
+    return {
+        "tmix_x": ((L, batch, d), torch.bfloat16),
+        "cmix_x": ((L, batch, d), torch.bfloat16),
+        "wkv": ((L, batch, H, hd, hd), torch.float32),
+    }
+
+
+def zero_state(cfg: ArchConfig, batch: int, device="cpu") -> State:
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in state_spec(cfg, batch).items()}
+
+
+def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+              state: State = None) -> Tuple[torch.Tensor, State]:
+    """tokens [B,T] -> (final hidden [B,T,d], new state)."""
+    b, _ = tokens.shape
+    if state is None:
+        state = zero_state(cfg, b, tokens.device)
+    h = layers.embed(params["emb"], tokens)
+    tx, cx, wkv = [], [], []
+    for i in range(cfg.n_layers):
+        lp = layers.layer_slice(params["layers"], i)
+        att, tx2, wkv2 = tmix(cfg, lp["tmix"], layers.rms_norm(h, lp["ln1"]),
+                              state["tmix_x"][i].to(h.dtype), state["wkv"][i])
+        h = h + att
+        ffn, cx2 = cmix(lp["cmix"], layers.rms_norm(h, lp["ln2"]),
+                        state["cmix_x"][i].to(h.dtype))
+        h = h + ffn
+        tx.append(tx2)
+        cx.append(cx2)
+        wkv.append(wkv2)
+    return h, {"tmix_x": torch.stack(tx), "cmix_x": torch.stack(cx),
+               "wkv": torch.stack(wkv)}
+
+
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+            state: State = None) -> Tuple[torch.Tensor, State]:
+    """tokens [B,T] -> (logits [B,T,V], new state)."""
+    h, new_state = _backbone(cfg, params, tokens, state)
+    return layers.unembed(params["emb"], h), new_state
+
+
+def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+            smax: int = 0, kv_dtype_name: str = "bfloat16"):
+    """The prompt from a zero state -> (last-token logits [B,1,V], state).
+    ``smax`` and ``kv_dtype_name`` are taken and ignored, as in the reference:
+    the state does not grow with the sequence."""
+    h, state = _backbone(cfg, params, tokens)
+    return layers.unembed(params["emb"], h[:, -1:]), state
+
+
+def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
+                state: State, cache_len=None):
+    """One token [B,1] through the per-step recurrence -> (logits [B,1,V], state)."""
+    return forward(cfg, params, token, state)

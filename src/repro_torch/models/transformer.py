@@ -29,20 +29,6 @@ def _residual_scale(cfg: ArchConfig) -> float:
     return 1.4 / (cfg.n_layers ** 0.5) if cfg.depth_scaled_residual else 1.0
 
 
-def _layer(stacked: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the [L]-stacked parameter tree (views, no copy)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
-
-
-def _stack_into(dst: Params, src: Params, i: int) -> None:
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _stack_into(dst[k], v, i)
-        else:
-            dst[k][i] = v
-
-
 # ------------------------------------------------------------------ init
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
@@ -50,23 +36,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
 
     Same tree and scales as the reference (``layers._dense_init``,
-    ``init_embeddings``); the draws differ, since the generators do.
-    Layers are drawn one at a time into the stacked leaves, so the fp32
-    draw never holds more than one layer."""
+    ``init_embeddings``); the draws differ, since the generators do."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     emb = layers.init_embeddings(cfg, gen, dtype)
-    first = layers.init_block(cfg, gen, dtype)
-    stacked = _empty_like_stacked(first, cfg.n_layers)
-    _stack_into(stacked, first, 0)
-    for i in range(1, cfg.n_layers):
-        _stack_into(stacked, layers.init_block(cfg, gen, dtype), i)
+    stacked = layers.init_stacked(cfg.n_layers,
+                                  lambda: layers.init_block(cfg, gen, dtype))
     return {"emb": emb, "layers": stacked}
-
-
-def _empty_like_stacked(tree: Params, n: int) -> Params:
-    return {k: _empty_like_stacked(v, n) if isinstance(v, dict)
-            else v.new_empty((n, *v.shape)) for k, v in tree.items()}
 
 
 # ------------------------------------------------------------------ forward
@@ -95,7 +71,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tens
     h = layers.embed(params["emb"], tokens)
     rs = _residual_scale(cfg)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = layers.layer_slice(params["layers"], i)
         h = h + rs * _attn_full(cfg, lp, h, positions)[0]
         h = h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
     return layers.unembed(params["emb"], h)
@@ -139,7 +115,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,
     h = layers.embed(params["emb"], tokens)
     rs = _residual_scale(cfg)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = layers.layer_slice(params["layers"], i)
         attn, k, v = _attn_full(cfg, lp, h, positions)
         h = h + rs * attn
         h = h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
@@ -172,7 +148,7 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     write_pos = cache_len % smax if cfg.swa_window else cache_len
     n_valid = min(cache_len + 1, smax)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = layers.layer_slice(params["layers"], i)
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8 else None
         out, _, _, _ = layers.attention_decode(
             cfg, lp["attn"], layers.rms_norm(h, lp["ln1"]), cache["k"][i],

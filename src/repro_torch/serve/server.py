@@ -1,10 +1,12 @@
-"""Batched serving through fixed batch slots: prefill, then KV-cached decode.
+"""Batched serving through fixed batch slots: prefill, then cached decode.
 
 The same semantics as ``repro.serve.server``: requests are served in waves
 of ``batch`` slots, a short wave is filled with dummy requests, prompts are
 left-padded with token 0 (and, as in the reference, no pad mask is applied,
 so pad tokens are attended to), decoding is greedy over the real vocab, and
-the cache length starts at the wave's longest prompt.
+the cache length starts at the wave's longest prompt.  The cache is what
+the model's ``prefill`` returns (a KV cache, or rwkv6's and zamba2's
+recurrent state) and is handed back to ``decode`` unread.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ class BatchServer:
                 cur = logits[:, -1, :vocab].argmax(-1)
                 for out, t in zip(outs, cur.tolist()):
                     out.append(t)
-            del cache   # free this wave's KV cache before the next wave allocates one
+            del cache   # free this wave's cache before the next wave allocates one
             for i, r in enumerate(wave):
                 if r.rid >= 0:
                     r.out = outs[i][: r.max_new]

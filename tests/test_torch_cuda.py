@@ -6,7 +6,8 @@ the JAX package, so they run on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of tests/test_kernels_pallas.py: 2e-3 for fp32, 2e-2
-for bf16, whose 8-bit mantissa rounds the inputs and the output.
+for bf16, whose 8-bit mantissa rounds the inputs and the output, and 3e-3
+for the fp32 WKV6 and SSD scans.
 """
 
 import pytest
@@ -14,8 +15,11 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.mamba2_ssd import ssd_fwd
+from repro_torch.kernels.rwkv6_scan import wkv6_fwd
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+SCAN_TOL = 3e-3
 
 
 @pytest.fixture
@@ -81,3 +85,96 @@ def test_ops_on_cuda_launches_the_kernel(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert out.is_cuda and flash_attention_fwd.launches == 1
     _close(out, ref.flash_attention(q, k, v), TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_head_dim_112(cuda):
+    """zamba2-7b's shared attention block: 32 heads of 112, bf16."""
+    q, k, v = _inputs(6, 2, 300, 300, 4, 1, 112, torch.bfloat16, cuda)
+    out, lse = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    want, want_lse = ref._flash_fwd_impl(q, k, v, 0, 0, 512, 1024)
+    _close(out, want, TOL[torch.bfloat16])
+    _close(lse, want_lse, 2e-3)
+
+
+def _wkv6_inputs(seed, b, t, h, device, d=64):
+    """tests/test_kernels_pallas.py's value ranges, and a nonzero state."""
+    gen = torch.Generator().manual_seed(seed)
+    n = lambda *shape: torch.randn(shape, generator=gen)
+    xs = (n(b, t, h, d) * 0.5, n(b, t, h, d) * 0.5, n(b, t, h, d) * 0.5,
+          torch.sigmoid(n(b, t, h, d) - 1.0), n(h, d) * 0.3, n(b, h, d, d) * 0.2)
+    return tuple(x.to(device) for x in xs)
+
+
+def _ssd_inputs(seed, b, t, h, device, p=64, n=64):
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen)
+    xs = (r(b, t, h, p) * 0.5, torch.nn.functional.softplus(r(b, t, h) - 1.0),
+          -r(h).abs(), r(b, t, n) * 0.5, r(b, t, n) * 0.5, r(b, h, p, n) * 0.2)
+    return tuple(x.to(device) for x in xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h", [
+    (2, 1, 2),          # one step
+    (2, 37, 3),         # shorter than a chunk
+    (1, 200, 2),        # ragged: 3 chunks and 8 rows
+    (3, 128, 4),        # whole chunks
+    (4, 2048, 32),      # rwkv6-1.6b prefill: B=4, H=32
+])
+def test_wkv6_kernel_matches_plain(cuda, b, t, h):
+    xs = _wkv6_inputs(7, b, t, h, cuda)
+    y, state = wkv6_fwd(*xs)
+    torch.cuda.synchronize()
+    want_y, want_state = ref.rwkv6_chunked(*xs, chunk=64)
+    _close(y, want_y, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h", [
+    (2, 1, 2), (2, 37, 3), (1, 200, 2), (3, 256, 4),
+    (4, 2048, 112),     # zamba2-7b prefill: Bt=4, H=112
+])
+def test_ssd_kernel_matches_plain(cuda, b, t, h):
+    xs = _ssd_inputs(8, b, t, h, cuda)
+    y, state = ssd_fwd(*xs)
+    torch.cuda.synchronize()
+    want_y, want_state = ref.mamba2_ssd(*xs, chunk=128)
+    _close(y, want_y, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_reject_what_they_do_not_take(cuda):
+    xs = _wkv6_inputs(9, 1, 64, 2, cuda, d=32)
+    with pytest.raises(ValueError, match="head size"):
+        wkv6_fwd(*xs)
+    xs = _wkv6_inputs(9, 1, 64, 2, cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv6_fwd(*xs, chunk=32)
+    with pytest.raises(ValueError, match="fp32"):
+        wkv6_fwd(*(x.double() for x in xs))
+    xs = _ssd_inputs(9, 1, 64, 2, cuda, p=32)
+    with pytest.raises(ValueError, match="not compiled"):
+        ssd_fwd(*xs)
+    x, dt, A, B, C, s = _ssd_inputs(9, 1, 64, 2, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, B, C, s)
+
+
+@pytest.mark.cuda
+def test_scan_ops_on_cuda_launch_their_kernels(cuda, monkeypatch):
+    monkeypatch.setattr(wkv6_fwd, "launches", 0)
+    monkeypatch.setattr(ssd_fwd, "launches", 0)
+    xs = _wkv6_inputs(10, 1, 100, 2, cuda)
+    y, state = ops.wkv6(*xs)
+    torch.cuda.synchronize()
+    assert y.is_cuda and wkv6_fwd.launches == 1
+    _close(y, ref.rwkv6_chunked(*xs)[0], SCAN_TOL)
+    xs = _ssd_inputs(11, 1, 100, 2, cuda)
+    y, state = ops.mamba2_ssd(*xs)
+    torch.cuda.synchronize()
+    assert y.is_cuda and ssd_fwd.launches == 1
+    _close(state, ref.mamba2_ssd(*xs)[1], SCAN_TOL)

@@ -8,6 +8,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.mamba2_ssd import ssd_fwd
+from repro_torch.kernels.rwkv6_scan import wkv6_fwd
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
@@ -47,3 +49,35 @@ def test_ops_on_cpu_takes_the_plain_version(monkeypatch):
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(*_qkv())
+
+
+def _wkv6_inputs():
+    g = torch.Generator().manual_seed(1)
+    r, k, v = (torch.randn((1, 70, 2, 64), generator=g) for _ in range(3))
+    w = torch.rand((1, 70, 2, 64), generator=g)
+    return r, k, v, w, torch.randn((2, 64), generator=g), torch.zeros((1, 2, 64, 64))
+
+
+def _ssd_inputs():
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((1, 130, 2, 64), generator=g)
+    dt = torch.rand((1, 130, 2), generator=g)
+    B, C = (torch.randn((1, 130, 64), generator=g) for _ in range(2))
+    return x, dt, -torch.rand(2, generator=g), B, C, torch.zeros((1, 2, 64, 64))
+
+
+def test_scan_ops_on_cpu_take_the_plain_versions(monkeypatch):
+    monkeypatch.setattr(wkv6_fwd, "launches", 0)
+    monkeypatch.setattr(ssd_fwd, "launches", 0)
+    y, s = ops.wkv6(*_wkv6_inputs())
+    assert y.shape == (1, 70, 2, 64) and s.shape == (1, 2, 64, 64)
+    y, s = ops.mamba2_ssd(*_ssd_inputs())
+    assert y.shape == (1, 130, 2, 64) and s.shape == (1, 2, 64, 64)
+    assert wkv6_fwd.launches == 0 and ssd_fwd.launches == 0
+
+
+def test_scan_kernel_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_fwd(*_wkv6_inputs())
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_fwd(*_ssd_inputs())

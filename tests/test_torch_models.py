@@ -135,7 +135,7 @@ def test_prefill_decode_consistency(arch):
 def test_unported_families_raise():
     for name in ARCH_NAMES:
         cfg = torch_get_arch(name)
-        if cfg.family in ("moe", "ssm", "hybrid"):
+        if cfg.family == "moe":
             with pytest.raises(NotImplementedError, match="ROADMAP.md"):
                 get_model(cfg)
 

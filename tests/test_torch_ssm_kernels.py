@@ -1,0 +1,116 @@
+"""The WKV6 and SSD scans in the PyTorch port, on the CPU.
+
+The port's plain versions (``repro_torch.kernels.ref``) against the JAX
+package's ``ref`` (y and final state, from a nonzero initial state) and its
+Pallas kernels in interpret mode (y, from the zero state the Pallas kernels
+start from), on the same numpy inputs, in the value ranges and (t, chunk)
+grid of tests/test_kernels_pallas.py.  The CUDA kernels' own tests are in
+test_torch_cuda.py.  Tolerance 3e-3, the JAX package's fp32 tolerance for
+these scans.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.mamba2_ssd import ssd_fwd as pallas_ssd
+from repro.kernels.rwkv6_scan import wkv6_fwd as pallas_wkv6
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+
+TOL = 3e-3
+
+
+def _close(a, b, tol=TOL):
+    a = np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32)
+    np.testing.assert_allclose(a, np.asarray(b, np.float32), rtol=tol, atol=tol)
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def _softplus(x):
+    return np.log1p(np.exp(x))
+
+
+def _wkv6_inputs(seed, t, b=2, h=2, kd=16, vd=16):
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    arrs = (n(b, t, h, kd) * 0.5, n(b, t, h, kd) * 0.5, n(b, t, h, vd) * 0.5,
+            _sigmoid(n(b, t, h, kd) - 1.0).astype(np.float32), n(h, kd) * 0.3,
+            n(b, h, kd, vd) * 0.2)
+    return tuple(map(jnp.asarray, arrs)), tuple(map(torch.from_numpy, arrs))
+
+
+def _ssd_inputs(seed, t, bt=2, h=3, p=16, n=8):
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    arrs = (r(bt, t, h, p) * 0.5, _softplus(r(bt, t, h) - 1.0).astype(np.float32),
+            -np.abs(r(h)), r(bt, t, n) * 0.5, r(bt, t, n) * 0.5, r(bt, h, p, n) * 0.2)
+    return tuple(map(jnp.asarray, arrs)), tuple(map(torch.from_numpy, arrs))
+
+
+@pytest.mark.parametrize("t,chunk", [(64, 16), (128, 32), (100, 32), (20, 64)])
+def test_plain_rwkv6_chunked_matches_jax_ref_and_pallas(t, chunk):
+    (jr, jk, jv, jw, ju, js), (r, k, v, w, u, s) = _wkv6_inputs(t, t)
+    y, state = tref.rwkv6_chunked(r, k, v, w, u, s, chunk=chunk)
+    j_y, j_state = jref.rwkv6_chunked(jr, jk, jv, jw, ju, js, chunk=chunk)
+    _close(y, j_y)
+    _close(state, j_state)
+    y0, _ = tref.rwkv6_chunked(r, k, v, w, u, torch.zeros_like(s), chunk=chunk)
+    _close(y0, pallas_wkv6(jr, jk, jv, jw, ju, chunk=chunk, interpret=True))
+
+
+@pytest.mark.parametrize("t", [1, 37])
+def test_plain_rwkv6_naive_matches_jax(t):
+    (jr, jk, jv, jw, ju, js), (r, k, v, w, u, s) = _wkv6_inputs(100 + t, t)
+    y, state = tref.rwkv6_naive(r, k, v, w, u, s)
+    j_y, j_state = jref.rwkv6_naive(jr, jk, jv, jw, ju, js)
+    _close(y, j_y)
+    _close(state, j_state)
+
+
+@pytest.mark.parametrize("t,chunk", [(64, 16), (128, 64), (100, 32), (20, 128)])
+def test_plain_mamba2_ssd_matches_jax_ref_and_pallas(t, chunk):
+    (jx, jdt, jA, jB, jC, js), (x, dt, A, B, C, s) = _ssd_inputs(t, t)
+    y, state = tref.mamba2_ssd(x, dt, A, B, C, s, chunk=chunk)
+    j_y, j_state = jref.mamba2_ssd(jx, jdt, jA, jB, jC, js, chunk=chunk)
+    _close(y, j_y)
+    _close(state, j_state)
+    y0, _ = tref.mamba2_ssd(x, dt, A, B, C, torch.zeros_like(s), chunk=chunk)
+    _close(y0, pallas_ssd(jx, jdt, jA, jB, jC, chunk=chunk, interpret=True))
+
+
+@pytest.mark.parametrize("t", [1, 37])
+def test_plain_mamba2_naive_matches_jax(t):
+    (jx, jdt, jA, jB, jC, js), (x, dt, A, B, C, s) = _ssd_inputs(200 + t, t)
+    y, state = tref.mamba2_naive(x, dt, A, B, C, s)
+    j_y, j_state = jref.mamba2_naive(jx, jdt, jA, jB, jC, js)
+    _close(y, j_y)
+    _close(state, j_state)
+
+
+def test_chunked_scans_match_their_naive_steps():
+    """The chunked forms against the per-step oracles, ragged t, port only."""
+    _, (r, k, v, w, u, s) = _wkv6_inputs(7, 77)
+    for got, want in zip(tref.rwkv6_chunked(r, k, v, w, u, s, chunk=32),
+                         tref.rwkv6_naive(r, k, v, w, u, s)):
+        _close(got, want.numpy())
+    _, (x, dt, A, B, C, s) = _ssd_inputs(8, 77)
+    for got, want in zip(tref.mamba2_ssd(x, dt, A, B, C, s, chunk=32),
+                         tref.mamba2_naive(x, dt, A, B, C, s)):
+        _close(got, want.numpy())
+
+
+def test_ops_on_cpu_is_the_plain_chunked_form():
+    _, (r, k, v, w, u, s) = _wkv6_inputs(9, 50)
+    for got, want in zip(ops.wkv6(r, k, v, w, u, s, chunk=16),
+                         tref.rwkv6_chunked(r, k, v, w, u, s, chunk=16)):
+        assert torch.equal(got, want)
+    _, (x, dt, A, B, C, s) = _ssd_inputs(10, 50)
+    for got, want in zip(ops.mamba2_ssd(x, dt, A, B, C, s, chunk=16),
+                         tref.mamba2_ssd(x, dt, A, B, C, s, chunk=16)):
+        assert torch.equal(got, want)
