@@ -5,12 +5,14 @@
 
 Phases, each fatal on failure:
   (a) device: the card's name and power limit (nvidia-smi);
-  (b) build: nvcc compiles the port's CUDA sources for sm_90a, all at once;
+  (b) build: nvcc compiles the port's five CUDA sources for sm_90a, all at once;
   (c) kernels: each kernel against its plain PyTorch version on the card at
-      the shapes the serving paths give it (flash attention at hd 128 and
-      112, the WKV6 and SSD scans, with ragged and nonzero-state cases),
-      with its time, the plain version's, one library call's where there is
-      one, and its bound;
+      the shapes the serving and training paths give it (flash attention
+      forward at hd 128, 112 and minicpm-2b's 64, its backward at minicpm-2b's
+      training shape, the checksum bit for bit at the size of minicpm-2b's
+      largest parameter, the WKV6 and SSD scans, with ragged, windowed, offset
+      and nonzero-state cases), with its time, the plain version's, one library call's where
+      there is one, and its bound;
   (d) serving, one model after another, each at full published width with
       random bf16 weights from a seed: codeqwen1.5-7b, zamba2-7b and
       rwkv6-1.6b each serve 8 requests through ``BatchServer``.  Every
@@ -20,12 +22,24 @@ Phases, each fatal on failure:
       (``SERVE_TOL``, ``FP32_TOL``); last, one wave's prefill and decode steps run under
       torch.profiler for device time by kernel.  Each model's weights and
       caches are freed before the next one is made;
-  (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model,
-      the nvidia-smi line, and last the ``{"ok": true, ...}`` line.
+  (f) training: minicpm-2b at full published width, random bf16 weights with
+      fp32 master weights and moments, takes ``TRAIN_STEPS`` steps of
+      ``make_train_step`` at B=2, T=2048 on the arithmetic token sequences of
+      ``repro.launch.train``; the flash kernels' launches are checked per
+      step (forward twice per layer, with the remat recompute, backward once)
+      and every trained parameter is digested by the checksum kernel, bit for
+      bit against its plain version; one more step runs under torch.profiler.
+      Then, at 4 layers and full width, the kernel path against the plain
+      path (loss, every gradient, the params after 2 steps) in fp32 and bf16
+      (``FP32_TOL``, ``TRAIN_TOL``);
+  (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model, a
+      ``training`` JSON line, the nvidia-smi line, and last the
+      ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -44,11 +58,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.checksum import checksum as checksum_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.mamba2_ssd import ssd_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_fwd  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve.server import BatchServer, Request  # noqa: E402
+from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W power limit
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -67,9 +85,20 @@ SCAN_TOL = 3e-3     # fp32 WKV6 / SSD scans, tests/test_kernels_pallas.py:57,76-
 # 32 layers, 0.16 for zamba2-7b's 81 and 0.09 for rwkv6-1.6b's 24.
 SERVE_TOL = {"codeqwen1.5-7b": 5e-2, "zamba2-7b": 0.25, "rwkv6-1.6b": 0.15}
 FP32_TOL = 1e-3
-KERNELS = {"flash_attention_fwd": flash_attention_fwd, "ssd_fwd": ssd_fwd,
-           "wkv6_fwd": wkv6_fwd}
-PLAIN_OPS = {
+# Training, kernel path vs plain path at 4 layers of minicpm-2b, bf16 weights:
+# the loss, each gradient leaf (against its largest value) and the params
+# after 2 steps (against 1 + |b|).  In bf16 the two backward passes round
+# dq/dk/dv, and so every later gradient, to neighbouring bf16 numbers: the
+# gradients differ by up to 9.1e-3 of their leaf's largest value (about two
+# bf16 ulps), and the params after 2 steps by 2.9e-3, the bound AdamW gives
+# (a step is about +-lr, 5e-4 then 1e-3, for a gradient near zero whichever
+# rounding put it there); the loss by 7.5e-6 (measured on an H100; PERF.md).
+TRAIN_TOL = 2e-2
+TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "minicpm-2b", 2, 2048, 4
+KERNELS = {"flash_attention_fwd": flash_attention_fwd,
+           "flash_attention_bwd": flash_attention_bwd, "checksum": checksum_kernel,
+           "ssd_fwd": ssd_fwd, "wkv6_fwd": wkv6_fwd}
+PLAIN_OPS = {       # ref.flash_attention is differentiable: its backward is the plain one
     "flash_attention": lambda q, k, v, window=0, q_offset=0: ref.flash_attention(
         q, k, v, q_offset=q_offset, window=window),
     "mamba2_ssd": ref.mamba2_ssd,
@@ -88,6 +117,23 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """``ops`` routed to the plain versions for the duration, and checked to
+    launch no kernel."""
+    before = launches()
+    saved = {name: getattr(ops, name) for name in PLAIN_OPS}
+    for name, fn in PLAIN_OPS.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    if launches() != before:
+        raise AssertionError("the plain path launched a kernel")
 
 
 # ------------------------------------------------------------------ (a) device
@@ -251,6 +297,85 @@ def ssd_inputs(seed, b, t, h, p=64, n=64):
             r(b, t, n) * 0.5, r(b, t, n) * 0.5, r(b, h, p, n) * 0.2)
 
 
+def flash_bwd_case(b, t, kv, g, hd, window, q_offset, dtype, seed, tk=None, timed=False):
+    """K1-bwd on the forward kernel's out and lse, against ref._flash_bwd_impl
+    on the plain forward's own lse, so a wrong lse from K1 shows here too."""
+    tk = tk or t
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, t, kv, g, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, tk, kv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, tk, kv, hd), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, t, kv, g, hd), generator=gen, device="cuda").to(dtype)
+    out, lse = flash_attention_fwd(q, k, v, window=window, q_offset=q_offset)
+    got = flash_attention_bwd(q, k, v, out, lse, do, window, q_offset)
+    torch.cuda.synchronize()
+    _, want_lse = ref._flash_fwd_impl(q, k, v, q_offset, window, 512, 1024)
+    want = ref._flash_bwd_impl(q, k, v, want_lse, do, q_offset, window, 512, 1024)
+    del want_lse
+    tol = TOL[dtype]
+    errs = [(x.float() - w.float()).abs() for x, w in zip(got, want)]
+    ok = all(bool((e <= tol + tol * w.float().abs()).all()) and bool(torch.isfinite(x).all())
+             for e, w, x in zip(errs, want, got))
+    case = {"shape": {"B": b, "Tq": t, "Tk": tk, "KV": kv, "G": g, "hd": hd},
+            "window": window, "q_offset": q_offset, "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": max(float(e.max()) for e in errs),
+            "max_abs_err_dq_dk_dv": [float(e.max()) for e in errs],
+            "grad_absmax_dq_dk_dv": [float(w.float().abs().max()) for w in want],
+            "tolerance": tol, "ok": ok}
+    log(f"  flash bwd case {json.dumps(case)}")
+    if not ok:
+        raise AssertionError(f"flash backward kernel disagrees with its plain version: {case}")
+    if timed:
+        nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + 2 * lse.numel() * 4
+        # 5 products of 2*hd flops per visible pair: q.k and do.v recomputed, dv, dk, dq
+        case.update(bound(10 * hd * b * kv * g * visible_pairs(t, tk, q_offset, window),
+                          nbytes, dtype))
+        case["ms"] = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, window,
+                                                         q_offset), 10)
+        case["plain_ms"] = cuda_ms(
+            lambda: ref._flash_bwd_impl(q, k, v, lse, do, q_offset, window, 512, 1024), 3,
+            warmup=1)
+        if not (g == 1 and window == 0 and q_offset == 0 and t == tk):
+            raise ValueError("the SDPA yardstick computes plain causal MHA only")
+        qs, ks, vs = (x.reshape(b, x.shape[1], kv, hd).transpose(1, 2).contiguous()
+                      .requires_grad_() for x in (q, k, v))
+        o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        do_s = do.reshape(b, t, kv, hd).transpose(1, 2).contiguous()
+        case["library_ms"] = cuda_ms(     # the backward alone; its forward ran above
+            lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True), 10)
+        log(f"  flash bwd timed {json.dumps(case)}")
+    return case
+
+
+def checksum_case(n, block, seed, timed=False):
+    """K2 against ref.checksum, bit for bit; a changed word must change it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    got = checksum_kernel(words, block)
+    want = ref.checksum(words, block)
+    ok = bool(torch.equal(got, want))
+    if n:
+        words[n // 3] ^= 1
+        ok = ok and not torch.equal(checksum_kernel(words, block), got)
+        words[n // 3] ^= 1
+    case = {"shape": {"n": n}, "block": block, "digest": got.tolist(),
+            "max_abs_err": float((got - want).abs().max()), "tolerance": 0, "ok": ok}
+    log(f"  checksum case {json.dumps(case)}")
+    if not ok:
+        raise AssertionError(f"checksum kernel disagrees with its plain version or misses "
+                             f"a changed word: {case}")
+    if timed:
+        # each word read once; its two integer multiply-adds are not bound by an
+        # operation rate (the table of peaks gives none for 32-bit integers)
+        case.update(bound(0, 4 * n + 8, torch.float32), int_ops=4 * n)
+        case["ms"] = cuda_ms(lambda: checksum_kernel(words, block), 20)
+        case["plain_ms"] = cuda_ms(lambda: ref.checksum(words, block), 3, warmup=1)
+        case["library_ms"] = None     # no single PyTorch call computes the digest
+        log(f"  checksum timed {json.dumps(case)}")
+    return case
+
+
 def phase_kernels():
     log("(c) kernels vs their plain versions on the card")
     flash = {"main": flash_case(4, 2048, 2048, 32, 1, 128, 0, 0, torch.bfloat16, 10,
@@ -258,6 +383,9 @@ def phase_kernels():
              # zamba2-7b's shared attention block: 32 heads of 112
              "hd112": flash_case(4, 2048, 2048, 32, 1, 112, 0, 0, torch.bfloat16, 13,
                                  timed=True),
+             # minicpm-2b's training shape: 36 heads of 64
+             "train_hd64": flash_case(TRAIN_B, TRAIN_T, TRAIN_T, 36, 1, 64, 0, 0,
+                                      torch.bfloat16, 14, timed=True),
              "others": [flash_case(1, 1000, 1100, 2, 4, 64, 256, 100, torch.float32, 11),
                         flash_case(2, 333, 333, 4, 2, 32, 0, 0, torch.bfloat16, 12)]}
     # the main-path shapes (rwkv6-1.6b: B=4, H=32, K=V=64; zamba2-7b: Bt=4,
@@ -276,7 +404,22 @@ def phase_kernels():
            "others": [scan_case("ssd", ssd_fwd, ref.mamba2_ssd, ssd_inputs(31 + t, 2, t, 112),
                                 {"Bt": 2, "T": t, "H": 112, "P": 64, "N": 64, "chunk": 128})
                       for t in (1000, 100)]}
-    return flash, wkv6, ssd
+    # minicpm-2b's training shape (36 heads of 64, bf16, causal), then fp32 at
+    # hd 128 with G=2 and a ragged T, a window with a q offset, and hd 112
+    flash_bwd = {"main": flash_bwd_case(TRAIN_B, TRAIN_T, 36, 1, 64, 0, 0, torch.bfloat16, 40,
+                                        timed=True),
+                 "others": [flash_bwd_case(1, 1000, 4, 2, 128, 0, 0, torch.float32, 41),
+                            flash_bwd_case(1, 777, 2, 4, 64, 256, 323, torch.bfloat16, 42,
+                                           tk=1100),
+                            flash_bwd_case(2, 333, 4, 1, 112, 0, 0, torch.bfloat16, 43)]}
+    # the int32 view of minicpm-2b's largest stacked bf16 leaf (layers.mlp.w1,
+    # [40, 2304, 5760]), then tests/test_kernels_pallas.py's sizes and blocks
+    cfg = get_arch(TRAIN_ARCH)
+    checksum = {"main": checksum_case(cfg.n_layers * cfg.d_model * cfg.d_ff // 2, 4096, 50,
+                                      timed=True),
+                "others": [checksum_case(n, block, 51 + i) for i, (n, block) in
+                           enumerate(((1000, 256), (4096, 4096), (10000, 512), (0, 4096)))]}
+    return flash, flash_bwd, checksum, wkv6, ssd
 
 
 # ------------------------------------------------------------------ (d) serving
@@ -396,17 +539,8 @@ def check_consistency(cfg, api, params, tol: float):
         full, _ = api.prefill(params, torch.cat([toks, nxt[:, None]], 1), t + 8)
         ok_d, err_d = rel_close(logits_d[:, 0], full[:, -1], tol)
 
-        before = launches()
-        saved = {name: getattr(ops, name) for name in PLAIN_OPS}
-        for name, fn in PLAIN_OPS.items():
-            setattr(ops, name, fn)
-        try:
+        with plain_ops():
             plain_p, _ = api.prefill(params, toks, t + 8)
-        finally:
-            for name, fn in saved.items():
-                setattr(ops, name, fn)
-        if launches() != before:
-            raise AssertionError("the plain-path prefill launched a kernel")
         ok_k, err_k = rel_close(logits_p, plain_p, tol)
     res = {"weights": str(next(_leaves(params)).dtype).split(".")[-1],
            "consistency_B": b, "consistency_T": t, "tolerance": tol,
@@ -462,6 +596,149 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ (f) training
+
+def train_batch(cfg, b: int, t: int, seed: int) -> dict:
+    """repro.launch.train's documents: token i of a row is (start + 3 i) mod
+    min(vocab, 97), from a start drawn per row; labels are the tokens shifted
+    by one."""
+    m = min(cfg.vocab, 97)
+    gen = torch.Generator().manual_seed(seed)
+    start = torch.randint(0, m, (b, 1), generator=gen)
+    seq = ((start + 3 * torch.arange(t + 1)[None]) % m).to("cuda")
+    return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+
+
+def phase_training():
+    cfg = get_arch(TRAIN_ARCH)
+    log(f"(f) training {TRAIN_ARCH} at full width: {json.dumps(dataclasses.asdict(cfg))}")
+    api = get_model(cfg)
+    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS + 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(0, torch.bfloat16, "cuda")
+    state = opt.init_opt_state(oc, params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in opt.flatten_with_paths(params))
+    log(f"  init {n_params / 1e9:.3f} B params (bf16), fp32 master weights and moments "
+        f"({oc.moment_dtype}, master {oc.master_weights}, {oc.schedule}) in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    step = make_train_step(cfg, oc)
+    batches = [train_batch(cfg, TRAIN_B, TRAIN_T, 100 + i) for i in range(TRAIN_STEPS + 1)]
+
+    reset_launches()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batches[i])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append({"step": i + 1, "ms": dt * 1e3, "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"])})
+        log(f"  step {json.dumps(steps[-1])}")
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_attention_fwd=2 * cfg.n_layers * TRAIN_STEPS,
+                flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
+    if counts != want:
+        raise AssertionError(f"kernel launches over {TRAIN_STEPS} train steps {counts}, "
+                             f"expected {want}")
+    if not all(torch.isfinite(torch.tensor([s["loss"], s["grad_norm"]])).all() for s in steps):
+        raise AssertionError(f"non-finite loss or grad norm: {steps}")
+
+    # every trained parameter, digested through its int32 view
+    digests = {}
+    for path, p in opt.flatten_with_paths(params):
+        words = p.reshape(-1).view(torch.int32)
+        got = ops.tensor_checksum(words)
+        if not torch.equal(got, ref.checksum(words)):
+            raise AssertionError(f"checksum of {'.'.join(path)}: kernel {got.tolist()} vs "
+                                 f"plain {ref.checksum(words).tolist()}")
+        digests[".".join(path)] = got.tolist()
+    counts["checksum"] = launches()["checksum"]
+    if counts["checksum"] != len(digests):
+        raise AssertionError(f"{counts['checksum']} checksum launches for {len(digests)} leaves")
+
+    steady_ms = sum(s["ms"] for s in steps[1:]) / (len(steps) - 1)
+    training = {
+        "arch": TRAIN_ARCH, "layers": cfg.n_layers, "params": n_params, "batch": TRAIN_B,
+        "seq": TRAIN_T, "steps": steps, "launches": counts, "launches_per_step": {
+            "flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers},
+        "step_ms_steady": steady_ms, "first_step_ms": steps[0]["ms"],
+        "trained_tok_s": TRAIN_B * TRAIN_T / (steady_ms / 1e3), "peak_mem_gb": peak,
+        "opt": {"lr": oc.lr, "warmup_steps": oc.warmup_steps, "total_steps": oc.total_steps,
+                "schedule": oc.schedule, "master_weights": oc.master_weights,
+                "moment_dtype": str(oc.moment_dtype).split(".")[-1]},
+        "param_digests": digests,
+    }
+    log(f"  trained: {json.dumps({k: v for k, v in training.items() if k != 'param_digests'})}")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    training["profile"] = {"step": TRAIN_STEPS + 1, "loss": float(metrics["loss"]),
+                           **_device_summary(prof, wall)}
+    log(f"  profile: {json.dumps(training['profile'])}")
+    del params, state, metrics, step
+    free_device_memory()
+    training["consistency"] = check_train_consistency(cfg, torch.float32, FP32_TOL)
+    free_device_memory()
+    training["consistency_bf16"] = check_train_consistency(cfg, torch.bfloat16, TRAIN_TOL)
+    free_device_memory()
+    training["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return training
+
+
+def _train_run(cfg, dtype, batches):
+    """Loss and gradients at the init, then the params after a train step per
+    batch, all from the same seeded init."""
+    api = get_model(cfg)
+    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=4)
+    params = api.init(0, dtype, "cuda")
+    pairs = [(path, p.detach().requires_grad_()) for path, p in opt.flatten_with_paths(params)]
+    loss = api.loss(opt.unflatten(pairs), batches[0])
+    grads = dict(zip((path for path, _ in pairs),
+                     torch.autograd.grad(loss, [p for _, p in pairs])))
+    del pairs
+    step, state = make_train_step(cfg, oc), opt.init_opt_state(oc, params)
+    for batch in batches:
+        params, state, _ = step(params, state, batch)
+    return loss.detach(), grads, dict(opt.flatten_with_paths(params))
+
+
+def check_train_consistency(cfg, dtype, tol: float):
+    """The kernel path against the plain path (PLAIN_OPS, forward and backward)
+    at 4 layers and full width: the loss, every gradient leaf (error over the
+    leaf's largest value) and the params after 2 steps (|a-b| / (1 + |b|))."""
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    batches = [train_batch(cfg, TRAIN_B, TRAIN_T, 200 + i) for i in range(2)]
+    loss_k, grads_k, params_k = _train_run(cfg4, dtype, batches)
+    with plain_ops():
+        loss_p, grads_p, params_p = _train_run(cfg4, dtype, batches)
+    _, loss_err = rel_close(loss_k, loss_p, tol)
+    grad_errs = {".".join(path): float((grads_k[path].float() - g.float()).abs().max()
+                                       / g.float().abs().max().clamp(min=1e-30))
+                 for path, g in grads_p.items()}
+    param_errs = {".".join(path): rel_close(params_k[path], p, tol)[1]
+                  for path, p in params_p.items()}
+    res = {"dtype": str(dtype).split(".")[-1], "layers": cfg4.n_layers, "B": TRAIN_B,
+           "T": TRAIN_T, "tolerance": tol, "loss_kernel": float(loss_k),
+           "loss_plain": float(loss_p), "loss_err": loss_err,
+           "grad_err_max": max(grad_errs.values()), "param_err_max": max(param_errs.values()),
+           "grad_errs": grad_errs, "param_errs": param_errs}
+    log(f"  train consistency: {json.dumps(res)}")
+    if not (torch.isfinite(loss_k) and max(loss_err, res["grad_err_max"],
+                                           res["param_err_max"]) <= tol):
+        raise AssertionError(f"training kernel path vs plain path ({res['dtype']}): {res}")
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 def kernel_line(name, source, replaces, case, launches_by_path, **extra):
@@ -482,7 +759,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    sources = ["flash_attention", "rwkv6_scan", "mamba2_ssd"]
+    sources = ["flash_attention", "flash_attention_bwd", "checksum", "rwkv6_scan",
+               "mamba2_ssd"]
     t0 = time.perf_counter()
     _build.build_all(sources)
     build_s = time.perf_counter() - t0
@@ -492,7 +770,7 @@ def main() -> None:
             if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 log(f"  ptxas {src}: {line.strip()}")
 
-    flash, wkv6, ssd = phase_kernels()
+    flash, flash_bwd, checksum, wkv6, ssd = phase_kernels()
     peaks = [torch.cuda.max_memory_allocated() / 1e9]
     free_device_memory()
     servings = {}
@@ -500,16 +778,35 @@ def main() -> None:
         servings[arch] = phase_serving(arch)
         peaks.append(servings[arch]["phase_peak_mem_gb"])
         free_device_memory()
+    training = phase_training()
+    peaks.append(training["phase_peak_mem_gb"])
+    paths = {**{a: s["launches"] for a, s in servings.items()},
+             f"{TRAIN_ARCH}-train": training["launches"]}
 
     def by_path(kernel):
-        return {a: s["launches"][kernel] for a, s in servings.items() if s["launches"][kernel]}
+        return {a: n[kernel] for a, n in paths.items() if n[kernel]}
 
     kernels = [
         kernel_line("flash_attention_fwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:70", flash["main"],
                     by_path("flash_attention_fwd"), dtype=flash["main"]["dtype"],
                     library="torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
-                    hd112=flash["hd112"], other_cases=flash["others"]),
+                    hd112=flash["hd112"], train_hd64=flash["train_hd64"],
+                    other_cases=flash["others"]),
+        kernel_line("flash_attention_bwd",
+                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                    "src/repro/kernels/ref.py:105", flash_bwd["main"],
+                    by_path("flash_attention_bwd"),
+                    replaces_note="no Pallas kernel: the reference differentiates through "
+                                  "the custom VJP's plain _flash_bwd_impl",
+                    dtype=flash_bwd["main"]["dtype"],
+                    library="backward of torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal=True)",
+                    other_cases=flash_bwd["others"]),
+        kernel_line("checksum", "src/repro_torch/kernels/csrc/checksum.cu",
+                    "src/repro/kernels/checksum.py:32", checksum["main"], by_path("checksum"),
+                    dtype="uint32 words", int_ops=checksum["main"]["int_ops"], library=None,
+                    other_cases=checksum["others"]),
         kernel_line("wkv6_fwd", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                     "src/repro/kernels/rwkv6_scan.py:68", wkv6["main"], by_path("wkv6_fwd"),
                     dtype="float32", exps=wkv6["main"]["exps"], library=None,
@@ -521,12 +818,13 @@ def main() -> None:
     ]
     for k in kernels:
         if k["launches"] == 0:
-            raise AssertionError(f"{k['name']} was not launched on any serving path")
+            raise AssertionError(f"{k['name']} was not launched on any main path")
     print(json.dumps({"kernels": kernels, "device": name, "nvidia_smi": smi,
                       "build_s": build_s, "script_peak_mem_gb": max(peaks),
                       "script_s": time.perf_counter() - t_start}))
     for serving in servings.values():
         print(json.dumps({"serving": serving, "device": name, "nvidia_smi": smi}))
+    print(json.dumps({"training": training, "device": name, "nvidia_smi": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

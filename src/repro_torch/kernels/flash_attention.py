@@ -1,10 +1,16 @@
-"""Hand-written CUDA flash-attention forward for Hopper (``csrc/flash_attention.cu``).
+"""Hand-written CUDA flash attention for Hopper, forward and backward.
 
-Replaces the TPU kernel ``repro.kernels.flash_attention.flash_attention_fwd``.
-The library is built by ``nvcc`` at the first launch (see ``_build``); this
+``flash_attention_fwd`` (``csrc/flash_attention.cu``) replaces the TPU kernel
+``repro.kernels.flash_attention.flash_attention_fwd``; ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``) replaces the reference's recompute
+backward ``repro.kernels.ref._flash_bwd_impl``, which has no Pallas kernel.
+Each library is built by ``nvcc`` at its first launch (see ``_build``); each
 wrapper checks its inputs, allocates the outputs, launches on PyTorch's
-current stream and counts its launches in ``flash_attention_fwd.launches``.
-It takes CUDA tensors only: the plain version is ``ref._flash_fwd_impl``.
+current stream and counts its launches in ``<wrapper>.launches``.  They take
+CUDA tensors only: the plain versions are ``ref._flash_fwd_impl`` and
+``ref._flash_bwd_impl``.  ``FlashAttention`` joins the two kernels as an
+autograd function, the counterpart of the reference's custom VJP on the card
+(``ref.flash_attention`` is the one of the plain versions).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.cache
-def _kernel():
+def _fwd_kernel():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
@@ -33,12 +39,12 @@ def _kernel():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
-           q_offset: int) -> None:
+           q_offset: int, name: str = "flash_attention_fwd") -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_fwd takes q, k, v on one CUDA device; got "
+        raise ValueError(f"{name} takes q, k, v on one CUDA device; got "
                          f"{q.device}, {k.device}, {v.device}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention_fwd takes fp32 or bf16 q/k/v of one dtype; "
+        raise ValueError(f"{name} takes fp32 or bf16 q/k/v of one dtype; "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q [B,Tq,KV,G,hd], k/v [B,Tk,KV,hd]; got "
@@ -50,9 +56,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not compiled; the kernel takes {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd takes contiguous q, k, v")
+        raise ValueError(f"{name} takes contiguous q, k, v")
     if q.numel() == 0 or k.numel() == 0:
-        raise ValueError("flash_attention_fwd takes non-empty q and k/v")
+        raise ValueError(f"{name} takes non-empty q and k/v")
     if window < 0 or q_offset < 0:
         raise ValueError(f"window ({window}) and q_offset ({q_offset}) must be >= 0")
     if max(q.shape[1], k.shape[1]) + q_offset >= 2 ** 31:
@@ -69,7 +75,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, tq, kvh, g, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, kvh, g, tq), dtype=torch.float32, device=q.device)
-    fn, err_str = _kernel()
+    fn, err_str = _fwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -84,3 +90,77 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+@functools.cache
+def _bwd_kernel():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return fn, lib.flash_attention_bwd_error_string
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        window: int = 0, q_offset: int = 0):
+    """Gradients of causal GQA attention on the card, recomputed from lse.
+
+    q, k, v, window, q_offset as ``flash_attention_fwd`` takes them; ``out``
+    and ``lse`` as it returned them; ``do`` the gradient of ``out`` (q's
+    shape and dtype, contiguous).  Returns ``dq, dk, dv`` in the inputs'
+    dtypes."""
+    name = "flash_attention_bwd"
+    _check(q, k, v, window, q_offset, name)
+    b, tq, kvh, g, hd = q.shape
+    for t, what in ((out, "out"), (do, "do")):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {what} must have q's shape, dtype and device; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes a contiguous {what}")
+    if (lse.shape != (b, kvh, g, tq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{name}: lse must be a contiguous fp32 [B,KV,G,Tq] = "
+                         f"{(b, kvh, g, tq)} on q's device; got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    fn, err_str = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), int(q.dtype == torch.bfloat16), b, tq, k.shape[1], kvh,
+                g, hd, q_offset, window, *q.stride()[:4], *k.stride()[:3], stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc} ({err_str(rc).decode()})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal GQA attention on the card with a flash backward: the forward
+    is ``flash_attention_fwd``, the backward ``flash_attention_bwd``, the
+    counterpart of the reference's custom VJP (``repro.kernels.ref._flash``).
+    The forward saves q, k, v, out and lse; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int = 0, q_offset: int = 0):
+        out, lse = flash_attention_fwd(q, k, v, window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.q_offset = window, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), ctx.window,
+                                    ctx.q_offset)
+        return (*grads, None, None)

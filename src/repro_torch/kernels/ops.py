@@ -11,17 +11,19 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .flash_attention import flash_attention_fwd
+from .checksum import checksum as checksum_kernel
+from .flash_attention import FlashAttention
 from .mamba2_ssd import ssd_fwd
 from .rwkv6_scan import wkv6_fwd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int = 0, q_offset: int = 0) -> torch.Tensor:
-    """Causal (optionally sliding-window) attention.
-    q [B,Tq,KV,G,hd]; k/v [B,Tk,KV,hd] -> [B,Tq,KV,G,hd]."""
+    """Causal (optionally sliding-window) attention, differentiable: its
+    backward is the flash backward kernel on the card, the plain recompute
+    backward on the CPU.  q [B,Tq,KV,G,hd]; k/v [B,Tk,KV,hd] -> [B,Tq,KV,G,hd]."""
     if q.is_cuda:
-        return flash_attention_fwd(q, k, v, window=window, q_offset=q_offset)[0]
+        return FlashAttention.apply(q, k, v, window, q_offset)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, q_offset=q_offset, window=window)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
@@ -47,3 +49,13 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
     if x.device.type == "cpu":
         return ref.mamba2_ssd(x, dt, A, B, C, state, chunk)
     raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")
+
+
+def tensor_checksum(data: torch.Tensor, block: int = 4096) -> torch.Tensor:
+    """Integrity digest of a 1-D int32/uint32 tensor of 32-bit words:
+    int64 [2] = (sum (i+1) x_i, sum x_i) mod 2^32, for any ``block``."""
+    if data.is_cuda:
+        return checksum_kernel(data, block)
+    if data.device.type == "cpu":
+        return ref.checksum(data, block=block)
+    raise ValueError(f"tensor_checksum: no kernel for device {data.device}")

@@ -5,9 +5,13 @@ Mirrors ``repro.kernels.ref``:
     same padding, the same sliding-window span and the same rounding points
     (logits in fp32 from exact products, the probabilities rounded to v's
     dtype before the PV product);
+  * its recompute backward and the autograd function that joins the two
+    (the reference's custom VJP), so ``flash_attention`` is differentiable;
   * the RWKV6 WKV recurrence and the Mamba2 SSD scan, each as its per-step
     oracle (``*_naive``) and its chunked form, with a state in and the final
-    state out.
+    state out;
+  * the positional-weighted checksum, in int64 with every product and sum
+    reduced mod 2^32.
 The CPU tests hold these to the JAX functions; ``chip_smoke.py`` holds the
 CUDA kernels to them on the card.
 """
@@ -93,13 +97,97 @@ def _flash_fwd_impl(q, k, v, q_offset, window, block_q, block_k):
     return out, lse
 
 
+def _flash_bwd_impl(q, k, v, lse, do, q_offset, window, block_q, block_k):
+    """One pass over q blocks: emit dq per block, accumulate dk/dv.
+
+    Mirrors ``repro.kernels.ref._flash_bwd_impl``: p is recomputed from
+    (q, k, lse), and ``D = rowsum(do * o)`` from an ``o`` recomputed in fp32
+    from the same p.  ``lse`` is [B,KV,G,Tq] as ``_flash_fwd_impl`` returns
+    it.  Returns dq (q's dtype), dk, dv (k's and v's dtypes)."""
+    b, tq, kvh, g, hd = q.shape
+    tk = k.shape[1]
+    block_q = min(block_q, tq)
+    block_k = min(block_k, tk)
+    pq = (-tq) % block_q
+    pk = (-tk) % block_k
+    qp = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk))
+    dop = F.pad(do, (0, 0, 0, 0, 0, 0, 0, pq))
+    lsep = F.pad(lse, (0, pq))
+    nq = qp.shape[1] // block_q
+    nk = kp.shape[1] // block_k
+    scale = 1.0 / (hd ** 0.5)
+    span = min(window + block_q, max(tk, 1)) if window else 0
+    tkp = kp.shape[1]
+    dev = q.device
+
+    dk_acc = torch.zeros((b, tkp, kvh, hd), dtype=torch.float32, device=dev)
+    dv_acc = torch.zeros((b, tkp, kvh, hd), dtype=torch.float32, device=dev)
+    dqs = []
+    for i in range(nq):
+        q_i = qp[:, i * block_q:(i + 1) * block_q]
+        do_i = dop[:, i * block_q:(i + 1) * block_q]
+        lse_i = lsep[..., i * block_q:(i + 1) * block_q]
+        q_start = q_offset + i * block_q
+        q_pos = q_start + torch.arange(block_q, device=dev)
+        tiles = []
+        for j in range(1 if window else nk):
+            k_j, v_j, k_pos = _kv_slice(kp, vp, q_start, j, tk, window, span,
+                                        block_k)
+            s = torch.einsum("bqkgh,bskh->bkgqs", q_i.float(), k_j.float()) * scale
+            mask = _mask_for(q_pos, k_pos, tk, window)
+            # where(), not the reference's exp(.) * mask: the same values, and
+            # no inf * 0 where a masked logit lies far above the row's lse
+            p = torch.where(mask[None, None, None], torch.exp(s - lse_i[..., None]), 0.0)
+            tiles.append((k_j, v_j, k_pos, p))
+        # D_i = rowsum(do * o), with o recomputed from p
+        o_i = sum(torch.einsum("bkgqs,bskh->bqkgh", p.to(v_j.dtype).float(), v_j.float())
+                  for _, v_j, _, p in tiles)
+        d_i = (do_i.float() * o_i).sum(-1).permute(0, 2, 3, 1)      # [b,kv,g,bq]
+        dq_i = torch.zeros((b, block_q, kvh, g, hd), dtype=torch.float32, device=dev)
+        for k_j, v_j, k_pos, p in tiles:
+            dv_j = torch.einsum("bkgqs,bqkgh->bskh", p.to(do_i.dtype).float(),
+                                do_i.float())
+            dp = torch.einsum("bqkgh,bskh->bkgqs", do_i.float(), v_j.float())
+            ds = p * (dp - d_i[..., None]) * scale
+            dq_i = dq_i + torch.einsum("bkgqs,bskh->bqkgh",
+                                       ds.to(k_j.dtype).float(), k_j.float())
+            dk_j = torch.einsum("bkgqs,bqkgh->bskh", ds.to(q_i.dtype).float(),
+                                q_i.float())
+            k0 = int(k_pos[0])
+            dk_acc[:, k0:k0 + dk_j.shape[1]] += dk_j
+            dv_acc[:, k0:k0 + dv_j.shape[1]] += dv_j
+        dqs.append(dq_i.to(q.dtype))
+    dq = torch.cat(dqs, dim=1)[:, :tq]
+    return dq, dk_acc[:, :tk].to(k.dtype), dv_acc[:, :tk].to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """The plain flash attention with its recompute backward: the counterpart
+    of the reference's ``jax.custom_vjp`` on ``_flash``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, window, block_q, block_k):
+        out, lse = _flash_fwd_impl(q, k, v, q_offset, window, block_q, block_k)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.args = (q_offset, window, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        return (*_flash_bwd_impl(q, k, v, lse, do.contiguous(), *ctx.args),
+                None, None, None, None)
+
+
 def flash_attention(q, k, v, q_offset: int = 0, window: int = 0,
                     block_q: int = 512, block_k: int = 1024):
-    """Blockwise causal attention forward (optionally sliding-window).
+    """Blockwise causal attention (optionally sliding-window), flash-style
+    forward and recompute backward.
 
     q [B,Tq,KV,G,hd]; k/v [B,Tk,KV,hd] -> [B,Tq,KV,G,hd] in q's dtype."""
-    out, _ = _flash_fwd_impl(q, k, v, q_offset, window, block_q, block_k)
-    return out
+    return _Flash.apply(q, k, v, q_offset, window, block_q, block_k)
 
 
 def attention_naive(q, k, v, q_offset: int = 0, window: int = 0):
@@ -234,3 +322,43 @@ def mamba2_ssd(x, dt, A, B, C, state, chunk: int = 128):
         ys.append(y)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(bt, nt * chunk, h, p)
     return y[:, :t].to(x.dtype), S
+
+
+# ================================================================ checksum
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulmod32(a, b):
+    """(a * b) mod 2^32 for int64 tensors holding values in [0, 2^32).
+
+    The plain product reaches 2^64 and overflows int64, so b is split into
+    16-bit halves: a*lo < 2^48 and (a*hi mod 2^16) * 2^16 < 2^32."""
+    lo, hi = b & 0xFFFF, b >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def checksum(data, block: int = 4096):
+    """Positional-weighted modular checksum of a buffer of 32-bit words.
+
+    Mirrors ``repro.kernels.ref.checksum``: per block of ``block`` words,
+    sum_i (i+1)*x_i and sum_i x_i mod 2^32, combined as
+    sum_b weighted_b + offset_b * plain_b; any ``block`` gives the same
+    digest.  ``data`` is a 1-D int32 or uint32 tensor, read as unsigned
+    words.  Returns int64 [2] = (weighted, plain), each in [0, 2^32): the
+    bits of the reference's uint32 [2]."""
+    if data.dtype not in (torch.int32, torch.uint32) or data.dim() != 1:
+        raise ValueError(f"checksum takes a 1-D int32 or uint32 tensor of words; got "
+                         f"{data.dtype} of shape {tuple(data.shape)}")
+    x = data.to(torch.int64) & _MASK32
+    n = x.shape[0]
+    x = F.pad(x, (0, (-n) % block))
+    blocks = x.reshape(-1, block)
+    idx = torch.arange(1, block + 1, dtype=torch.int64, device=x.device)
+    plain = blocks.sum(1) & _MASK32
+    weighted = _mulmod32(blocks, idx[None, :]).sum(1) & _MASK32
+    offsets = (torch.arange(blocks.shape[0], dtype=torch.int64, device=x.device)
+               * block) & _MASK32
+    w_total = (weighted + _mulmod32(offsets, plain)).sum() & _MASK32
+    p_total = plain.sum() & _MASK32
+    return torch.stack([w_total, p_total])

@@ -103,10 +103,16 @@ def _stack_into(dst: Params, src: Params, i: int) -> None:
             dst[k][i] = v
 
 
-def layer_slice(stacked: Params, i: int) -> Params:
-    """Layer ``i``'s slice of an [L]-stacked parameter tree (views, no copy)."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+def unstack(stacked: Params) -> list:
+    """The per-layer slices of an [L]-stacked tree, as views.
+
+    One ``torch.unbind`` per leaf: its backward stacks the L layer gradients
+    into the stacked leaf's once, where indexing layer by layer would add a
+    zero-padded [L, ...] gradient per layer."""
+    flat = {k: (unstack(v) if isinstance(v, dict) else torch.unbind(v))
             for k, v in stacked.items()}
+    n = len(next(iter(flat.values())))
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
 
 
 # ------------------------------------------------------------------- primitives
@@ -272,3 +278,22 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "out" in p:
         return _mm(x, p["out"])
     return _mm(x, p["tok"].t())
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """fp32 softmax cross-entropy, ignoring padded vocab entries.
+
+    Mirrors ``repro.models.layers.cross_entropy``, with one difference: the
+    gold logit is gathered (``torch.gather``) where the reference sums
+    against an iota one-hot, which it keeps for GSPMD's vocab sharding.
+    Exactly one term of that sum is nonzero, so the value is the same and
+    no [B,T,V] one-hot is made."""
+    logits = logits.float()
+    if logits.shape[-1] > vocab:
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(cols >= vocab, -1e30)
+    m = logits.amax(-1, keepdim=True)
+    logz = torch.log(torch.exp(logits - m.detach()).sum(-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

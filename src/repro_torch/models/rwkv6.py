@@ -154,8 +154,7 @@ def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
         state = zero_state(cfg, b, tokens.device)
     h = layers.embed(params["emb"], tokens)
     tx, cx, wkv = [], [], []
-    for i in range(cfg.n_layers):
-        lp = layers.layer_slice(params["layers"], i)
+    for i, lp in enumerate(layers.unstack(params["layers"])):
         att, tx2, wkv2 = tmix(cfg, lp["tmix"], layers.rms_norm(h, lp["ln1"]),
                               state["tmix_x"][i].to(h.dtype), state["wkv"][i])
         h = h + att

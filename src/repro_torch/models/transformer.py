@@ -1,11 +1,13 @@
-"""Decoder-only LM, dense backbone: init, inference forward, prefill, decode.
+"""Decoder-only LM, dense backbone: init, forward and loss, prefill, decode.
 
 Mirrors ``repro.models.transformer`` for the dense, audio and vlm families
 (codeqwen1.5-7b, phi3-medium-14b, minicpm-2b, qwen1.5-32b, musicgen-large,
 chameleon-34b).  Layer parameters keep the reference's stacked leading
-[L] axis; a Python loop over it takes the place of ``lax.scan``.
-Prefill attention goes through ``ops.flash_attention``, so on the card
-it runs the hand-written flash kernel.
+[L] axis; a Python loop over it takes the place of ``lax.scan``, and
+``torch.utils.checkpoint`` on each layer that of ``jax.checkpoint``.
+Attention in the forward and in prefill goes through
+``ops.flash_attention``, so on the card it runs the hand-written flash
+kernels, forward and backward.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
@@ -65,16 +68,30 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, T] -> logits [B, T, V] (inference only)."""
+    """tokens [B, T] -> logits [B, T, V].
+
+    Differentiable in every parameter leaf.  Each layer is checkpointed, as
+    the reference's default ``remat=True`` does: it keeps only its input for
+    the backward and runs again inside it."""
     b, t = tokens.shape
     positions = _positions(b, t, tokens.device)
     h = layers.embed(params["emb"], tokens)
     rs = _residual_scale(cfg)
-    for i in range(cfg.n_layers):
-        lp = layers.layer_slice(params["layers"], i)
+
+    def block(h, lp):
         h = h + rs * _attn_full(cfg, lp, h, positions)[0]
-        h = h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
+        return h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
+
+    for lp in layers.unstack(params["layers"]):
+        h = checkpoint(block, h, lp, use_reentrant=False)
     return layers.unembed(params["emb"], h)
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against ``batch["labels"]``."""
+    logits = forward(cfg, params, batch["tokens"])
+    return layers.cross_entropy(logits, batch["labels"], cfg.vocab)
 
 
 # ------------------------------------------------------------------ serving
@@ -114,8 +131,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,
     positions = _positions(b, t, tokens.device)
     h = layers.embed(params["emb"], tokens)
     rs = _residual_scale(cfg)
-    for i in range(cfg.n_layers):
-        lp = layers.layer_slice(params["layers"], i)
+    for i, lp in enumerate(layers.unstack(params["layers"])):
         attn, k, v = _attn_full(cfg, lp, h, positions)
         h = h + rs * attn
         h = h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
@@ -147,8 +163,7 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     smax = cache["k"].shape[2]
     write_pos = cache_len % smax if cfg.swa_window else cache_len
     n_valid = min(cache_len + 1, smax)
-    for i in range(cfg.n_layers):
-        lp = layers.layer_slice(params["layers"], i)
+    for i, lp in enumerate(layers.unstack(params["layers"])):
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8 else None
         out, _, _, _ = layers.attention_decode(
             cfg, lp["attn"], layers.rms_norm(h, lp["ln1"]), cache["k"][i],

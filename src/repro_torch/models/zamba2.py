@@ -180,8 +180,7 @@ def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     kv_shape = (n_attn_sites(cfg), b, smax, cfg.n_kv_heads, cfg.hd)
     cache_k = cache_v = None
     convs, ssds = [], []
-    for i in range(cfg.n_layers):
-        lp = layers.layer_slice(params["mamba"], i)
+    for i, lp in enumerate(layers.unstack(params["mamba"])):
         out, cs, ss = mamba_layer(cfg, lp, h, state["conv"][i], state["ssd"][i])
         h = h + out
         convs.append(cs)
@@ -223,8 +222,7 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     h = layers.embed(params["emb"], token)
     sp = params["shared"]
     convs, ssds = [], []
-    for i in range(cfg.n_layers):
-        lp = layers.layer_slice(params["mamba"], i)
+    for i, lp in enumerate(layers.unstack(params["mamba"])):
         out, cs, ss = mamba_layer(cfg, lp, h, state["conv"][i], state["ssd"][i])
         h = h + out
         convs.append(cs)

@@ -7,14 +7,19 @@ the JAX package, so they run on a machine that has only PyTorch:
 
 Tolerances are those of tests/test_kernels_pallas.py: 2e-3 for fp32, 2e-2
 for bf16, whose 8-bit mantissa rounds the inputs and the output, and 3e-3
-for the fp32 WKV6 and SSD scans.
+for the fp32 WKV6 and SSD scans.  The flash backward is held to the same
+2e-3 / 2e-2 (its fp32 sums run in another order than the plain version's,
+and in bf16 its D = rowsum(do * out) reads the bf16 output where the plain
+version recomputes it in fp32); the checksum is integer arithmetic and
+must be equal bit for bit.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.checksum import checksum as checksum_kernel
+from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.kernels.mamba2_ssd import ssd_fwd
 from repro_torch.kernels.rwkv6_scan import wkv6_fwd
 
@@ -178,3 +183,111 @@ def test_scan_ops_on_cuda_launch_their_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert y.is_cuda and ssd_fwd.launches == 1
     _close(state, ref.mamba2_ssd(*xs)[1], SCAN_TOL)
+
+
+# ---------------------------------------------------------------- flash backward
+
+def _bwd_inputs(seed, b, tq, tk, kv, g, hd, dtype, device, window, q_offset):
+    q, k, v = _inputs(seed, b, tq, tk, kv, g, hd, dtype, device)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed + 1))
+    do = do.to(dtype).to(device)
+    out, lse = flash_attention_fwd(q, k, v, window=window, q_offset=q_offset)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,kv,g,hd,window,q_offset,dtype", [
+    (2, 128, 128, 2, 1, 32, 0, 0, torch.float32),
+    (2, 200, 200, 2, 2, 64, 0, 0, torch.float32),
+    (1, 300, 300, 2, 2, 128, 0, 0, torch.float32),
+    (1, 1000, 1000, 2, 2, 64, 256, 0, torch.float32),    # window, ragged T
+    (1, 77, 300, 2, 2, 64, 100, 223, torch.float32),     # q_offset and window
+    (2, 333, 333, 4, 1, 128, 0, 0, torch.bfloat16),
+    (1, 64, 192, 1, 2, 128, 0, 128, torch.bfloat16),     # q is a suffix
+    (2, 250, 250, 2, 1, 112, 0, 0, torch.bfloat16),
+    (2, 96, 96, 2, 2, 32, 40, 0, torch.bfloat16),
+    (1, 512, 512, 4, 1, 64, 0, 0, torch.bfloat16),       # minicpm-2b's head dim
+    (3, 5, 5, 1, 1, 32, 0, 0, torch.float32),            # smaller than one tile
+])
+def test_flash_bwd_kernel_matches_plain(cuda, b, tq, tk, kv, g, hd, window, q_offset,
+                                        dtype):
+    q, k, v, out, lse, do = _bwd_inputs(20, b, tq, tk, kv, g, hd, dtype, cuda, window,
+                                        q_offset)
+    got = flash_attention_bwd(q, k, v, out, lse, do, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    want = ref._flash_bwd_impl(q, k, v, lse, do, q_offset, window, 512, 1024)
+    for a, w, x in zip(got, want, (q, k, v)):
+        assert a.dtype == x.dtype and a.shape == x.shape
+        _close(a, w, TOL[dtype])
+    again = flash_attention_bwd(q, k, v, out, lse, do, window=window, q_offset=q_offset)
+    for a, a2 in zip(got, again):                   # no atomics: bit-identical reruns
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v, out, lse, do = _bwd_inputs(21, 1, 64, 64, 2, 1, 64, torch.float32, cuda, 0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(q, k, v, out, lse, do.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, out, lse[..., :32], do)
+    with pytest.raises(ValueError, match="shape, dtype"):
+        flash_attention_bwd(q, k, v, out.bfloat16(), lse, do)
+    q, k, v = _inputs(21, 1, 64, 64, 2, 1, 48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q, k, v, q, lse, q)
+
+
+@pytest.mark.cuda
+def test_ops_flash_backward_on_cuda_launches_the_kernel(cuda, monkeypatch):
+    monkeypatch.setattr(flash_attention_fwd, "launches", 0)
+    monkeypatch.setattr(flash_attention_bwd, "launches", 0)
+    q, k, v = (x.requires_grad_() for x in _inputs(22, 1, 100, 100, 2, 2, 64,
+                                                   torch.float32, cuda))
+    co = torch.randn(q.shape, device=cuda)
+    grads = torch.autograd.grad((ops.flash_attention(q, k, v) * co).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == 1 and flash_attention_bwd.launches == 1
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad((ref.flash_attention(*xs) * co).sum(), xs)
+    for a, w in zip(grads, want):
+        _close(a, w, TOL[torch.float32])
+
+
+# ---------------------------------------------------------------- checksum
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 1000, 4096, 10000, 1 << 20])
+def test_checksum_kernel_matches_plain_bit_for_bit(cuda, n):
+    gen = torch.Generator().manual_seed(n)
+    words = torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int64, generator=gen)
+    words = words.to(torch.int32)
+    want = ref.checksum(words, block=512)
+    for x in (words, words.view(torch.uint32)):
+        got = checksum_kernel(x.to(cuda), block=4096)
+        assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+    if n > 8:       # not 16-byte aligned: the scalar head and tail paths
+        assert torch.equal(checksum_kernel(words.to(cuda)[1:]).cpu(),
+                           ref.checksum(words[1:]))
+        corrupted = words.clone()
+        corrupted[n // 2] ^= 1
+        assert not torch.equal(checksum_kernel(corrupted.to(cuda)).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_checksum_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="int32 or uint32"):
+        checksum_kernel(torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="1-D"):
+        checksum_kernel(torch.zeros((2, 4), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="1-D contiguous"):
+        checksum_kernel(torch.zeros(8, dtype=torch.int32, device=cuda)[::2])
+
+
+@pytest.mark.cuda
+def test_ops_checksum_on_cuda_launches_the_kernel(cuda, monkeypatch):
+    monkeypatch.setattr(checksum_kernel, "launches", 0)
+    x = torch.randn(4097, device=cuda).view(torch.int32)
+    got = ops.tensor_checksum(x)
+    assert checksum_kernel.launches == 1
+    assert torch.equal(got.cpu(), ref.checksum(x.cpu()))

@@ -7,7 +7,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.checksum import checksum as checksum_kernel
+from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.kernels.mamba2_ssd import ssd_fwd
 from repro_torch.kernels.rwkv6_scan import wkv6_fwd
 
@@ -49,6 +50,29 @@ def test_ops_on_cpu_takes_the_plain_version(monkeypatch):
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(*_qkv())
+
+
+def test_flash_backward_on_cpu_takes_the_plain_version(monkeypatch):
+    monkeypatch.setattr(flash_attention_fwd, "launches", 0)
+    monkeypatch.setattr(flash_attention_bwd, "launches", 0)
+    q, k, v = (x.requires_grad_() for x in _qkv())
+    dq, dk, dv = torch.autograd.grad(ops.flash_attention(q, k, v).sum(), (q, k, v))
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert flash_attention_fwd.launches == 0 and flash_attention_bwd.launches == 0
+
+
+def test_backward_and_checksum_wrappers_refuse_cpu_tensors(monkeypatch):
+    q, k, v = _qkv()
+    out = torch.zeros_like(q)
+    lse = torch.zeros((1, 2, 1, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, v, out, lse, out)
+    monkeypatch.setattr(checksum_kernel, "launches", 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        checksum_kernel(torch.arange(16, dtype=torch.int32))
+    digest = ops.tensor_checksum(torch.arange(16, dtype=torch.int32))
+    assert digest.tolist() == [sum((i + 1) * i for i in range(16)), sum(range(16))]
+    assert checksum_kernel.launches == 0
 
 
 def _wkv6_inputs():

@@ -178,15 +178,15 @@ def test_carried_states_do_not_hold_the_layer_inputs():
     params = get_model(cfg).init(5, torch.float32, "cpu")
     h = torch.randn(2, 40, cfg.d_model)
     state = zamba2.zero_state(cfg, 2, 40)
-    lp = layers.layer_slice(params["mamba"], 0)
+    lp = layers.unstack(params["mamba"])[0]
     _, conv, _ = zamba2.mamba_layer(cfg, lp, h, state["conv"][0], state["ssd"][0])
     assert owns(conv)
     cfg = torch_get_arch("rwkv6-1.6b").reduced()
     params = get_model(cfg).init(5, torch.float32, "cpu")
-    lp = layers.layer_slice(params["layers"]["cmix"], 0)
+    lp = layers.unstack(params["layers"]["cmix"])[0]
     _, shift = rwkv6.cmix(lp, h, torch.zeros(2, cfg.d_model))
     assert owns(shift)
-    lp = layers.layer_slice(params["layers"]["tmix"], 0)
+    lp = layers.unstack(params["layers"]["tmix"])[0]
     _, shift, _ = rwkv6.tmix(cfg, lp, h, torch.zeros(2, cfg.d_model),
                              torch.zeros(2, cfg.d_model // cfg.ssm_head_dim,
                                          cfg.ssm_head_dim, cfg.ssm_head_dim))
