@@ -6,6 +6,9 @@
 Phases, each fatal on failure:
   (a) device: the card's name and power limit (nvidia-smi);
   (b) build: nvcc compiles the port's five CUDA sources for sm_90a, all at once;
+      cuobjdump proves the bf16 flash kernels run on the tensor cores (HGMMA in
+      the forward, HMMA in the backward) and the fp32 ones do not, beside each
+      kernel's registers and spills from ptxas;
   (c) kernels: each kernel against its plain PyTorch version on the card at
       the shapes the serving and training paths give it (flash attention
       forward at hd 128, 112 and minicpm-2b's 64, its backward at minicpm-2b's
@@ -148,6 +151,50 @@ def device_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+# ------------------------------------------------------------------ (b) build
+
+def _demangle(names):
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return {n: n for n in names}
+    return {n: d.replace("(anonymous namespace)::", "").split("(")[0]
+            for n, d in zip(names, out)}
+
+
+def kernel_resources(source: str) -> dict:
+    """Per kernel of a built source: tensor-core instructions in its SASS
+    (cuobjdump) and the registers and spill bytes ptxas reported."""
+    sass, usage = _build.sass_counts(source), _build.ptxas_usage(source)
+    names = _demangle(sorted(sass))
+    return {names[n]: {**sass[n], **usage.get(n, {})} for n in sorted(sass)}
+
+
+def tensor_core_proof() -> dict:
+    """The bf16 flash forward must issue wgmma (HGMMA) and the bf16 backward
+    mma.sync or wgmma (HMMA/HGMMA); the fp32 instantiations none."""
+    res = {src: kernel_resources(src) for src in ("flash_attention", "flash_attention_bwd")}
+
+    def count(src, kernels, opcodes):
+        return sum(r[op] for name, r in res[src].items() for op in opcodes
+                   if any(k in name for k in kernels))
+    proof = {"fwd_bf16_HGMMA": count("flash_attention", ("flash_fwd_sm90",), ("HGMMA",)),
+             "bwd_bf16_HMMA_HGMMA": count("flash_attention_bwd", ("dkdv_mma", "dq_mma"),
+                                          ("HMMA", "HGMMA")),
+             "fp32_HMMA_HGMMA": count("flash_attention", ("flash_fwd_kernel",), ("HMMA", "HGMMA"))
+             + count("flash_attention_bwd", ("dkdv_kernel", "dq_kernel"), ("HMMA", "HGMMA"))}
+    log(f"  tensor cores: {json.dumps(proof)}")
+    for src, kernels in res.items():
+        for name, r in kernels.items():
+            log(f"  {src}: {name}: {json.dumps(r)}")
+    if proof["fwd_bf16_HGMMA"] == 0 or proof["bwd_bf16_HMMA_HGMMA"] == 0:
+        raise AssertionError(f"a bf16 flash kernel issues no tensor-core instruction: {proof}")
+    if proof["fp32_HMMA_HGMMA"]:
+        raise AssertionError(f"an fp32 flash kernel issues tensor-core instructions: {proof}")
+    return {"counts": proof, "kernels": res}
+
+
 # ------------------------------------------------------------------ (c) kernels
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -160,6 +207,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of ``fn``'s kernels per call (torch.profiler), without the
+    host's work between them."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
 def bound(flops: int, nbytes: int, dtype) -> dict:
@@ -341,8 +401,12 @@ def flash_bwd_case(b, t, kv, g, hd, window, q_offset, dtype, seed, tk=None, time
                       .requires_grad_() for x in (q, k, v))
         o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
         do_s = do.reshape(b, t, kv, hd).transpose(1, 2).contiguous()
-        case["library_ms"] = cuda_ms(     # the backward alone; its forward ran above
-            lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True), 10)
+        # SDPA's backward alone (its forward ran above), as device time: called
+        # eagerly, autograd's host work per call shows in an event timing on a slow
+        # host (0.34-0.71 ms over four H100 machines for the same device work)
+        sdpa_bwd = lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True)
+        case["library_eager_ms"] = cuda_ms(sdpa_bwd, 10)
+        case["library_ms"] = device_ms(sdpa_bwd, 10)
         log(f"  flash bwd timed {json.dumps(case)}")
     return case
 
@@ -386,7 +450,9 @@ def phase_kernels():
              # minicpm-2b's training shape: 36 heads of 64
              "train_hd64": flash_case(TRAIN_B, TRAIN_T, TRAIN_T, 36, 1, 64, 0, 0,
                                       torch.bfloat16, 14, timed=True),
+             # a window, a q offset and G=4 in fp32 (SIMT kernel) and bf16 (wgmma kernel)
              "others": [flash_case(1, 1000, 1100, 2, 4, 64, 256, 100, torch.float32, 11),
+                        flash_case(1, 1000, 1100, 2, 4, 64, 256, 100, torch.bfloat16, 15),
                         flash_case(2, 333, 333, 4, 2, 32, 0, 0, torch.bfloat16, 12)]}
     # the main-path shapes (rwkv6-1.6b: B=4, H=32, K=V=64; zamba2-7b: Bt=4,
     # H=112, P=N=64), then a ragged T and a T shorter than one chunk
@@ -552,8 +618,13 @@ def check_consistency(cfg, api, params, tol: float):
     return res
 
 
+PORT_KERNELS = ("flash_fwd_sm90", "flash_fwd_kernel", "delta_kernel", "dkdv_mma", "dq_mma",
+                "dkdv_kernel", "dq_kernel", "ssd_kernel", "wkv6_kernel", "checksum_kernel")
+
+
 def _device_summary(prof, wall_s: float):
-    """Device time by kernel from a profiler run; the idle share is of ``wall_s``."""
+    """Device time by kernel from a profiler run, the eight largest rows and every
+    row of the port's own kernels; the idle share is of ``wall_s``."""
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
@@ -563,7 +634,10 @@ def _device_summary(prof, wall_s: float):
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_s * 1e3,
             "idle_share": 1 - busy_s / wall_s,
             "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": n,
-                     "share_of_busy": us / 1e6 / busy_s} for k, us, n in rows[:8]]}
+                     "share_of_busy": us / 1e6 / busy_s} for k, us, n in rows[:8]],
+            "port_kernels": [{"kernel": k[:90], "ms": us / 1e3, "calls": n,
+                              "share_of_busy": us / 1e6 / busy_s} for k, us, n in rows
+                             if any(name in k for name in PORT_KERNELS)]}
 
 
 def profile_wave(cfg, api, params, batch: int, t: int, smax: int, steps: int = 4):
@@ -765,10 +839,7 @@ def main() -> None:
     _build.build_all(sources)
     build_s = time.perf_counter() - t0
     log(f"(b) built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s")
-    for src in sources:
-        for line in _build.build_logs.get(src, "").splitlines():
-            if any(w in line for w in ("Compiling entry", "registers", "spill")):
-                log(f"  ptxas {src}: {line.strip()}")
+    tensor_cores = tensor_core_proof()
 
     flash, flash_bwd, checksum, wkv6, ssd = phase_kernels()
     peaks = [torch.cuda.max_memory_allocated() / 1e9]
@@ -792,7 +863,8 @@ def main() -> None:
                     by_path("flash_attention_fwd"), dtype=flash["main"]["dtype"],
                     library="torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
                     hd112=flash["hd112"], train_hd64=flash["train_hd64"],
-                    other_cases=flash["others"]),
+                    other_cases=flash["others"], sass_HGMMA=tensor_cores["counts"]["fwd_bf16_HGMMA"],
+                    kernels_by_dtype=tensor_cores["kernels"]["flash_attention"]),
         kernel_line("flash_attention_bwd",
                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                     "src/repro/kernels/ref.py:105", flash_bwd["main"],
@@ -801,8 +873,11 @@ def main() -> None:
                                   "the custom VJP's plain _flash_bwd_impl",
                     dtype=flash_bwd["main"]["dtype"],
                     library="backward of torch.nn.functional.scaled_dot_product_attention"
-                            "(is_causal=True)",
-                    other_cases=flash_bwd["others"]),
+                            "(is_causal=True), device time (torch.profiler)",
+                    library_eager_ms=flash_bwd["main"]["library_eager_ms"],
+                    other_cases=flash_bwd["others"],
+                    sass_HMMA_HGMMA=tensor_cores["counts"]["bwd_bf16_HMMA_HGMMA"],
+                    kernels_by_dtype=tensor_cores["kernels"]["flash_attention_bwd"]),
         kernel_line("checksum", "src/repro_torch/kernels/csrc/checksum.cu",
                     "src/repro/kernels/checksum.py:32", checksum["main"], by_path("checksum"),
                     dtype="uint32 words", int_ops=checksum["main"]["int_ops"], library=None,

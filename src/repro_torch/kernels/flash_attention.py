@@ -4,7 +4,10 @@
 ``repro.kernels.flash_attention.flash_attention_fwd``; ``flash_attention_bwd``
 (``csrc/flash_attention_bwd.cu``) replaces the reference's recompute
 backward ``repro.kernels.ref._flash_bwd_impl``, which has no Pallas kernel.
-Each library is built by ``nvcc`` at its first launch (see ``_build``); each
+Both take bf16 on the tensor cores (the forward by wgmma with TMA loads, the
+backward by mma.sync) and fp32 on the CUDA cores (SIMT kernels, which the
+fp32 consistency checks need: TF32 would not meet their tolerances); the
+split is made by dtype inside each library.  Each library is built by ``nvcc`` at its first launch (see ``_build``); each
 wrapper checks its inputs, allocates the outputs, launches on PyTorch's
 current stream and counts its launches in ``<wrapper>.launches``.  They take
 CUDA tensors only: the plain versions are ``ref._flash_fwd_impl`` and
@@ -57,6 +60,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
         raise ValueError(f"head dim {hd} not compiled; the kernel takes {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} takes contiguous q, k, v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name} takes 16-byte-aligned bf16 q, k, v (TMA and cp.async)")
     if q.numel() == 0 or k.numel() == 0:
         raise ValueError(f"{name} takes non-empty q and k/v")
     if window < 0 or q_offset < 0:
@@ -122,6 +127,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} takes a contiguous {what}")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} takes a 16-byte-aligned bf16 {what}")
     if (lse.shape != (b, kvh, g, tq) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"{name}: lse must be a contiguous fp32 [B,KV,G,Tq] = "

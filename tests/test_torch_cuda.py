@@ -11,13 +11,14 @@ for the fp32 WKV6 and SSD scans.  The flash backward is held to the same
 2e-3 / 2e-2 (its fp32 sums run in another order than the plain version's,
 and in bf16 its D = rowsum(do * out) reads the bf16 output where the plain
 version recomputes it in fp32); the checksum is integer arithmetic and
-must be equal bit for bit.
+must be equal bit for bit.  The flash kernels take bf16 on the tensor cores and
+fp32 on the CUDA cores, so each feature is tested in both dtypes.
 """
 
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.checksum import checksum as checksum_kernel
 from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.kernels.mamba2_ssd import ssd_fwd
@@ -58,6 +59,13 @@ def _close(a, b, tol):
     (2, 1, 50, 2, 2, 64, 0, 49, torch.float32),      # one query, decode-like
     (3, 5, 5, 1, 1, 32, 0, 0, torch.bfloat16),       # smaller than one tile
     (1, 130, 130, 1, 1, 128, 1, 0, torch.float32),   # window 1: the diagonal only
+    # bf16 runs the tensor-core kernel, fp32 the SIMT one: bf16 twins of the fp32 cases
+    (2, 200, 200, 2, 2, 64, 0, 0, torch.bfloat16),
+    (1, 1000, 1000, 2, 4, 64, 256, 0, torch.bfloat16),
+    (1, 77, 300, 2, 4, 64, 100, 223, torch.bfloat16),
+    (2, 1, 50, 2, 2, 64, 0, 49, torch.bfloat16),
+    (1, 130, 130, 1, 1, 128, 1, 0, torch.bfloat16),
+    (1, 200, 260, 2, 2, 112, 64, 60, torch.bfloat16),  # hd 112 at 128, window and offset
 ])
 def test_flash_kernel_matches_plain(cuda, b, tq, tk, kv, g, hd, window, q_offset,
                                     dtype):
@@ -68,6 +76,19 @@ def test_flash_kernel_matches_plain(cuda, b, tq, tk, kv, g, hd, window, q_offset
     assert out.dtype == q.dtype and out.shape == q.shape
     _close(out, want, TOL[dtype])
     _close(lse, want_lse, 2e-3)
+
+
+@pytest.mark.cuda
+def test_bf16_flash_kernels_run_on_the_tensor_cores(cuda):
+    """The bf16 forward issues wgmma (HGMMA), the bf16 backward mma.sync (HMMA);
+    the fp32 kernels stay on the CUDA cores."""
+    fwd, bwd = _build.sass_counts("flash_attention"), _build.sass_counts("flash_attention_bwd")
+    def total(counts, kernel, op):
+        return sum(c[op] for name, c in counts.items() if kernel in name)
+    assert total(fwd, "flash_fwd_sm90", "HGMMA") > 0
+    assert total(bwd, "dkdv_mma", "HMMA") > 0 and total(bwd, "dq_mma", "HMMA") > 0
+    for counts, kernel in ((fwd, "flash_fwd_kernel"), (bwd, "dkdv_kernel"), (bwd, "dq_kernel")):
+        assert total(counts, kernel, "HMMA") + total(counts, kernel, "HGMMA") == 0
 
 
 @pytest.mark.cuda
@@ -208,6 +229,14 @@ def _bwd_inputs(seed, b, tq, tk, kv, g, hd, dtype, device, window, q_offset):
     (2, 96, 96, 2, 2, 32, 40, 0, torch.bfloat16),
     (1, 512, 512, 4, 1, 64, 0, 0, torch.bfloat16),       # minicpm-2b's head dim
     (3, 5, 5, 1, 1, 32, 0, 0, torch.float32),            # smaller than one tile
+    # bf16 runs the tensor-core kernels, fp32 the SIMT ones: bf16 twins of the fp32 cases
+    (2, 200, 200, 2, 2, 64, 0, 0, torch.bfloat16),
+    (1, 300, 300, 2, 2, 128, 0, 0, torch.bfloat16),
+    (1, 1000, 1000, 2, 2, 64, 256, 0, torch.bfloat16),
+    (1, 77, 300, 2, 4, 64, 100, 223, torch.bfloat16),
+    (2, 1, 50, 2, 2, 64, 0, 49, torch.bfloat16),
+    (1, 130, 130, 1, 1, 128, 1, 0, torch.bfloat16),
+    (3, 5, 5, 1, 1, 32, 0, 0, torch.bfloat16),
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, b, tq, tk, kv, g, hd, window, q_offset,
                                         dtype):
