@@ -5,17 +5,23 @@
 
 Phases, each fatal on failure:
   (a) device: the card's name and power limit (nvidia-smi);
-  (b) build: nvcc compiles the port's five CUDA sources for sm_90a, all at once;
+  (b) build: nvcc compiles the port's five CUDA sources for sm_90a, all at once,
+      and the single-pass TF32 builds of the two scans beside them;
       cuobjdump proves the bf16 flash kernels run on the tensor cores (HGMMA in
-      the forward, HMMA in the backward) and the fp32 ones do not, beside each
-      kernel's registers and spills from ptxas;
+      the forward, HMMA in the backward) and the fp32 ones do not, and that
+      every kernel of the WKV6 and SSD scans issues tensor-core instructions
+      (3xTF32 mma.sync) without spilling, beside each kernel's registers and
+      spills from ptxas;
   (c) kernels: each kernel against its plain PyTorch version on the card at
       the shapes the serving and training paths give it (flash attention
       forward at hd 128, 112 and minicpm-2b's 64, its backward at minicpm-2b's
       training shape, the checksum bit for bit at the size of minicpm-2b's
       largest parameter, the WKV6 and SSD scans, with ragged, windowed, offset
-      and nonzero-state cases), with its time, the plain version's, one library call's where
-      there is one, and its bound;
+      and nonzero-state cases, T at the scans' tile borders, WKV6 decays down to
+      the reference's 1e-30 clamp and SSD decays that underflow within a chunk),
+      with its time, the plain version's, one library call's where there is one,
+      and its bound; the scans' main cases also report the error of their
+      single-pass TF32 builds, which is not a gate;
   (d) serving, one model after another, each at full published width with
       random bf16 weights from a seed: codeqwen1.5-7b, zamba2-7b and
       rwkv6-1.6b each serve 8 requests through ``BatchServer``.  Every
@@ -71,8 +77,12 @@ from repro_torch.serve.server import BatchServer, Request  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 
-# H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W power limit
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W power limit: bf16 on the
+# tensor cores, fp32 on the CUDA cores, and TF32 on the tensor cores, the rate that bounds
+# the fp32 scans, whose products run there (3xTF32: three passes a product; the bound
+# counts the function's flops once)
+TF32_PEAK_FLOPS = 494.7e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": TF32_PEAK_FLOPS}
 HBM_BYTES_S = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}   # tests/test_kernels_pallas.py
 SCAN_TOL = 3e-3     # fp32 WKV6 / SSD scans, tests/test_kernels_pallas.py:57,76-77
@@ -98,6 +108,8 @@ FP32_TOL = 1e-3
 # rounding put it there); the loss by 7.5e-6 (measured on an H100; PERF.md).
 TRAIN_TOL = 2e-2
 TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "minicpm-2b", 2, 2048, 4
+SCAN_SOURCES = ("rwkv6_scan", "mamba2_ssd")
+SINGLE_TF32 = ("SCAN_TF32_PASSES=1",)    # the scans' single-pass TF32 builds
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd": flash_attention_bwd, "checksum": checksum_kernel,
            "ssd_fwd": ssd_fwd, "wkv6_fwd": wkv6_fwd}
@@ -173,8 +185,10 @@ def kernel_resources(source: str) -> dict:
 
 def tensor_core_proof() -> dict:
     """The bf16 flash forward must issue wgmma (HGMMA) and the bf16 backward
-    mma.sync or wgmma (HMMA/HGMMA); the fp32 instantiations none."""
-    res = {src: kernel_resources(src) for src in ("flash_attention", "flash_attention_bwd")}
+    mma.sync or wgmma (HMMA/HGMMA); the fp32 flash instantiations none; every
+    kernel of the fp32 scans HMMA or HGMMA (TF32), with no spills."""
+    res = {src: kernel_resources(src)
+           for src in ("flash_attention", "flash_attention_bwd", *SCAN_SOURCES)}
 
     def count(src, kernels, opcodes):
         return sum(r[op] for name, r in res[src].items() for op in opcodes
@@ -183,7 +197,9 @@ def tensor_core_proof() -> dict:
              "bwd_bf16_HMMA_HGMMA": count("flash_attention_bwd", ("dkdv_mma", "dq_mma"),
                                           ("HMMA", "HGMMA")),
              "fp32_HMMA_HGMMA": count("flash_attention", ("flash_fwd_kernel",), ("HMMA", "HGMMA"))
-             + count("flash_attention_bwd", ("dkdv_kernel", "dq_kernel"), ("HMMA", "HGMMA"))}
+             + count("flash_attention_bwd", ("dkdv_kernel", "dq_kernel"), ("HMMA", "HGMMA")),
+             **{f"{src}_HMMA_HGMMA": count(src, ("",), ("HMMA", "HGMMA"))
+                for src in SCAN_SOURCES}}
     log(f"  tensor cores: {json.dumps(proof)}")
     for src, kernels in res.items():
         for name, r in kernels.items():
@@ -192,6 +208,13 @@ def tensor_core_proof() -> dict:
         raise AssertionError(f"a bf16 flash kernel issues no tensor-core instruction: {proof}")
     if proof["fp32_HMMA_HGMMA"]:
         raise AssertionError(f"an fp32 flash kernel issues tensor-core instructions: {proof}")
+    for src in SCAN_SOURCES:
+        idle = [n for n, r in res[src].items() if r["HMMA"] + r["HGMMA"] == 0]
+        spills = {n: r for n, r in res[src].items()
+                  if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+        if idle or spills:
+            raise AssertionError(f"{src}: kernels without tensor-core instructions {idle}, "
+                                 f"or spilling {spills}")
     return {"counts": proof, "kernels": res}
 
 
@@ -321,40 +344,59 @@ def _scan_errors(got, want):
     return abs_err, rel_err, finite
 
 
-def scan_case(name, kernel, plain, inputs, shape, work=None):
+def scan_case(name, kernel, plain, inputs, shape, work=None, note=None):
     got = kernel(*inputs)
     torch.cuda.synchronize()
     want = plain(*inputs)
     abs_err, rel_err, finite = _scan_errors(got, want)
-    case = {"shape": shape, "max_abs_err": abs_err, "max_rel_err": rel_err,
-            "tolerance": SCAN_TOL, "ok": finite and rel_err <= SCAN_TOL}
+    again = kernel(*inputs)
+    rerun_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    case = {"shape": shape, **({"inputs": note} if note else {}), "max_abs_err": abs_err,
+            "max_rel_err": rel_err, "tolerance": SCAN_TOL, "rerun_bit_identical": rerun_equal,
+            "ok": finite and rel_err <= SCAN_TOL and rerun_equal}
     log(f"  {name} case {json.dumps(case)}")
     if not case["ok"]:
         raise AssertionError(f"{name} kernel disagrees with its plain version "
-                             f"(y and final state): {case}")
+                             f"(y and final state), or a rerun differs: {case}")
     if work is not None:
         flops, trans, nbytes = work
-        case.update(bound(flops, nbytes, torch.float32), exps=trans)
+        case.update(bound(flops, nbytes, "tf32"), exps=trans,
+                    bound_ms_fp32_cuda_cores=bound(flops, nbytes, torch.float32)["bound_ms"])
+        # the single-pass TF32 build on the same inputs: what the 3xTF32 split buys
+        single = kernel(*inputs, tf32_passes=1)
+        torch.cuda.synchronize()
+        s_abs, s_rel, _ = _scan_errors(single, want)
+        case.update(single_tf32_max_abs_err=s_abs, single_tf32_max_rel_err=s_rel,
+                    single_tf32_within_tolerance=s_rel <= SCAN_TOL)
         case["ms"] = cuda_ms(lambda: kernel(*inputs), 20)
+        case["single_tf32_ms"] = cuda_ms(lambda: kernel(*inputs, tf32_passes=1), 20)
         case["plain_ms"] = cuda_ms(lambda: plain(*inputs), 3, warmup=1)
         case["library_ms"] = None     # no single PyTorch call computes the scan
         log(f"  {name} timed {json.dumps(case)}")
     return case
 
 
-def wkv6_inputs(seed, b, t, h, d=64):
-    """tests/test_kernels_pallas.py's value ranges, and a nonzero state."""
+def wkv6_inputs(seed, b, t, h, d=64, strong=False):
+    """tests/test_kernels_pallas.py's value ranges, and a nonzero state.  ``strong``:
+    decays w = e^-U(0, 69) spread down to the reference's 1e-30 clamp, and w = 0 in
+    every 16th key column, where the chunk's factors underflow."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    return (n(b, t, h, d) * 0.5, n(b, t, h, d) * 0.5, n(b, t, h, d) * 0.5,
-            torch.sigmoid(n(b, t, h, d) - 1.0), n(h, d) * 0.3, n(b, h, d, d) * 0.2)
+    r, k, v = n(b, t, h, d) * 0.5, n(b, t, h, d) * 0.5, n(b, t, h, d) * 0.5
+    w = torch.sigmoid(n(b, t, h, d) - 1.0)
+    if strong:
+        w = torch.exp(-69.0 * torch.rand((b, t, h, d), generator=gen, device="cuda"))
+        w[..., ::16] = 0.0
+    return r, k, v, w, n(h, d) * 0.3, n(b, h, d, d) * 0.2
 
 
-def ssd_inputs(seed, b, t, h, p=64, n=64):
+def ssd_inputs(seed, b, t, h, p=64, n=64, strong=False):
+    """``strong``: A scaled by 50, so that e^cl underflows within a chunk."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    return (r(b, t, h, p) * 0.5, F.softplus(r(b, t, h) - 1.0), -r(h).abs(),
-            r(b, t, n) * 0.5, r(b, t, n) * 0.5, r(b, h, p, n) * 0.2)
+    x, dt, A = r(b, t, h, p) * 0.5, F.softplus(r(b, t, h) - 1.0), -r(h).abs()
+    return (x, dt, A * 50.0 if strong else A, r(b, t, n) * 0.5, r(b, t, n) * 0.5,
+            r(b, h, p, n) * 0.2)
 
 
 def flash_bwd_case(b, t, kv, g, hd, window, q_offset, dtype, seed, tk=None, timed=False):
@@ -463,13 +505,24 @@ def phase_kernels():
             "others": [scan_case("wkv6", wkv6_fwd, ref.rwkv6_chunked,
                                  wkv6_inputs(21 + t, 2, t, 32),
                                  {"B": 2, "T": t, "H": 32, "K": 64, "V": 64, "chunk": 64})
-                       for t in (1000, 37)]}
+                       for t in (1000, 37, 65, 2049)]
+            # T just past a 16-row sub-chunk and a chunk; strong decays down to 1e-30 and 0
+            + [scan_case("wkv6", wkv6_fwd, ref.rwkv6_chunked, wkv6_inputs(24, 2, 17, 32),
+                         {"B": 2, "T": 17, "H": 32, "K": 64, "V": 64, "chunk": 64}),
+               scan_case("wkv6", wkv6_fwd, ref.rwkv6_chunked,
+                         wkv6_inputs(25, 2, 300, 32, strong=True),
+                         {"B": 2, "T": 300, "H": 32, "K": 64, "V": 64, "chunk": 64},
+                         note="strong decays: w = e^-U(0,69), w = 0 in every 16th column")]}
     ssd = {"main": scan_case("ssd", ssd_fwd, ref.mamba2_ssd, ssd_inputs(30, 4, 2048, 112),
                              {"Bt": 4, "T": 2048, "H": 112, "P": 64, "N": 64, "chunk": 128},
                              ssd_work(4, 2048, 112, 64, 64, 128)),
            "others": [scan_case("ssd", ssd_fwd, ref.mamba2_ssd, ssd_inputs(31 + t, 2, t, 112),
                                 {"Bt": 2, "T": t, "H": 112, "P": 64, "N": 64, "chunk": 128})
-                      for t in (1000, 100)]}
+                      for t in (1000, 100, 33, 129, 2049)]
+            # e^cl underflowing within a chunk
+            + [scan_case("ssd", ssd_fwd, ref.mamba2_ssd, ssd_inputs(32, 2, 300, 112, strong=True),
+                         {"Bt": 2, "T": 300, "H": 112, "P": 64, "N": 64, "chunk": 128},
+                         note="strong decays: A scaled by 50")]}
     # minicpm-2b's training shape (36 heads of 64, bf16, causal), then fp32 at
     # hd 128 with G=2 and a ragged T, a window with a q offset, and hd 112
     flash_bwd = {"main": flash_bwd_case(TRAIN_B, TRAIN_T, 36, 1, 64, 0, 0, torch.bfloat16, 40,
@@ -619,7 +672,8 @@ def check_consistency(cfg, api, params, tol: float):
 
 
 PORT_KERNELS = ("flash_fwd_sm90", "flash_fwd_kernel", "delta_kernel", "dkdv_mma", "dq_mma",
-                "dkdv_kernel", "dq_kernel", "ssd_kernel", "wkv6_kernel", "checksum_kernel")
+                "dkdv_kernel", "dq_kernel", "ssd_gram_kernel", "ssd_scan_kernel",
+                "wkv6_state_kernel", "wkv6_out_kernel", "checksum_kernel")
 
 
 def _device_summary(prof, wall_s: float):
@@ -825,6 +879,15 @@ def kernel_line(name, source, replaces, case, launches_by_path, **extra):
             "flops": case["flops"], "bytes": case["bytes"], **extra}
 
 
+def _scan_extra(case, tensor_cores, source) -> dict:
+    keys = ("bound_ms_fp32_cuda_cores", "single_tf32_max_abs_err", "single_tf32_max_rel_err",
+            "single_tf32_within_tolerance", "single_tf32_ms", "rerun_bit_identical")
+    return {**{k: case[k] for k in keys},
+            "bound_peak": "bytes at 3.35 TB/s, flops at the 494.7 TFLOP/s TF32 peak",
+            "sass_HMMA_HGMMA": tensor_cores["counts"][f"{source}_HMMA_HGMMA"],
+            "kernels_resources": tensor_cores["kernels"][source]}
+
+
 def main() -> None:
     smi = device_line()
     name = torch.cuda.get_device_name(0)
@@ -833,12 +896,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    sources = ["flash_attention", "flash_attention_bwd", "checksum", "rwkv6_scan",
-               "mamba2_ssd"]
+    sources = ["flash_attention", "flash_attention_bwd", "checksum", *SCAN_SOURCES]
     t0 = time.perf_counter()
-    _build.build_all(sources)
+    _build.build_all(sources + [(s, SINGLE_TF32) for s in SCAN_SOURCES])
     build_s = time.perf_counter() - t0
-    log(f"(b) built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s")
+    log(f"(b) built {', '.join(s + '.cu' for s in sources)} (and the scans' single-pass "
+        f"TF32 builds) in {build_s:.1f} s")
     tensor_cores = tensor_core_proof()
 
     flash, flash_bwd, checksum, wkv6, ssd = phase_kernels()
@@ -884,12 +947,16 @@ def main() -> None:
                     other_cases=checksum["others"]),
         kernel_line("wkv6_fwd", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                     "src/repro/kernels/rwkv6_scan.py:68", wkv6["main"], by_path("wkv6_fwd"),
-                    dtype="float32", exps=wkv6["main"]["exps"], library=None,
-                    max_rel_err=wkv6["main"]["max_rel_err"], other_cases=wkv6["others"]),
+                    dtype="float32 (3xTF32 on the tensor cores)", exps=wkv6["main"]["exps"],
+                    library=None, max_rel_err=wkv6["main"]["max_rel_err"],
+                    **_scan_extra(wkv6["main"], tensor_cores, "rwkv6_scan"),
+                    other_cases=wkv6["others"]),
         kernel_line("ssd_fwd", "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
                     "src/repro/kernels/mamba2_ssd.py:65", ssd["main"], by_path("ssd_fwd"),
-                    dtype="float32", exps=ssd["main"]["exps"], library=None,
-                    max_rel_err=ssd["main"]["max_rel_err"], other_cases=ssd["others"]),
+                    dtype="float32 (3xTF32 on the tensor cores)", exps=ssd["main"]["exps"],
+                    library=None, max_rel_err=ssd["main"]["max_rel_err"],
+                    **_scan_extra(ssd["main"], tensor_cores, "mamba2_ssd"),
+                    other_cases=ssd["others"]),
     ]
     for k in kernels:
         if k["launches"] == 0:

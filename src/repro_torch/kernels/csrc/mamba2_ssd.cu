@@ -1,4 +1,5 @@
-// Chunked Mamba2 SSD scan for Hopper (sm_90a), fp32, with a state in and out.
+// Chunked Mamba2 SSD scan for Hopper (sm_90a), fp32 on the TF32 tensor cores, with a
+// state in and out.
 //
 // Replaces the TPU kernel src/repro/kernels/mamba2_ssd.py::ssd_fwd (body _ssd_kernel,
 // pallas_call at line 88), which starts from a zero state and returns y only; this one
@@ -9,33 +10,50 @@
 //     -> y [Bt,T,H,P], s_out [Bt,H,P,N]
 //
 // What bounds it on an H100 (SXM, published peaks at a 700 W power limit): at the
-// zamba2-7b prefill shape (Bt=4, T=2048, H=112, P=N=64, chunk 128) it moves 0.49 GB
-// (x and y dominate: 0.147 ms of device memory) and does 2.3e10 flops (0.345 ms at the
-// 67 TFLOP/s fp32 rate): per chunk and head the carried-state term C S^T, the causal
-// intra-chunk product M x and the rank-c state update are 1e6 flops each, so it is
-// bound by operations.  What the design does about it:
-//   * one block per (batch, head) with the chunk loop inside and the [P,N] state in
-//     shared memory: the Pallas grid's sequential chunk axis becomes a loop, and the
-//     448 blocks of the main shape fill the card's 132 SMs;
-//   * B and C are read by batch, where the Pallas wrapper broadcasts them to every head
-//     in device memory; the x, B, C tiles (32 KB each) and M = (C B^T) * exp(cl_i - cl_j)
-//     * dt_j (a [128,128] tile, 64 KB) stay in shared memory, 184 KB in all;
-//   * every product is register-tiled (a 16 x 16 thread grid, each thread an 8x8, 8x4 or
-//     4x4 tile over shared-memory tiles with padded, conflict-free strides), and the
-//     blocks of the causal triangle that are all zero are skipped, not multiplied;
-//   * masked pairs are skipped instead of multiplied by a mask, and the ragged last
-//     chunk is masked here (rows past T read as x = B = C = dt = 0), which keeps the
-//     final state exact without padding in device memory.
-// C B^T does not depend on the head, yet each block recomputes it (a third more flops
-// than the bound counts), and tensor cores are not used: both are later work.
+// zamba2-7b prefill shape (Bt=4, T=2048, H=112, P=N=64) it moves 0.49 GB (x and y
+// dominate: 0.146 ms of device memory) and needs 2.3e10 flops of products, 0.047 ms at
+// the 495 TFLOP/s TF32 tensor-core rate, so it is bound by bytes once the products run on
+// the tensor cores.  What the design does about it:
+//   * two kernels, one call.  ssd_gram_kernel computes G = C B^T once per (batch, chunk),
+//     since B and C do not depend on the head, into a 1 MB workspace that stays in L2,
+//     stored in the order of the A fragments that read it (one float4 a lane);
+//     ssd_scan_kernel runs one block of 4 warps per (batch, head) with the chunk loop
+//     inside and the [P,N] state in registers, so no per-chunk state goes to memory;
+//   * the sequence is walked in chunks of 32 rows (the function is the same for any chunk
+//     length; only rounding differs; 32 rows halve the causal product's share against 64
+//     and keep a block small): per chunk and head the three products are
+//     y = e^cl (C S^T) + M x and S' = e^cl_last S + (x w)^T B, with
+//     M = G * e^(cl_i - cl_j) * dt_j (j <= i), all fp32 products as 3xTF32 mma.sync
+//     (scan_sm90.cuh);
+//   * warp w owns the 16 head columns p in [16w, 16w+16): y[:, p] and the state rows S[p, :]
+//     both stay with it, and the state's accumulator tiles are exactly the B fragments of
+//     C S^T, so the state never leaves the registers between chunks; M is built in
+//     registers from G's fragments (its causal-zero tiles skipped), never in shared memory;
+//   * x, B, C and dt of the next chunk are loaded by cp.async into the second of two
+//     stages while the current chunk computes; rows of 72 floats keep every fragment load
+//     free of bank conflicts; 55 KB of shared memory and 128 registers a thread let four
+//     blocks share an SM, so the 448 blocks of the main shape run in one wave;
+//   * exponentials run on the special-function unit, flushing results below 2^-126 to
+//     zero: the library's expf takes a slow path there, and e^(cl_i - cl_j) goes there
+//     whenever the decay between two rows is strong;
+//   * the ragged last chunk is masked here (rows past T read as x = B = C = dt = 0, and
+//     are not written), which keeps the final state exact without padding in memory.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 
+#include "scan_sm90.cuh"
+
 namespace {
 
-constexpr int NTHREADS = 256;   // 16 x 16 thread grid for every tile
+constexpr int NTHREADS = 128;   // 4 warps
+constexpr int CH = 32;          // rows per chunk
+constexpr int RPL = CH / 32;    // cumsum rows per lane
+constexpr int P = 64, N = 64;   // head and state sizes
+constexpr int LD = 72;          // shared row stride, floats: conflict-free fragments
+constexpr int LDG = 68;         // the Gram kernel's rows (row-major A and B fragments)
+constexpr int G_TILES = (CH / 16) * (CH / 8);   // A fragments of one chunk's G: 2 x 4
 
 struct Params {
   const float* x;
@@ -46,226 +64,261 @@ struct Params {
   const float* s0;
   float* y;
   float* s_out;
-  int Bt, T, H;
+  float4* G;      // [Bt][n_chunks][G_TILES][32 lanes] A fragments of C B^T
+  int Bt, T, H, n_chunks;
 };
 
-template <int CH, int P, int N>
-constexpr size_t smem_floats() {
-  // x [CH][P+1], B/C [CH][N+1], M [CH][CH+1], S [P][N+1], cl/dt/w [CH]
-  return (size_t)CH * (P + 1) + 2 * (size_t)CH * (N + 1) + (size_t)CH * (CH + 1) +
-         (size_t)P * (N + 1) + 3 * CH;
+// G = C B^T of one (chunk, batch), rows i and columns j <= i, in fragment order:
+// tile (mi, kj), lane (g, t) holds G[16mi + g (+8)][8kj + t (+4)] as a float4.
+constexpr int GRAM_THREADS = 32 * (CH / 16);   // a warp per 16 rows of G
+
+__global__ void __launch_bounds__(GRAM_THREADS) ssd_gram_kernel(const Params p) {
+  __shared__ __align__(16) float C_s[CH * LDG];
+  __shared__ __align__(16) float B_s[CH * LDG];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int chunk = blockIdx.x, b = blockIdx.y, t0 = chunk * CH;
+  const float* Cb = p.Cm + (long long)b * p.T * N;
+  const float* Bb = p.Bm + (long long)b * p.T * N;
+  scan::load_rows<CH, N, LDG, GRAM_THREADS>(C_s, Cb, N, t0, p.T, tid);
+  scan::load_rows<CH, N, LDG, GRAM_THREADS>(B_s, Bb, N, t0, p.T, tid);
+  scan::cp_async_commit();
+  scan::cp_async_wait<0>();
+  __syncthreads();
+
+  const int mi = warp;                  // rows 16mi..16mi+15; columns j < 16mi + 16
+  float acc[CH / 8][4] = {};
+#pragma unroll
+  for (int kb = 0; kb < N / 8; ++kb) {
+    const float* c = C_s + (16 * mi + g) * LDG + 8 * kb + t;
+    const scan::FragA a = scan::frag_a(c[0], c[8 * LDG], c[4], c[8 * LDG + 4]);
+#pragma unroll
+    for (int nt = 0; nt < CH / 8; ++nt) {
+      if (nt > 2 * mi + 1) continue;
+      const float* bb = B_s + (8 * nt + g) * LDG + 8 * kb + t;
+      scan::mma(acc[nt], a, scan::frag_b(bb[0], bb[4]));
+    }
+  }
+  // through this warp's own rows of C_s, from the accumulator layout to the A layout
+  __syncwarp();
+  float* G_s = C_s;
+#pragma unroll
+  for (int nt = 0; nt < CH / 8; ++nt) {
+    float* r = G_s + (16 * mi + g) * LDG + 8 * nt + 2 * t;
+    r[0] = acc[nt][0];
+    r[1] = acc[nt][1];
+    r[8 * LDG] = acc[nt][2];
+    r[8 * LDG + 1] = acc[nt][3];
+  }
+  __syncwarp();
+  float4* out = p.G + ((long long)b * p.n_chunks + chunk) * G_TILES * 32;
+#pragma unroll
+  for (int kj = 0; kj < CH / 8; ++kj) {
+    if (kj > 2 * mi + 1) continue;
+    const float* r = G_s + (16 * mi + g) * LDG + 8 * kj + t;
+    out[(mi * (CH / 8) + kj) * 32 + lane] = make_float4(r[0], r[8 * LDG], r[4], r[8 * LDG + 4]);
+  }
 }
 
-template <int CH, int P, int N>
-__global__ void __launch_bounds__(NTHREADS) ssd_kernel(const Params p) {
-  static_assert(CH == 128 && P % 16 == 0 && N % 16 == 0, "tiling");
-  constexpr int LDP = P + 1, LDN = N + 1, LDM = CH + 1;
-  constexpr int RA = CH / 16;   // a thread's chunk rows (and M columns): ty, ty+16, ...
-  constexpr int PC = P / 16;
-  constexpr int NC = N / 16;
-  extern __shared__ float smem[];
-  float* x_s = smem;                 // [CH][LDP]
-  float* B_s = x_s + CH * LDP;       // [CH][LDN]
-  float* C_s = B_s + CH * LDN;       // [CH][LDN]
-  float* M_s = C_s + CH * LDN;       // [CH][LDM]
-  float* S_s = M_s + CH * LDM;       // [P][LDN]
-  float* cl_s = S_s + P * LDN;       // [CH] inclusive cumsum of A*dt
-  float* dt_s = cl_s + CH;           // [CH]
-  float* w_s = dt_s + CH;            // [CH] exp(cl_last - cl_j) * dt_j
+constexpr int STAGE = 3 * CH * LD + CH;                        // x, B, C, dt
+constexpr size_t SCAN_SMEM = (2 * STAGE + 4 * 2 * CH) * sizeof(float);   // + per-warp cl, w
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+__global__ void __launch_bounds__(NTHREADS, 4) ssd_scan_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const float A = p.A[h];
-  const long long xbase = ((long long)b * p.T * p.H + h) * P;     // x/y row t: + t*H*P
-  const long long bcbase = (long long)b * p.T * N;                // B/C row t: + t*N
-  const long long sbase = ((long long)b * p.H + h) * P * N;
+  const long long row = (long long)p.H * P;                     // x/y: one time step
+  const float* xb = p.x + (long long)b * p.T * row + h * P;
+  float* yb = p.y + (long long)b * p.T * row + h * P;
+  const float* Bb = p.Bm + (long long)b * p.T * N;
+  const float* Cb = p.Cm + (long long)b * p.T * N;
+  const float* dtb = p.dt + (long long)b * p.T * p.H + h;
+  float* cl_w = smem + 2 * STAGE + warp * 2 * CH;               // this warp's cumsum
+  float* w_w = cl_w + CH;                                       // e^(cl_last - cl_j) dt_j
+  const int p0 = 16 * warp;                                     // this warp's head columns
 
-  for (int idx = tid; idx < P * N; idx += NTHREADS)
-    S_s[(idx / N) * LDN + idx % N] = p.s0[sbase + idx];
-
-  for (int t0 = 0; t0 < p.T; t0 += CH) {
-    // (1) the chunk's rows; rows past T read as zeros (dt = 0: no decay, no input)
-    for (int idx = tid; idx < CH * P; idx += NTHREADS) {
-      const int i = idx / P, c = idx % P, t = t0 + i;
-      x_s[i * LDP + c] = t < p.T ? p.x[xbase + (long long)t * p.H * P + c] : 0.f;
-    }
-    for (int idx = tid; idx < CH * N; idx += NTHREADS) {
-      const int i = idx / N, c = idx % N, t = t0 + i;
-      const bool in = t < p.T;
-      B_s[i * LDN + c] = in ? p.Bm[bcbase + (long long)t * N + c] : 0.f;
-      C_s[i * LDN + c] = in ? p.Cm[bcbase + (long long)t * N + c] : 0.f;
-    }
+  auto load_chunk = [&](int c, int stage) {
+    float* x_s = smem + stage * STAGE;
+    const int t0 = c * CH;
+    scan::load_rows<CH, P, LD, NTHREADS>(x_s, xb, row, t0, p.T, tid);
+    scan::load_rows<CH, N, LD, NTHREADS>(x_s + CH * LD, Bb, N, t0, p.T, tid);
+    scan::load_rows<CH, N, LD, NTHREADS>(x_s + 2 * CH * LD, Cb, N, t0, p.T, tid);
     if (tid < CH) {
-      const int t = t0 + tid;
-      dt_s[tid] = t < p.T ? p.dt[((long long)b * p.T + t) * p.H + h] : 0.f;
+      const bool in = t0 + tid < p.T;
+      scan::cp_async4(x_s + 3 * CH * LD + tid, dtb + (in ? (long long)(t0 + tid) * p.H : 0), in);
     }
-    __syncthreads();
+    scan::cp_async_commit();
+  };
 
-    // (2) cl = cumsum(A*dt) by one warp (4 rows a lane), then w_j = e^(cl_last-cl_j)*dt_j
-    if (tid < 32) {
-      float v[CH / 32];
+  // the state rows S[p0 .. p0+15][:], as accumulator tiles over n
+  float S[N / 8][4];
+  {
+    const float* s = p.s0 + ((long long)b * p.H + h) * P * N;
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) {
+      const float2 lo = *reinterpret_cast<const float2*>(s + (p0 + g) * N + 8 * nt + 2 * t);
+      const float2 hi = *reinterpret_cast<const float2*>(s + (p0 + g + 8) * N + 8 * nt + 2 * t);
+      S[nt][0] = lo.x, S[nt][1] = lo.y, S[nt][2] = hi.x, S[nt][3] = hi.y;
+    }
+  }
+
+  load_chunk(0, 0);
+  for (int c = 0; c < p.n_chunks; ++c) {
+    const int t0 = c * CH;
+    const float* x_s = smem + (c & 1) * STAGE;
+    const float* B_s = x_s + CH * LD;
+    const float* C_s = B_s + CH * LD;
+    const float* dt_s = C_s + CH * LD;
+    scan::cp_async_wait<0>();
+    __syncthreads();              // chunk c has landed; every warp is done with chunk c-1
+    if (c + 1 < p.n_chunks) load_chunk(c + 1, (c + 1) & 1);
+
+    // cl = cumsum(A dt) over the chunk (lane: rows RPL l ..), per warp
+    float cl_last;
+    {
+      float v[RPL];
       float run = 0.f;
 #pragma unroll
-      for (int q = 0; q < CH / 32; ++q) {
-        run += A * dt_s[tid * (CH / 32) + q];
-        v[q] = run;
-      }
+      for (int q = 0; q < RPL; ++q) v[q] = run += A * dt_s[RPL * lane + q];
       float incl = run;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
         const float o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += o;
+        if (lane >= off) incl += o;
       }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.f;
-      const float last = __shfl_sync(0xffffffffu, v[CH / 32 - 1] + excl, 31);   // cl[CH-1]
+      const float excl = incl - run;
+      cl_last = __shfl_sync(0xffffffffu, incl, 31);
 #pragma unroll
-      for (int q = 0; q < CH / 32; ++q) {
-        const int i = tid * (CH / 32) + q;
-        cl_s[i] = v[q] + excl;
-        w_s[i] = expf(fminf(last - (v[q] + excl), 30.f)) * dt_s[i];
-      }
-    }
-    __syncthreads();
-
-    // (3) M[i,j] = (C_i . B_j) * e^(cl_i - cl_j) * dt_j for j <= i, else 0
-    {
-      float acc[RA][RA];
-#pragma unroll
-      for (int a = 0; a < RA; ++a)
-#pragma unroll
-        for (int bb = 0; bb < RA; ++bb) acc[a][bb] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float ci[RA], bj[RA];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) {
-          ci[a] = C_s[(ty + 16 * a) * LDN + n];
-          bj[a] = B_s[(tx + 16 * a) * LDN + n];
-        }
-#pragma unroll
-        for (int a = 0; a < RA; ++a)
-#pragma unroll
-          for (int bb = 0; bb <= a; ++bb) acc[a][bb] = fmaf(ci[a], bj[bb], acc[a][bb]);
-      }
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-        const int i = ty + 16 * a;
-        const float cli = cl_s[i];
-#pragma unroll
-        for (int bb = 0; bb < RA; ++bb) {
-          const int j = tx + 16 * bb;
-          M_s[i * LDM + j] =
-              j <= i ? acc[a][bb] * expf(fminf(cli - cl_s[j], 30.f)) * dt_s[j] : 0.f;
-        }
+      for (int q = 0; q < RPL; ++q) {
+        const int i = RPL * lane + q;
+        cl_w[i] = excl + v[q];
+        w_w[i] = scan::ex(fminf(cl_last - (excl + v[q]), 30.f)) * dt_s[i];
       }
     }
-    __syncthreads();
+    __syncwarp();
 
-    // (4) y = e^cl_i * (C_i S^T) + sum_{j<=i} M[i,j] x_j, rows ty+16a, columns tx+16bb
-    {
-      float acc[RA][PC];
+    // y[:, p0..p0+15]: e^cl_i (C_i S^T) + sum_{j <= i} M_ij x_j
+    float acc[CH / 16][2][4] = {};
 #pragma unroll
-      for (int a = 0; a < RA; ++a)
+    for (int kb = 0; kb < N / 8; ++kb) {
+      // k slots (t, t+4) = state columns (8kb + 2t, 8kb + 2t + 1): S's own tiles
+      const scan::FragB s0 = scan::frag_b(S[kb][0], S[kb][1]);
+      const scan::FragB s1 = scan::frag_b(S[kb][2], S[kb][3]);
 #pragma unroll
-        for (int bb = 0; bb < PC; ++bb) acc[a][bb] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[RA], sv[PC];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) cv[a] = C_s[(ty + 16 * a) * LDN + n];
-#pragma unroll
-        for (int bb = 0; bb < PC; ++bb) sv[bb] = S_s[(tx + 16 * bb) * LDN + n];
-#pragma unroll
-        for (int a = 0; a < RA; ++a)
-#pragma unroll
-          for (int bb = 0; bb < PC; ++bb) acc[a][bb] = fmaf(cv[a], sv[bb], acc[a][bb]);
-      }
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-        const float e = expf(cl_s[ty + 16 * a]);
-#pragma unroll
-        for (int bb = 0; bb < PC; ++bb) acc[a][bb] *= e;
-      }
-      // M is zero above the diagonal: rows below 16*jb see nothing of block jb
-      for (int jb = 0; jb < RA; ++jb) {
-        for (int jj = 0; jj < 16; ++jj) {
-          const int j = 16 * jb + jj;
-          float xv[PC];
-#pragma unroll
-          for (int bb = 0; bb < PC; ++bb) xv[bb] = x_s[j * LDP + tx + 16 * bb];
-#pragma unroll
-          for (int a = 0; a < RA; ++a) {
-            if (a < jb) continue;
-            const float m = M_s[(ty + 16 * a) * LDM + j];
-#pragma unroll
-            for (int bb = 0; bb < PC; ++bb) acc[a][bb] = fmaf(m, xv[bb], acc[a][bb]);
-          }
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-        const int t = t0 + ty + 16 * a;
-        if (t >= p.T) continue;
-        float* yr = p.y + xbase + (long long)t * p.H * P;
-#pragma unroll
-        for (int bb = 0; bb < PC; ++bb) yr[tx + 16 * bb] = acc[a][bb];
+      for (int mi = 0; mi < CH / 16; ++mi) {
+        const float2 u = *reinterpret_cast<const float2*>(C_s + (16 * mi + g) * LD + 8 * kb + 2 * t);
+        const float2 v = *reinterpret_cast<const float2*>(C_s + (16 * mi + g + 8) * LD + 8 * kb + 2 * t);
+        const scan::FragA a = scan::frag_a(u.x, v.x, u.y, v.y);
+        scan::mma(acc[mi][0], a, s0);
+        scan::mma(acc[mi][1], a, s1);
       }
     }
-
-    // (5) S' = e^cl_last * S + sum_j w_j x_j B_j^T, rows (p) ty+16a, columns (n) tx+16bb
-    {
-      float acc[PC][NC];
-      const float dec = expf(cl_s[CH - 1]);
 #pragma unroll
-      for (int a = 0; a < PC; ++a)
+    for (int mi = 0; mi < CH / 16; ++mi) {
+      const float e0 = scan::ex(cl_w[16 * mi + g]), e1 = scan::ex(cl_w[16 * mi + g + 8]);
 #pragma unroll
-        for (int bb = 0; bb < NC; ++bb) acc[a][bb] = dec * S_s[(ty + 16 * a) * LDN + tx + 16 * bb];
-      for (int j = 0; j < CH; ++j) {
-        const float wj = w_s[j];
-        float xv[PC], bv[NC];
-#pragma unroll
-        for (int a = 0; a < PC; ++a) xv[a] = x_s[j * LDP + ty + 16 * a] * wj;
-#pragma unroll
-        for (int bb = 0; bb < NC; ++bb) bv[bb] = B_s[j * LDN + tx + 16 * bb];
-#pragma unroll
-        for (int a = 0; a < PC; ++a)
-#pragma unroll
-          for (int bb = 0; bb < NC; ++bb) acc[a][bb] = fmaf(xv[a], bv[bb], acc[a][bb]);
+      for (int nt = 0; nt < 2; ++nt) {
+        acc[mi][nt][0] *= e0, acc[mi][nt][1] *= e0;
+        acc[mi][nt][2] *= e1, acc[mi][nt][3] *= e1;
       }
-      __syncthreads();          // every read of S, x, B, C, M of this chunk is done
+    }
+    const float4* Gc = p.G + ((long long)b * p.n_chunks + c) * G_TILES * 32 + lane;
 #pragma unroll
-      for (int a = 0; a < PC; ++a)
+    for (int kj = 0; kj < CH / 8; ++kj) {
+      const int j0 = 8 * kj;
+      float4 gv[CH / 16];
 #pragma unroll
-        for (int bb = 0; bb < NC; ++bb) S_s[(ty + 16 * a) * LDN + tx + 16 * bb] = acc[a][bb];
+      for (int mi = kj / 2; mi < CH / 16; ++mi) gv[mi] = Gc[(mi * (CH / 8) + kj) * 32];
+      const float* xr = x_s + (j0 + t) * LD + p0 + g;
+      const scan::FragB x0 = scan::frag_b(xr[0], xr[4 * LD]);
+      const scan::FragB x1 = scan::frag_b(xr[8], xr[4 * LD + 8]);
+      const float cj0 = cl_w[j0 + t], cj1 = cl_w[j0 + t + 4];
+      const float dj0 = dt_s[j0 + t], dj1 = dt_s[j0 + t + 4];
+#pragma unroll
+      for (int mi = kj / 2; mi < CH / 16; ++mi) {
+        const int i0 = 16 * mi + g, i1 = i0 + 8;
+        const float ci0 = cl_w[i0], ci1 = cl_w[i1];
+        auto m = [](float gij, int i, int j, float ci, float cj, float dj) {
+          return j <= i ? gij * scan::ex(fminf(ci - cj, 30.f)) * dj : 0.f;
+        };
+        const scan::FragA a = scan::frag_a(m(gv[mi].x, i0, j0 + t, ci0, cj0, dj0),
+                                           m(gv[mi].y, i1, j0 + t, ci1, cj0, dj0),
+                                           m(gv[mi].z, i0, j0 + t + 4, ci0, cj1, dj1),
+                                           m(gv[mi].w, i1, j0 + t + 4, ci1, cj1, dj1));
+        scan::mma(acc[mi][0], a, x0);
+        scan::mma(acc[mi][1], a, x1);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < CH / 16; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int tt = t0 + 16 * mi + g + 8 * half;
+        if (tt >= p.T) continue;
+        float* yr = yb + (long long)tt * row + p0 + 2 * t;
+        *reinterpret_cast<float2*>(yr) = make_float2(acc[mi][0][2 * half], acc[mi][0][2 * half + 1]);
+        *reinterpret_cast<float2*>(yr + 8) =
+            make_float2(acc[mi][1][2 * half], acc[mi][1][2 * half + 1]);
+      }
+
+    // S'[p0.., :] = e^cl_last S + sum_j (x_j w_j)[p] B_j
+    const float decay = scan::ex(cl_last);
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) S[nt][q] *= decay;
+#pragma unroll
+    for (int kj = 0; kj < CH / 8; ++kj) {
+      const int j0 = 8 * kj;
+      const float w0 = w_w[j0 + t], w1 = w_w[j0 + t + 4];
+      const float* xr = x_s + (j0 + t) * LD + p0 + g;
+      const scan::FragA a = scan::frag_a(xr[0] * w0, xr[8] * w0, xr[4 * LD] * w1,
+                                         xr[4 * LD + 8] * w1);
+      const float* br = B_s + (j0 + t) * LD + g;
+#pragma unroll
+      for (int nt = 0; nt < N / 8; ++nt)
+        scan::mma(S[nt], a, scan::frag_b(br[8 * nt], br[4 * LD + 8 * nt]));
     }
   }
-  __syncthreads();
-  for (int idx = tid; idx < P * N; idx += NTHREADS)
-    p.s_out[sbase + idx] = S_s[(idx / N) * LDN + idx % N];
-}
 
-template <int CH, int P, int N>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<CH, P, N>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_kernel<CH, P, N>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  ssd_kernel<CH, P, N><<<p.Bt * p.H, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  float* s = p.s_out + ((long long)b * p.H + h) * P * N;
+#pragma unroll
+  for (int nt = 0; nt < N / 8; ++nt) {
+    *reinterpret_cast<float2*>(s + (p0 + g) * N + 8 * nt + 2 * t) = make_float2(S[nt][0], S[nt][1]);
+    *reinterpret_cast<float2*>(s + (p0 + g + 8) * N + 8 * nt + 2 * t) =
+        make_float2(S[nt][2], S[nt][3]);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t: 0 when the kernel was launched.  All tensors are contiguous
-// fp32; P = N = 64 and chunk 128 are the compiled sizes.
+// Floats of the workspace ssd_fwd needs: G for every (batch, 32-row chunk).
+long long ssd_workspace_floats(int Bt, int T) {
+  return (long long)Bt * ((T + CH - 1) / CH) * G_TILES * 32 * 4;
+}
+
+// Returns a cudaError_t: 0 when both kernels were launched.  All tensors are contiguous
+// fp32; P = N = 64 and chunk 128 are the compiled sizes (the kernel walks the chunk in
+// four quarters); `work` holds ssd_workspace_floats(Bt, T) floats.
 int ssd_fwd(const float* x, const float* dt, const float* A, const float* Bm, const float* Cm,
-            const float* s0, float* y, float* s_out, int Bt, int T, int H, int P, int N,
-            int chunk, void* stream) {
-  if (P != 64 || N != 64 || chunk != 128) return cudaErrorInvalidValue;
-  const Params p{x, dt, A, Bm, Cm, s0, y, s_out, Bt, T, H};
-  return launch<128, 64, 64>(p, static_cast<cudaStream_t>(stream));
+            const float* s0, float* y, float* s_out, int Bt, int T, int H, int P_, int N_,
+            int chunk, void* work, void* stream) {
+  if (P_ != P || N_ != N || chunk != 128 || T <= 0) return cudaErrorInvalidValue;
+  const int n_chunks = (T + CH - 1) / CH;
+  const Params p{x, dt, A, Bm, Cm, s0, y, s_out, static_cast<float4*>(work), Bt, T, H, n_chunks};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ssd_gram_kernel<<<dim3(n_chunks, Bt), GRAM_THREADS, 0, st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SCAN_SMEM);
+  if (err != cudaSuccess) return err;
+  ssd_scan_kernel<<<Bt * H, NTHREADS, SCAN_SMEM, st>>>(p);
+  return cudaGetLastError();
 }
 
 const char* ssd_error_string(int err) {

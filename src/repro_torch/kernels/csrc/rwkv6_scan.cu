@@ -1,4 +1,5 @@
-// Chunked RWKV6 WKV recurrence for Hopper (sm_90a), fp32, with a state in and out.
+// Chunked RWKV6 WKV recurrence for Hopper (sm_90a), fp32 on the TF32 tensor cores, with a
+// state in and out.
 //
 // Replaces the TPU kernel src/repro/kernels/rwkv6_scan.py::wkv6_fwd (body _wkv6_kernel,
 // pallas_call at line 92), which starts from a zero state and returns y only; this one
@@ -7,40 +8,61 @@
 //
 //   r, k, w [B,T,H,K], v [B,T,H,V], u [H,K], s0 [B,H,K,V] -> y [B,T,H,V], s_out [B,H,K,V]
 //
+// Per chunk of 64 rows, in log2 units (cl the inclusive cumsum of log2 w down each key
+// column, clp the exclusive one):
+//   y_i = (r_i * 2^clp_i) S + sum_{j<i} att_ij v_j + (r_i . u k_i) v_i,
+//   att_ij = sum_k r_ik k_jk 2^(clp_ik - cl_jk),
+//   S' = 2^cl_last * S + sum_j (k_j * 2^(cl_last - cl_j)) v_j^T.
+//
 // What bounds it on an H100 (SXM, published peaks at a 700 W power limit): at the
-// rwkv6-1.6b prefill shape (B=4, T=2048, H=32, K=V=64, chunk 64) the inputs and
-// outputs are 0.34 GB, 0.101 ms of device memory, while the work is 7.7e9 flops
-// (0.115 ms at the 67 TFLOP/s fp32 rate) plus 5.8e8 exponentials and logarithms: the
-// pairwise decays exp(cl_prev_i - cl_j) of the intra-chunk term are one exponential per
-// (i, j < i, k), 2016 x 64 per chunk and head, and they run on the special-function
-// units, at a fraction of the fp32 rate.  So it is bound by operations, the exponentials
-// first.  What the design does about it:
-//   * one block per (batch, head) with the chunk loop inside and the [K,V] state in
-//     shared memory: the Pallas grid's sequential chunk axis becomes a loop, so nothing
-//     carries between blocks;
-//   * the [c,c,K] decay tensor D of the Pallas body (1 MB per chunk) is never formed:
-//     each thread computes a 4x4 tile of att[i,j] = sum_k r_ik exp2(cl_prev_ik - cl_jk) k_jk
-//     in registers, in log2 units, skipping masked (j >= i) tiles and pairs instead of
-//     multiplying by a mask (an unclamped inf * 0 would be NaN); the difference of log
-//     cumsums is kept, since factoring it through a chunk reference underflows;
-//   * the u-bonus diagonal is written into att[i,i], so y = (r*e^cl_prev) S + att v is two
-//     register-tiled products over shared-memory tiles, with the triangle's zero blocks
-//     skipped; the state update is a third;
+// rwkv6-1.6b prefill shape (B=4, T=2048, H=32, K=V=64) its inputs and outputs are 0.34 GB,
+// 0.101 ms of device memory; its 7.7e9 flops of products take 0.016 ms at the 495 TFLOP/s
+// TF32 tensor-core rate, so once the products run on the tensor cores it is bound by
+// bytes, with the exponentials of att next.  What the design does about it:
+//   * the chunk loop is split in two kernels under one call, so the card fills: a state
+//     pass (one block per (batch, head, 32 value columns): 256 blocks at the main shape)
+//     walks the chunks in order and writes each chunk's initial state to a workspace
+//     [B, n_chunks, H, K, V] (67 MB), then the final state; an output pass (one block per
+//     (batch, head, chunk): 4096 blocks, all independent) computes y from it;
+//   * every product runs as 3xTF32 mma.sync (scan_sm90.cuh): the state pass's rank-64
+//     update, and the output pass's (r 2^clp) S, att and att v;
+//   * att by sub-chunks of 16 rows.  For row block I and an earlier block J < I, with
+//     ref_I = clp at I's first row:
+//       att_IJ = (r_I * 2^(clp_I - ref_I)) . (k_J * 2^(ref_I - cl_J))^T.
+//     ref_I lies between every j in J and every i in I, so for decays w <= 1 (the model's
+//     w = exp(-exp(.))) both exponents are <= 0: neither factor overflows, and a factor
+//     underflows only where the exact 2^(clp_i - cl_j), which is below it, already lies
+//     under fp32's range.  (A reference at the chunk's start would not do: 2^-clp_j
+//     overflows once a chunk's decays are strong.)  The four 16 x 16 diagonal blocks are
+//     split once more, at their middle row, the same way; only their eight 8 x 8
+//     diagonal sub-blocks keep one exponential per (i, j < i, k), spread over the lanes
+//     pair by pair: (8 * 28 + 208) * 64 exponentials per chunk and head, not 2016 * 64;
+//   * exponentials and logarithms run on the special-function unit, flushing results
+//     below 2^-126 to zero: the library's exp2f takes a slow path there, where strong
+//     decays send most of att's factors;
+//   * the cumsums are parallel: 16 rows a thread, then a warp-shuffle scan across the
+//     four row groups of each column;
 //   * the ragged last chunk is masked here (rows past T read as r = k = v = 0, w = 1),
 //     which keeps the final state exact without padding in device memory;
-//   * padded row strides keep every column walk free of bank conflicts.
-// The exponentials are not shared between the K columns and tensor cores are not used:
-// both are later work.
+//   * no atomics and a fixed order of every sum: reruns are bit-identical.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 
+#include "scan_sm90.cuh"
+
 namespace {
 
-constexpr int NTHREADS = 256;               // 16 x 16 thread grid for every tile
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float CLAMP2 = 30.f * LOG2E;      // the reference's exponent clamp (30), in log2 units
+constexpr int NTHREADS = 128;                   // 4 warps
+constexpr int CH = 64;                          // rows per chunk
+constexpr int D = 64;                           // K = V
+constexpr int VT = 32;                          // value columns of one state-pass block
+constexpr int LDK = 72;                         // state pass: rows read as [k][m] fragments
+constexpr int LDV = VT + 8;
+constexpr int LDR = 68;                         // output pass: rows read as [m][k] fragments
+constexpr int LDS = 72;
+constexpr float CLAMP2 = 30.f * scan::LOG2E;    // the reference's exponent clamp (30), in log2
 
 struct Params {
   const float* r;
@@ -51,218 +73,307 @@ struct Params {
   const float* s0;
   float* y;
   float* s_out;
-  int B, T, H;
+  float* S_chunks;   // [B][n_chunks][H][K][V]: the state at each chunk's start
+  int B, T, H, n_chunks;
 };
 
-template <int CH, int D>
-constexpr size_t smem_floats() {
-  // S, r, k, v, cl, cl_prev, rd (log2 w, then r*e^cl_prev), kd: [.][D+1]; att: [CH][CH+1]; u
-  return (size_t)D * (D + 1) + 7 * (size_t)CH * (D + 1) + (size_t)CH * (CH + 1) + D;
+__device__ __forceinline__ float exp2c(float x) { return scan::ex2(fminf(x, CLAMP2)); }
+
+// In place: s[i][c] (64 x 64, row stride LD) holds w; afterwards the inclusive cumsum of
+// log2(max(w, 1e-30)) down each column.  Rows at or past `valid` count as w = 1.  A warp
+// takes 8 columns: lane (rg, cs) sums rows 16rg..16rg+15 of column cs, then a shuffle scan
+// across the four row groups.  The caller synchronises before and after.
+template <int LD>
+__device__ __forceinline__ void log2_cumsum(float* s, int valid, int tid) {
+  const int warp = tid >> 5, lane = tid & 31, rg = lane >> 3, cs = lane & 7;
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += 32) {
+    float* col = s + 16 * rg * LD + c0 + 8 * warp + cs;
+    float v[16];
+    float run = 0.f;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      run += 16 * rg + q < valid ? scan::lg2(fmaxf(col[q * LD], 1e-30f)) : 0.f;
+      v[q] = run;
+    }
+    float incl = run;
+    float o = __shfl_up_sync(0xffffffffu, incl, 8);
+    if (rg >= 1) incl += o;
+    o = __shfl_up_sync(0xffffffffu, incl, 16);
+    if (rg >= 2) incl += o;
+    const float excl = incl - run;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) col[q * LD] = v[q] + excl;
+  }
 }
 
-template <int CH, int D>
-__global__ void __launch_bounds__(NTHREADS) wkv6_kernel(const Params p) {
-  static_assert(CH % 16 == 0 && D % 16 == 0 && D <= NTHREADS && D + CH <= NTHREADS, "tiling");
-  constexpr int LD = D + 1;
-  constexpr int LDA = CH + 1;
-  constexpr int RA = CH / 16;   // a thread's rows (and att columns): ty, ty+16, ...
-  constexpr int DC = D / 16;    // a thread's value/key columns: tx, tx+16, ...
-  extern __shared__ float smem[];
-  float* S_s = smem;                  // [D][LD]   state, k rows x v columns
-  float* r_s = S_s + D * LD;          // [CH][LD]
-  float* k_s = r_s + CH * LD;
-  float* v_s = k_s + CH * LD;
-  float* cl_s = v_s + CH * LD;        // inclusive log2-decay cumsum
-  float* clp_s = cl_s + CH * LD;      // exclusive
-  float* rd_s = clp_s + CH * LD;      // log2 w, then r * 2^cl_prev
-  float* kd_s = rd_s + CH * LD;       // k * 2^(cl_last - cl)
-  float* att_s = kd_s + CH * LD;      // [CH][LDA]
-  float* u_s = att_s + CH * LDA;      // [D]
+// ------------------------------------------------------------------ (a) state pass
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const long long row_stride = (long long)p.H * D;         // one time step
-  const long long base = ((long long)b * p.T * p.H + h) * D;
-  const long long sbase = ((long long)b * p.H + h) * D * D;
+constexpr int ST_STAGE = 2 * CH * LDK + CH * LDV;    // k, w (then cl), v tile
+constexpr size_t ST_SMEM = 2 * ST_STAGE * sizeof(float);
 
-  for (int idx = tid; idx < D * D; idx += NTHREADS)
-    S_s[(idx / D) * LD + idx % D] = p.s0[sbase + idx];
-  if (tid < D) u_s[tid] = p.u[(long long)h * D + tid];
+__global__ void __launch_bounds__(NTHREADS, 2) wkv6_state_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int v0 = blockIdx.x * VT, bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const long long row = (long long)p.H * D;
+  const long long base = (long long)b * p.T * row + (long long)h * D;
+  const int m0 = 16 * warp;                    // this warp's key rows
 
-  for (int t0 = 0; t0 < p.T; t0 += CH) {
-    // (1) the chunk's rows; rows past T read as r = k = v = 0 and w = 1 (log2 w = 0)
-    for (int idx = tid; idx < CH * D; idx += NTHREADS) {
-      const int i = idx / D, c = idx % D, t = t0 + i;
-      const int o = i * LD + c;
-      if (t < p.T) {
-        const long long g = base + t * row_stride + c;
-        r_s[o] = p.r[g];
-        k_s[o] = p.k[g];
-        v_s[o] = p.v[g];
-        rd_s[o] = log2f(fmaxf(p.w[g], 1e-30f));
-      } else {
-        r_s[o] = 0.f;
-        k_s[o] = 0.f;
-        v_s[o] = 0.f;
-        rd_s[o] = 0.f;
+  auto load_chunk = [&](int c, int stage) {
+    float* k_s = smem + stage * ST_STAGE;
+    const int t0 = c * CH;
+    scan::load_rows<CH, D, LDK, NTHREADS>(k_s, p.k + base, row, t0, p.T, tid);
+    scan::load_rows<CH, D, LDK, NTHREADS>(k_s + CH * LDK, p.w + base, row, t0, p.T, tid);
+    scan::load_rows<CH, VT, LDV, NTHREADS>(k_s + 2 * CH * LDK, p.v + base + v0, row, t0, p.T,
+                                           tid);
+    scan::cp_async_commit();
+  };
+
+  // S[m0 .. m0+15][v0 .. v0+15] as two accumulator tiles
+  float S[VT / 8][4];
+  const long long sidx = (long long)bh * D * D + v0;
+#pragma unroll
+  for (int nt = 0; nt < VT / 8; ++nt) {
+    const float* s = p.s0 + sidx + (m0 + g) * D + 8 * nt + 2 * t;
+    const float2 a = *reinterpret_cast<const float2*>(s);
+    const float2 c = *reinterpret_cast<const float2*>(s + 8 * D);
+    S[nt][0] = a.x, S[nt][1] = a.y, S[nt][2] = c.x, S[nt][3] = c.y;
+  }
+
+  load_chunk(0, 0);
+  for (int c = 0; c < p.n_chunks; ++c) {
+    float* k_s = smem + (c & 1) * ST_STAGE;
+    float* cl_s = k_s + CH * LDK;
+    const float* v_s = cl_s + CH * LDK;
+    {
+      float* out = p.S_chunks + (((long long)b * p.n_chunks + c) * p.H + h) * D * D + v0;
+#pragma unroll
+      for (int nt = 0; nt < VT / 8; ++nt) {
+        float* s = out + (m0 + g) * D + 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(s) = make_float2(S[nt][0], S[nt][1]);
+        *reinterpret_cast<float2*>(s + 8 * D) = make_float2(S[nt][2], S[nt][3]);
       }
     }
+    scan::cp_async_wait<0>();
+    __syncthreads();            // chunk c has landed; every warp is done with chunk c-1
+    if (c + 1 < p.n_chunks) load_chunk(c + 1, (c + 1) & 1);
+    log2_cumsum<LDK>(cl_s, p.T - c * CH, tid);
     __syncthreads();
 
-    // (2) log2-decay cumsums down each key column; the u-bonus diagonal att[i,i]
-    if (tid < D) {
-      float run = 0.f;
-      for (int i = 0; i < CH; ++i) {
-        clp_s[i * LD + tid] = run;
-        run += rd_s[i * LD + tid];
-        cl_s[i * LD + tid] = run;
-      }
-    } else if (tid < D + CH) {
-      const int i = tid - D;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < D; ++c) acc = fmaf(r_s[i * LD + c] * u_s[c], k_s[i * LD + c], acc);
-      att_s[i * LDA + i] = acc;
+    // S' = 2^cl_last S + kd^T v, kd_jk = k_jk 2^(cl_last,k - cl_jk); A = kd^T [k rows][j]
+    const float last0 = cl_s[(CH - 1) * LDK + m0 + g], last1 = cl_s[(CH - 1) * LDK + m0 + g + 8];
+    const float d0 = scan::ex2(last0), d1 = scan::ex2(last1);
+#pragma unroll
+    for (int nt = 0; nt < VT / 8; ++nt) {
+      S[nt][0] *= d0, S[nt][1] *= d0;
+      S[nt][2] *= d1, S[nt][3] *= d1;
     }
-    __syncthreads();
-
-    // (3) att[i, j<i] in registers; r*2^cl_prev and k*2^(cl_last-cl) for (4) and (5)
-    {
-      float acc[RA][RA];
 #pragma unroll
-      for (int a = 0; a < RA; ++a)
+    for (int kj = 0; kj < CH / 8; ++kj) {
+      const int o0 = (8 * kj + t) * LDK + m0 + g, o1 = o0 + 4 * LDK;
+      const scan::FragA a = scan::frag_a(k_s[o0] * exp2c(last0 - cl_s[o0]),
+                                         k_s[o0 + 8] * exp2c(last1 - cl_s[o0 + 8]),
+                                         k_s[o1] * exp2c(last0 - cl_s[o1]),
+                                         k_s[o1 + 8] * exp2c(last1 - cl_s[o1 + 8]));
+      const float* vr = v_s + (8 * kj + t) * LDV + g;
 #pragma unroll
-        for (int bb = 0; bb < RA; ++bb) acc[a][bb] = 0.f;
-      for (int c = 0; c < D; ++c) {
-        float ri[RA], pi[RA], cj[RA], kj[RA];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) {
-          ri[a] = r_s[(ty + 16 * a) * LD + c];
-          pi[a] = clp_s[(ty + 16 * a) * LD + c];
-          cj[a] = cl_s[(tx + 16 * a) * LD + c];
-          kj[a] = k_s[(tx + 16 * a) * LD + c];
-        }
-#pragma unroll
-        for (int a = 0; a < RA; ++a)
-#pragma unroll
-          for (int bb = 0; bb <= a; ++bb)
-            if (bb < a || tx < ty)
-              acc[a][bb] = fmaf(ri[a] * kj[bb], exp2f(fminf(pi[a] - cj[bb], CLAMP2)), acc[a][bb]);
-      }
-#pragma unroll
-      for (int a = 0; a < RA; ++a)
-#pragma unroll
-        for (int bb = 0; bb < RA; ++bb) {
-          const int i = ty + 16 * a, j = tx + 16 * bb;
-          if (j != i) att_s[i * LDA + j] = j < i ? acc[a][bb] : 0.f;
-        }
-    }
-    for (int idx = tid; idx < CH * D; idx += NTHREADS) {
-      const int i = idx / D, c = idx % D, o = i * LD + c;
-      rd_s[o] = r_s[o] * exp2f(clp_s[o]);
-      kd_s[o] = k_s[o] * exp2f(fminf(cl_s[(CH - 1) * LD + c] - cl_s[o], CLAMP2));
-    }
-    __syncthreads();
-
-    // (4) y = (r * 2^cl_prev) S + att v, rows ty+16a, value columns tx+16bb
-    {
-      float acc[RA][DC];
-#pragma unroll
-      for (int a = 0; a < RA; ++a)
-#pragma unroll
-        for (int bb = 0; bb < DC; ++bb) acc[a][bb] = 0.f;
-      for (int c = 0; c < D; ++c) {
-        float rv[RA], sv[DC];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) rv[a] = rd_s[(ty + 16 * a) * LD + c];
-#pragma unroll
-        for (int bb = 0; bb < DC; ++bb) sv[bb] = S_s[c * LD + tx + 16 * bb];
-#pragma unroll
-        for (int a = 0; a < RA; ++a)
-#pragma unroll
-          for (int bb = 0; bb < DC; ++bb) acc[a][bb] = fmaf(rv[a], sv[bb], acc[a][bb]);
-      }
-      // att is zero above the diagonal: rows below 16*jb see nothing of key block jb
-      for (int jb = 0; jb < RA; ++jb) {
-        for (int jj = 0; jj < 16; ++jj) {
-          const int j = 16 * jb + jj;
-          float vv[DC];
-#pragma unroll
-          for (int bb = 0; bb < DC; ++bb) vv[bb] = v_s[j * LD + tx + 16 * bb];
-#pragma unroll
-          for (int a = 0; a < RA; ++a) {
-            if (a < jb) continue;
-            const float av = att_s[(ty + 16 * a) * LDA + j];
-#pragma unroll
-            for (int bb = 0; bb < DC; ++bb) acc[a][bb] = fmaf(av, vv[bb], acc[a][bb]);
-          }
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-        const int t = t0 + ty + 16 * a;
-        if (t >= p.T) continue;
-        float* yr = p.y + base + t * row_stride;
-#pragma unroll
-        for (int bb = 0; bb < DC; ++bb) yr[tx + 16 * bb] = acc[a][bb];
-      }
-    }
-
-    // (5) S' = 2^cl_last * S + sum_j kd_j v_j^T, rows (keys) ty+16a, columns tx+16bb
-    {
-      float acc[DC][DC];
-#pragma unroll
-      for (int a = 0; a < DC; ++a) {
-        const float dec = exp2f(cl_s[(CH - 1) * LD + ty + 16 * a]);
-#pragma unroll
-        for (int bb = 0; bb < DC; ++bb) acc[a][bb] = dec * S_s[(ty + 16 * a) * LD + tx + 16 * bb];
-      }
-      for (int j = 0; j < CH; ++j) {
-        float kv[DC], vv[DC];
-#pragma unroll
-        for (int a = 0; a < DC; ++a) kv[a] = kd_s[j * LD + ty + 16 * a];
-#pragma unroll
-        for (int bb = 0; bb < DC; ++bb) vv[bb] = v_s[j * LD + tx + 16 * bb];
-#pragma unroll
-        for (int a = 0; a < DC; ++a)
-#pragma unroll
-          for (int bb = 0; bb < DC; ++bb) acc[a][bb] = fmaf(kv[a], vv[bb], acc[a][bb]);
-      }
-      __syncthreads();          // every read of S, v, att, rd, kd of this chunk is done
-#pragma unroll
-      for (int a = 0; a < DC; ++a)
-#pragma unroll
-        for (int bb = 0; bb < DC; ++bb) S_s[(ty + 16 * a) * LD + tx + 16 * bb] = acc[a][bb];
+      for (int nt = 0; nt < VT / 8; ++nt)
+        scan::mma(S[nt], a, scan::frag_b(vr[8 * nt], vr[4 * LDV + 8 * nt]));
     }
   }
-  __syncthreads();
-  for (int idx = tid; idx < D * D; idx += NTHREADS)
-    p.s_out[sbase + idx] = S_s[(idx / D) * LD + idx % D];
+
+#pragma unroll
+  for (int nt = 0; nt < VT / 8; ++nt) {
+    float* s = p.s_out + sidx + (m0 + g) * D + 8 * nt + 2 * t;
+    *reinterpret_cast<float2*>(s) = make_float2(S[nt][0], S[nt][1]);
+    *reinterpret_cast<float2*>(s + 8 * D) = make_float2(S[nt][2], S[nt][3]);
+  }
 }
 
-template <int CH, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<CH, D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(wkv6_kernel<CH, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  wkv6_kernel<CH, D><<<p.B * p.H, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+// ------------------------------------------------------------------ (b) output pass
+
+constexpr int DG = 2 * 8 * 8;                   // a warp's two 8 x 8 diagonal sub-blocks
+constexpr size_t OUT_SMEM = (4 * CH * LDR + D * LDS + D + 4 * DG) * sizeof(float);
+
+__global__ void __launch_bounds__(NTHREADS, 3) wkv6_out_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  float* r_s = smem;                  // [CH][LDR]
+  float* k_s = r_s + CH * LDR;
+  float* cl_s = k_s + CH * LDR;       // w, then the inclusive log2 cumsum
+  float* u_s = cl_s + CH * LDR;       // [D]
+  float* dg_s = u_s + D;              // [4 warps][2][8][8]
+  float* v_s = dg_s + 4 * DG;         // [CH][LDR]
+  float* S_s = v_s + CH * LDR;        // [D][LDS] the state at the chunk's start
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c = blockIdx.x, bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int t0 = c * CH, valid = p.T - t0;
+  const long long row = (long long)p.H * D;
+  const long long base = (long long)b * p.T * row + (long long)h * D;
+
+  scan::load_rows<CH, D, LDR, NTHREADS>(r_s, p.r + base, row, t0, p.T, tid);
+  scan::load_rows<CH, D, LDR, NTHREADS>(k_s, p.k + base, row, t0, p.T, tid);
+  scan::load_rows<CH, D, LDR, NTHREADS>(cl_s, p.w + base, row, t0, p.T, tid);
+  scan::load_rows<CH, D, LDR, NTHREADS>(v_s, p.v + base, row, t0, p.T, tid);
+  scan::load_rows<D, D, LDS, NTHREADS>(
+      S_s, p.S_chunks + (((long long)b * p.n_chunks + c) * p.H + h) * D * D, D, 0, D, tid);
+  scan::cp_async_commit();
+  if (tid < D) u_s[tid] = p.u[(long long)h * D + tid];
+  scan::cp_async_wait<0>();
+  __syncthreads();
+  log2_cumsum<LDR>(cl_s, valid, tid);
+  __syncthreads();
+
+  const int i0 = 16 * warp;           // this warp's rows: i0 .. i0+15
+  auto clp = [&](int i, int kk) { return i ? cl_s[(i - 1) * LDR + kk] : 0.f; };
+
+  // (1) y = (r * 2^clp) S
+  float y[D / 8][4] = {};
+#pragma unroll
+  for (int kb = 0; kb < D / 8; ++kb) {
+    const int k0 = 8 * kb + t, ia = i0 + g, ib = ia + 8;
+    const scan::FragA a = scan::frag_a(r_s[ia * LDR + k0] * scan::ex2(clp(ia, k0)),
+                                       r_s[ib * LDR + k0] * scan::ex2(clp(ib, k0)),
+                                       r_s[ia * LDR + k0 + 4] * scan::ex2(clp(ia, k0 + 4)),
+                                       r_s[ib * LDR + k0 + 4] * scan::ex2(clp(ib, k0 + 4)));
+    const float* sr = S_s + k0 * LDS + g;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      scan::mma(y[nt], a, scan::frag_b(sr[8 * nt], sr[4 * LDS + 8 * nt]));
+  }
+
+  // (2) att of the earlier row blocks J < I, through ref = clp at row i0; and of the
+  // diagonal block's lower-left 8 x 8 (rows i0+8.., keys i0..i0+7), through clp at i0+8
+  float att[CH / 8 - 2][4] = {};
+  float low[4] = {};
+#pragma unroll
+  for (int kb = 0; kb < D / 8; ++kb) {
+    const int k0 = 8 * kb + t, ia = i0 + g, ib = ia + 8;
+    if (warp > 0) {
+      const float* ref = cl_s + (i0 - 1) * LDR;
+      const float f0 = ref[k0], f1 = ref[k0 + 4];
+      const scan::FragA a = scan::frag_a(r_s[ia * LDR + k0] * exp2c(clp(ia, k0) - f0),
+                                         r_s[ib * LDR + k0] * exp2c(clp(ib, k0) - f0),
+                                         r_s[ia * LDR + k0 + 4] * exp2c(clp(ia, k0 + 4) - f1),
+                                         r_s[ib * LDR + k0 + 4] * exp2c(clp(ib, k0 + 4) - f1));
+#pragma unroll
+      for (int nt = 0; nt < CH / 8 - 2; ++nt) {
+        if (nt >= 2 * warp) continue;
+        const int o = (8 * nt + g) * LDR + k0;
+        scan::mma(att[nt], a, scan::frag_b(k_s[o] * exp2c(f0 - cl_s[o]),
+                                           k_s[o + 4] * exp2c(f1 - cl_s[o + 4])));
+      }
+    }
+    {
+      const float* ref = cl_s + (i0 + 7) * LDR;
+      const float f0 = ref[k0], f1 = ref[k0 + 4];
+      const scan::FragA a = scan::frag_a(0.f, r_s[ib * LDR + k0] * exp2c(clp(ib, k0) - f0), 0.f,
+                                         r_s[ib * LDR + k0 + 4] * exp2c(clp(ib, k0 + 4) - f1));
+      const int o = (i0 + g) * LDR + k0;
+      scan::mma(low, a, scan::frag_b(k_s[o] * exp2c(f0 - cl_s[o]),
+                                     k_s[o + 4] * exp2c(f1 - cl_s[o + 4])));
+    }
+  }
+
+  // (3) the two 8 x 8 diagonal sub-blocks: 2 x 28 pairs (i, j < i) spread over the lanes,
+  // one exponential per pair and key; then the u bonus on the diagonal
+  float* dg = dg_s + warp * DG;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dg[4 * lane + q] = 0.f;
+  __syncwarp();
+#pragma unroll
+  for (int slot = 0; slot < 2; ++slot) {
+    const int pr = lane + 32 * slot;
+    if (pr >= 56) continue;
+    const int sb = pr / 28, q = pr % 28;
+    int ri = (int)((1.f + sqrtf(1.f + 8.f * q)) * 0.5f);
+    if (ri * (ri - 1) / 2 > q) --ri;
+    if ((ri + 1) * ri / 2 <= q) ++ri;
+    const int rj = q - ri * (ri - 1) / 2, i = i0 + 8 * sb + ri, j = i0 + 8 * sb + rj;
+    const float* rr = r_s + i * LDR;
+    const float* pp = cl_s + (i - 1) * LDR;     // clp of row i (i > j >= 0)
+    const float* kr = k_s + j * LDR;
+    const float* cr = cl_s + j * LDR;
+    float acc = 0.f;
+#pragma unroll 16
+    for (int kk = 0; kk < D; ++kk) acc = fmaf(rr[kk] * kr[kk], exp2c(pp[kk] - cr[kk]), acc);
+    dg[(8 * sb + ri) * 8 + rj] = acc;
+  }
+  if (lane < 16) {
+    const float* rr = r_s + (i0 + lane) * LDR;
+    const float* kr = k_s + (i0 + lane) * LDR;
+    float acc = 0.f;
+#pragma unroll 16
+    for (int kk = 0; kk < D; ++kk) acc = fmaf(rr[kk] * u_s[kk], kr[kk], acc);
+    dg[lane * 8 + (lane & 7)] = acc;
+  }
+  __syncwarp();
+
+  // (4) y += att v: the accumulator tiles of att are A operands, k slots (t, t+4) =
+  // keys (2t, 2t+1) of each 8-key tile
+#pragma unroll
+  for (int nt = 0; nt < CH / 8; ++nt) {
+    if (nt > 2 * warp + 1) continue;
+    float a4[4];
+    if (nt == 2 * warp) {               // [[D0, 0], [low, D1]]: keys i0 .. i0+7
+      a4[0] = dg[g * 8 + 2 * t], a4[1] = dg[g * 8 + 2 * t + 1];
+      a4[2] = low[2], a4[3] = low[3];
+    } else if (nt == 2 * warp + 1) {    // keys i0+8 .. i0+15
+      a4[0] = 0.f, a4[1] = 0.f;
+      a4[2] = dg[(8 + g) * 8 + 2 * t], a4[3] = dg[(8 + g) * 8 + 2 * t + 1];
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a4[q] = att[nt < CH / 8 - 2 ? nt : 0][q];
+    }
+    const scan::FragA a = scan::c_as_a(a4);
+    const float* vr = v_s + (8 * nt + 2 * t) * LDR + g;
+#pragma unroll
+    for (int vt = 0; vt < D / 8; ++vt)
+      scan::mma(y[vt], a, scan::frag_b(vr[8 * vt], vr[LDR + 8 * vt]));
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + g + 8 * half;
+    if (i >= valid) continue;
+    float* yr = p.y + base + (long long)(t0 + i) * row + 2 * t;
+#pragma unroll
+    for (int vt = 0; vt < D / 8; ++vt)
+      *reinterpret_cast<float2*>(yr + 8 * vt) = make_float2(y[vt][2 * half], y[vt][2 * half + 1]);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t: 0 when the kernel was launched.  All tensors are contiguous
-// fp32; K = V = head (64) and chunk (64) are the compiled sizes.
+// Floats of the workspace wkv6_fwd needs: the state at every 64-row chunk's start.
+long long wkv6_workspace_floats(int B, int T, int H) {
+  return (long long)B * ((T + CH - 1) / CH) * H * D * D;
+}
+
+// Returns a cudaError_t: 0 when both kernels were launched.  All tensors are contiguous
+// fp32; K = V = head (64) and chunk (64) are the compiled sizes; `work` holds
+// wkv6_workspace_floats(B, T, H) floats.
 int wkv6_fwd(const float* r, const float* k, const float* v, const float* w, const float* u,
              const float* s0, float* y, float* s_out, int B, int T, int H, int head, int chunk,
-             void* stream) {
-  if (head != 64 || chunk != 64) return cudaErrorInvalidValue;
-  const Params p{r, k, v, w, u, s0, y, s_out, B, T, H};
-  return launch<64, 64>(p, static_cast<cudaStream_t>(stream));
+             void* work, void* stream) {
+  if (head != D || chunk != CH || T <= 0) return cudaErrorInvalidValue;
+  const int n_chunks = (T + CH - 1) / CH;
+  const Params p{r, k, v, w, u, s0, y, s_out, static_cast<float*>(work), B, T, H, n_chunks};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(wkv6_state_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ST_SMEM);
+  if (err != cudaSuccess) return err;
+  wkv6_state_kernel<<<dim3(D / VT, B * H), NTHREADS, ST_SMEM, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wkv6_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)OUT_SMEM);
+  if (err != cudaSuccess) return err;
+  wkv6_out_kernel<<<dim3(n_chunks, B * H), NTHREADS, OUT_SMEM, st>>>(p);
+  return cudaGetLastError();
 }
 
 const char* wkv6_error_string(int err) {

@@ -2,11 +2,13 @@
 
 Replaces the TPU kernel ``repro.kernels.mamba2_ssd.ssd_fwd`` and, unlike
 it, takes the initial state and returns the final one, as the model's
-``ref.mamba2_ssd`` does.  The library is built by ``nvcc`` at the first
-launch (see ``_build``); this wrapper checks its inputs, allocates the
-outputs, launches on PyTorch's current stream and counts its launches in
-``ssd_fwd.launches``.  It takes CUDA tensors only: the plain version is
-``ref.mamba2_ssd``.
+``ref.mamba2_ssd`` does.  Its products run on the TF32 tensor cores, split
+3xTF32 (``csrc/scan_sm90.cuh``).  The library is built by ``nvcc`` at the
+first launch (see ``_build``); this wrapper checks its inputs, allocates the
+outputs and the workspace (C B^T per batch and chunk), launches on PyTorch's
+current stream and counts its launches in ``ssd_fwd.launches``: one a call,
+though a call runs two CUDA kernels.  It takes CUDA tensors only: the plain
+version is ``ref.mamba2_ssd``.
 """
 
 from __future__ import annotations
@@ -20,17 +22,20 @@ from . import _build
 
 SHAPES = ((64, 64),)  # (P, N), the compiled head and state sizes
 CHUNKS = (128,)
+TF32_PASSES = (3, 1)  # 3xTF32 (the default), or one TF32 pass to measure what the split buys
 
 
 @functools.cache
-def _kernel():
-    lib = _build.load("mamba2_ssd")
+def _kernel(passes: int = 3):
+    lib = _build.load("mamba2_ssd", () if passes == 3 else (f"SCAN_TF32_PASSES={passes}",))
     fn = lib.ssd_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
+    lib.ssd_workspace_floats.argtypes = [ctypes.c_int] * 2
+    lib.ssd_workspace_floats.restype = ctypes.c_longlong
     lib.ssd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_error_string.restype = ctypes.c_char_p
-    return fn, lib.ssd_error_string
+    return fn, lib.ssd_workspace_floats, lib.ssd_error_string
 
 
 def _check(x, dt, A, B, C, state, chunk: int) -> None:
@@ -62,22 +67,26 @@ def _check(x, dt, A, B, C, state, chunk: int) -> None:
 
 
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-            C: torch.Tensor, state: torch.Tensor, chunk: int = 128):
+            C: torch.Tensor, state: torch.Tensor, chunk: int = 128, tf32_passes: int = 3):
     """Chunked Mamba2 SSD scan on the card.
 
     x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B, C [Bt,T,N]; state [Bt,H,P,N];
     fp32, contiguous, (P, N) in ``SHAPES``.  Returns ``y [Bt,T,H,P]`` and the
-    final state ``[Bt,H,P,N]``."""
+    final state ``[Bt,H,P,N]``.  ``tf32_passes=1`` runs the single-pass TF32
+    build, whose products keep a 10-bit mantissa (for measurement only)."""
     _check(x, dt, A, B, C, state, chunk)
+    if tf32_passes not in TF32_PASSES:
+        raise ValueError(f"tf32_passes {tf32_passes} not compiled; the kernel takes {TF32_PASSES}")
     bt, t, h, p = x.shape
     y = torch.empty_like(x)
     s_out = torch.empty_like(state)
-    fn, err_str = _kernel()
+    fn, workspace_floats, err_str = _kernel(tf32_passes)
+    work = torch.empty(workspace_floats(bt, t), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                 state.data_ptr(), y.data_ptr(), s_out.data_ptr(), bt, t, h, p,
-                B.shape[-1], chunk, stream)
+                B.shape[-1], chunk, work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_fwd launch failed: cudaError {rc} ({err_str(rc).decode()})")
     ssd_fwd.launches += 1

@@ -2,11 +2,14 @@
 
 Replaces the TPU kernel ``repro.kernels.rwkv6_scan.wkv6_fwd`` and, unlike
 it, takes the initial state and returns the final one, as the model's
-``ref.rwkv6_chunked`` does.  The library is built by ``nvcc`` at the first
-launch (see ``_build``); this wrapper checks its inputs, allocates the
-outputs, launches on PyTorch's current stream and counts its launches in
-``wkv6_fwd.launches``.  It takes CUDA tensors only: the plain version is
-``ref.rwkv6_chunked``.
+``ref.rwkv6_chunked`` does.  Its products run on the TF32 tensor cores,
+split 3xTF32 (``csrc/scan_sm90.cuh``).  The library is built by ``nvcc`` at
+the first launch (see ``_build``); this wrapper checks its inputs, allocates
+the outputs and the workspace (the state at every chunk's start, written by
+the state pass and read by the output pass), launches on PyTorch's current
+stream and counts its launches in ``wkv6_fwd.launches``: one a call, though
+a call runs two CUDA kernels.  It takes CUDA tensors only: the plain version
+is ``ref.rwkv6_chunked``.
 """
 
 from __future__ import annotations
@@ -20,17 +23,20 @@ from . import _build
 
 HEAD_DIMS = (64,)     # K = V, the compiled head size
 CHUNKS = (64,)
+TF32_PASSES = (3, 1)  # 3xTF32 (the default), or one TF32 pass to measure what the split buys
 
 
 @functools.cache
-def _kernel():
-    lib = _build.load("rwkv6_scan")
+def _kernel(passes: int = 3):
+    lib = _build.load("rwkv6_scan", () if passes == 3 else (f"SCAN_TF32_PASSES={passes}",))
     fn = lib.wkv6_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
+    lib.wkv6_workspace_floats.argtypes = [ctypes.c_int] * 3
+    lib.wkv6_workspace_floats.restype = ctypes.c_longlong
     lib.wkv6_error_string.argtypes = [ctypes.c_int]
     lib.wkv6_error_string.restype = ctypes.c_char_p
-    return fn, lib.wkv6_error_string
+    return fn, lib.wkv6_workspace_floats, lib.wkv6_error_string
 
 
 def _check(r, k, v, w, u, state, chunk: int) -> None:
@@ -60,22 +66,26 @@ def _check(r, k, v, w, u, state, chunk: int) -> None:
 
 
 def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-             u: torch.Tensor, state: torch.Tensor, chunk: int = 64):
+             u: torch.Tensor, state: torch.Tensor, chunk: int = 64, tf32_passes: int = 3):
     """Chunked WKV6 recurrence on the card.
 
     r, k, w [B,T,H,K]; v [B,T,H,V]; u [H,K]; state [B,H,K,V]; fp32,
     contiguous, K = V in ``HEAD_DIMS``.  Returns ``y [B,T,H,V]`` and the
-    final state ``[B,H,K,V]``."""
+    final state ``[B,H,K,V]``.  ``tf32_passes=1`` runs the single-pass TF32
+    build, whose products keep a 10-bit mantissa (for measurement only)."""
     _check(r, k, v, w, u, state, chunk)
+    if tf32_passes not in TF32_PASSES:
+        raise ValueError(f"tf32_passes {tf32_passes} not compiled; the kernel takes {TF32_PASSES}")
     b, t, h, kd = r.shape
     y = torch.empty_like(v)
     s_out = torch.empty_like(state)
-    fn, err_str = _kernel()
+    fn, workspace_floats, err_str = _kernel(tf32_passes)
+    work = torch.empty(workspace_floats(b, t, h), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                 state.data_ptr(), y.data_ptr(), s_out.data_ptr(), b, t, h, kd, chunk,
-                stream)
+                work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"wkv6_fwd launch failed: cudaError {rc} ({err_str(rc).decode()})")
     wkv6_fwd.launches += 1

@@ -7,7 +7,8 @@ the JAX package, so they run on a machine that has only PyTorch:
 
 Tolerances are those of tests/test_kernels_pallas.py: 2e-3 for fp32, 2e-2
 for bf16, whose 8-bit mantissa rounds the inputs and the output, and 3e-3
-for the fp32 WKV6 and SSD scans.  The flash backward is held to the same
+for the fp32 WKV6 and SSD scans, whose products run on the TF32 tensor cores
+split 3xTF32.  The flash backward is held to the same
 2e-3 / 2e-2 (its fp32 sums run in another order than the plain version's,
 and in bf16 its D = rowsum(do * out) reads the bf16 output where the plain
 version recomputes it in fp32); the checksum is integer arithmetic and
@@ -148,6 +149,8 @@ def _ssd_inputs(seed, b, t, h, device, p=64, n=64):
     (1, 200, 2),        # ragged: 3 chunks and 8 rows
     (3, 128, 4),        # whole chunks
     (4, 2048, 32),      # rwkv6-1.6b prefill: B=4, H=32
+    # T at the borders of the kernel's 16-row sub-chunks and 64-row chunks
+    *((2, t, 3) for t in (15, 16, 17, 63, 65, 127, 129, 2049)),
 ])
 def test_wkv6_kernel_matches_plain(cuda, b, t, h):
     xs = _wkv6_inputs(7, b, t, h, cuda)
@@ -162,6 +165,8 @@ def test_wkv6_kernel_matches_plain(cuda, b, t, h):
 @pytest.mark.parametrize("b,t,h", [
     (2, 1, 2), (2, 37, 3), (1, 200, 2), (3, 256, 4),
     (4, 2048, 112),     # zamba2-7b prefill: Bt=4, H=112
+    # T at the borders of the kernel's 32-row chunks and the wrapper's chunk of 128
+    *((2, t, 3) for t in (15, 16, 17, 33, 63, 65, 127, 129, 2049)),
 ])
 def test_ssd_kernel_matches_plain(cuda, b, t, h):
     xs = _ssd_inputs(8, b, t, h, cuda)
@@ -188,6 +193,8 @@ def test_scan_kernels_reject_what_they_do_not_take(cuda):
     x, dt, A, B, C, s = _ssd_inputs(9, 1, 64, 2, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, B, C, s)
+    with pytest.raises(ValueError, match="not compiled"):
+        ssd_fwd(x, dt, A, B, C, s, tf32_passes=2)
 
 
 @pytest.mark.cuda
@@ -204,6 +211,81 @@ def test_scan_ops_on_cuda_launch_their_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert y.is_cuda and ssd_fwd.launches == 1
     _close(state, ref.mamba2_ssd(*xs)[1], SCAN_TOL)
+
+
+def _wkv6_strong(seed, b, t, h, device):
+    """Decays spread down to the reference's 1e-30 clamp (w = e^-U(0, 69)), and w = 0
+    in every 16th key column: a chunk's decay factors underflow."""
+    r, k, v, w, u, s = _wkv6_inputs(seed, b, t, h, "cpu")
+    w = torch.exp(-69.0 * torch.rand(w.shape, generator=torch.Generator().manual_seed(seed)))
+    w[..., ::16] = 0.0
+    return tuple(x.to(device) for x in (r, k, v, w, u, s))
+
+
+def _ssd_strong(seed, b, t, h, device):
+    """A scaled by 50: e^cl and the pairwise decays underflow within a chunk."""
+    x, dt, A, B, C, s = _ssd_inputs(seed, b, t, h, "cpu")
+    return tuple(a.to(device) for a in (x, dt, A * 50.0, B, C, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [64, 300])
+def test_wkv6_kernel_with_strong_decays(cuda, t):
+    xs = _wkv6_strong(50 + t, 2, t, 3, cuda)
+    y, state = wkv6_fwd(*xs)
+    torch.cuda.synchronize()
+    want_y, want_state = ref.rwkv6_chunked(*xs, chunk=64)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    _close(y, want_y, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [64, 300])
+def test_ssd_kernel_with_decays_that_underflow(cuda, t):
+    xs = _ssd_strong(60 + t, 2, t, 3, cuda)
+    y, state = ssd_fwd(*xs)
+    torch.cuda.synchronize()
+    want_y, want_state = ref.mamba2_ssd(*xs, chunk=128)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    _close(y, want_y, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["wkv6", "ssd"])
+def test_scan_kernel_reruns_are_bit_identical(cuda, scan):
+    """No atomics and a fixed order of every sum."""
+    kernel, xs = ((wkv6_fwd, _wkv6_inputs(70, 2, 1000, 4, cuda)) if scan == "wkv6"
+                  else (ssd_fwd, _ssd_inputs(71, 2, 1000, 4, cuda)))
+    first = kernel(*xs)
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(first, kernel(*xs)))
+
+
+@pytest.mark.cuda
+def test_scan_kernels_run_on_the_tensor_cores(cuda):
+    """Every kernel of both scans issues mma.sync or wgmma (HMMA/HGMMA, TF32) and
+    none spills."""
+    for source, kernels in (("rwkv6_scan", ("wkv6_state_kernel", "wkv6_out_kernel")),
+                            ("mamba2_ssd", ("ssd_gram_kernel", "ssd_scan_kernel"))):
+        counts, usage = _build.sass_counts(source), _build.ptxas_usage(source)
+        for kernel in kernels:
+            names = [n for n in counts if kernel in n]
+            assert names, f"{kernel} not in {source}'s library"
+            assert sum(counts[n]["HMMA"] + counts[n]["HGMMA"] for n in names) > 0, kernel
+            assert all(usage.get(n, {}).get("spill_stores", 0) == 0 for n in names), usage
+
+
+@pytest.mark.cuda
+def test_single_tf32_pass_is_less_exact_than_the_split(cuda):
+    """The single-pass TF32 build runs, and 3xTF32 buys at least 10x in error."""
+    for kernel, plain, xs in ((wkv6_fwd, ref.rwkv6_chunked, _wkv6_inputs(80, 2, 512, 4, cuda)),
+                              (ssd_fwd, ref.mamba2_ssd, _ssd_inputs(81, 2, 512, 4, cuda))):
+        want = plain(*xs)
+        err = [max(float((a - w).abs().max()) for a, w in zip(kernel(*xs, tf32_passes=n), want))
+               for n in (3, 1)]
+        assert 0 < 10 * err[0] < err[1], err
 
 
 # ---------------------------------------------------------------- flash backward

@@ -4,7 +4,8 @@ The port's plain versions (``repro_torch.kernels.ref``) against the JAX
 package's ``ref`` (y and final state, from a nonzero initial state) and its
 Pallas kernels in interpret mode (y, from the zero state the Pallas kernels
 start from), on the same numpy inputs, in the value ranges and (t, chunk)
-grid of tests/test_kernels_pallas.py.  The CUDA kernels' own tests are in
+grid of tests/test_kernels_pallas.py, and with decays strong enough to
+underflow within a chunk.  The CUDA kernels' own tests are in
 test_torch_cuda.py.  Tolerance 3e-3, the JAX package's fp32 tolerance for
 these scans.
 """
@@ -91,6 +92,52 @@ def test_plain_mamba2_naive_matches_jax(t):
     j_y, j_state = jref.mamba2_naive(jx, jdt, jA, jB, jC, js)
     _close(y, j_y)
     _close(state, j_state)
+
+
+def _wkv6_strong(seed, t):
+    """Decays spread down to the 1e-30 clamp of both references (w = e^-U(0, 69)), and
+    w = 0 in every 4th key column: where the CUDA kernel's factored decays underflow."""
+    (_, _, _, _, ju, js), (r, k, v, w, u, s) = _wkv6_inputs(seed, t)
+    rng = np.random.default_rng(seed + 1)
+    w = np.exp(-69.0 * rng.random(tuple(w.shape))).astype(np.float32)
+    w[..., ::4] = 0.0
+    arrs = [a.numpy() for a in (r, k, v)] + [w, u.numpy(), s.numpy()]
+    return tuple(map(jnp.asarray, arrs)), tuple(map(torch.from_numpy, arrs))
+
+
+def _ssd_strong(seed, t):
+    """A scaled by 50: e^cl and the pairwise decays underflow within a chunk."""
+    _, (x, dt, A, B, C, s) = _ssd_inputs(seed, t)
+    arrs = [x.numpy(), dt.numpy(), A.numpy() * 50.0, B.numpy(), C.numpy(), s.numpy()]
+    return tuple(map(jnp.asarray, arrs)), tuple(map(torch.from_numpy, arrs))
+
+
+@pytest.mark.parametrize("t,chunk", [(64, 16), (100, 32), (17, 64)])
+def test_plain_rwkv6_chunked_with_strong_decays_matches_jax(t, chunk):
+    (jr, jk, jv, jw, ju, js), (r, k, v, w, u, s) = _wkv6_strong(300 + t, t)
+    y, state = tref.rwkv6_chunked(r, k, v, w, u, s, chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    j_y, j_state = jref.rwkv6_chunked(jr, jk, jv, jw, ju, js, chunk=chunk)
+    _close(y, j_y)
+    _close(state, j_state)
+    y0, _ = tref.rwkv6_chunked(r, k, v, w, u, torch.zeros_like(s), chunk=chunk)
+    _close(y0, pallas_wkv6(jr, jk, jv, jw, ju, chunk=chunk, interpret=True))
+    for got, want in zip((y, state), tref.rwkv6_naive(r, k, v, w, u, s)):
+        _close(got, want.numpy())
+
+
+@pytest.mark.parametrize("t,chunk", [(64, 16), (100, 32), (17, 128)])
+def test_plain_mamba2_ssd_with_decays_that_underflow_matches_jax(t, chunk):
+    (jx, jdt, jA, jB, jC, js), (x, dt, A, B, C, s) = _ssd_strong(400 + t, t)
+    y, state = tref.mamba2_ssd(x, dt, A, B, C, s, chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    j_y, j_state = jref.mamba2_ssd(jx, jdt, jA, jB, jC, js, chunk=chunk)
+    _close(y, j_y)
+    _close(state, j_state)
+    y0, _ = tref.mamba2_ssd(x, dt, A, B, C, torch.zeros_like(s), chunk=chunk)
+    _close(y0, pallas_ssd(jx, jdt, jA, jB, jC, chunk=chunk, interpret=True))
+    for got, want in zip((y, state), tref.mamba2_naive(x, dt, A, B, C, s)):
+        _close(got, want.numpy())
 
 
 def test_chunked_scans_match_their_naive_steps():
