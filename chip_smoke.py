@@ -5,8 +5,7 @@
 
 Phases, each fatal on failure:
   (a) device: the card's name and power limit (nvidia-smi);
-  (b) build: nvcc compiles the port's five CUDA sources for sm_90a, all at once,
-      and the single-pass TF32 builds of the two scans beside them;
+  (b) build: nvcc compiles the port's five CUDA sources for sm_90a, all at once;
       cuobjdump proves the bf16 flash kernels run on the tensor cores (HGMMA in
       the forward, HMMA in the backward) and the fp32 ones do not, and that
       every kernel of the WKV6 and SSD scans issues tensor-core instructions
@@ -20,8 +19,7 @@ Phases, each fatal on failure:
       and nonzero-state cases, T at the scans' tile borders, WKV6 decays down to
       the reference's 1e-30 clamp and SSD decays that underflow within a chunk),
       with its time, the plain version's, one library call's where there is one,
-      and its bound; the scans' main cases also report the error of their
-      single-pass TF32 builds, which is not a gate;
+      and its bound;
   (d) serving, one model after another, each at full published width with
       random bf16 weights from a seed: codeqwen1.5-7b, zamba2-7b and
       rwkv6-1.6b each serve 8 requests through ``BatchServer``.  Every
@@ -109,7 +107,6 @@ FP32_TOL = 1e-3
 TRAIN_TOL = 2e-2
 TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "minicpm-2b", 2, 2048, 4
 SCAN_SOURCES = ("rwkv6_scan", "mamba2_ssd")
-SINGLE_TF32 = ("SCAN_TF32_PASSES=1",)    # the scans' single-pass TF32 builds
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd": flash_attention_bwd, "checksum": checksum_kernel,
            "ssd_fwd": ssd_fwd, "wkv6_fwd": wkv6_fwd}
@@ -362,14 +359,7 @@ def scan_case(name, kernel, plain, inputs, shape, work=None, note=None):
         flops, trans, nbytes = work
         case.update(bound(flops, nbytes, "tf32"), exps=trans,
                     bound_ms_fp32_cuda_cores=bound(flops, nbytes, torch.float32)["bound_ms"])
-        # the single-pass TF32 build on the same inputs: what the 3xTF32 split buys
-        single = kernel(*inputs, tf32_passes=1)
-        torch.cuda.synchronize()
-        s_abs, s_rel, _ = _scan_errors(single, want)
-        case.update(single_tf32_max_abs_err=s_abs, single_tf32_max_rel_err=s_rel,
-                    single_tf32_within_tolerance=s_rel <= SCAN_TOL)
         case["ms"] = cuda_ms(lambda: kernel(*inputs), 20)
-        case["single_tf32_ms"] = cuda_ms(lambda: kernel(*inputs, tf32_passes=1), 20)
         case["plain_ms"] = cuda_ms(lambda: plain(*inputs), 3, warmup=1)
         case["library_ms"] = None     # no single PyTorch call computes the scan
         log(f"  {name} timed {json.dumps(case)}")
@@ -880,8 +870,7 @@ def kernel_line(name, source, replaces, case, launches_by_path, **extra):
 
 
 def _scan_extra(case, tensor_cores, source) -> dict:
-    keys = ("bound_ms_fp32_cuda_cores", "single_tf32_max_abs_err", "single_tf32_max_rel_err",
-            "single_tf32_within_tolerance", "single_tf32_ms", "rerun_bit_identical")
+    keys = ("bound_ms_fp32_cuda_cores", "rerun_bit_identical")
     return {**{k: case[k] for k in keys},
             "bound_peak": "bytes at 3.35 TB/s, flops at the 494.7 TFLOP/s TF32 peak",
             "sass_HMMA_HGMMA": tensor_cores["counts"][f"{source}_HMMA_HGMMA"],
@@ -898,10 +887,9 @@ def main() -> None:
 
     sources = ["flash_attention", "flash_attention_bwd", "checksum", *SCAN_SOURCES]
     t0 = time.perf_counter()
-    _build.build_all(sources + [(s, SINGLE_TF32) for s in SCAN_SOURCES])
+    _build.build_all(sources)
     build_s = time.perf_counter() - t0
-    log(f"(b) built {', '.join(s + '.cu' for s in sources)} (and the scans' single-pass "
-        f"TF32 builds) in {build_s:.1f} s")
+    log(f"(b) built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s")
     tensor_cores = tensor_core_proof()
 
     flash, flash_bwd, checksum, wkv6, ssd = phase_kernels()

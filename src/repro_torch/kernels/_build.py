@@ -3,9 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` at the repository
 root, then loaded with ``ctypes``.  The hash covers the source, every shared
-header ``csrc/*.cuh``, the flags and any ``-D`` defines of a variant (e.g.
-``SCAN_TF32_PASSES=1``), so an edited source or header is rebuilt and an
-unchanged one is reused.
+header ``csrc/*.cuh`` and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -26,8 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_logs: Dict[str, str] = {}   # nvcc's output (ptxas register/spill report) per library
-                                  # (`key`), kept beside it as lib<name>-<hash>.log
+build_logs: Dict[str, str] = {}   # nvcc's output (ptxas register/spill report) per source,
+                                  # kept beside the library as lib<name>-<hash>.log
 
 
 def _tool(name: str) -> str:
@@ -38,60 +37,49 @@ def _tool(name: str) -> str:
                        "building the CUDA kernels needs the CUDA toolkit")
 
 
-def source_digest(name: str, csrc: Path = CSRC, defines: Sequence[str] = ()) -> str:
+def source_digest(name: str, csrc: Path = CSRC) -> str:
     """Hash of ``<csrc>/<name>.cu``, every ``<csrc>/*.cuh`` (any of which it may
-    include), the flags and ``defines``: the key of the built library."""
+    include) and the flags: the key of the built library."""
     h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join([*NVCC_FLAGS, *(f"-D{d}" for d in defines)]).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 
 
-def key(name: str, defines: Sequence[str] = ()) -> str:
-    """The name a library goes by in ``build_logs``: the source, then its defines."""
-    return "+".join([name, *defines])
-
-
-def build(name: str, defines: Sequence[str] = ()) -> Path:
-    """Compile ``csrc/<name>.cu`` (with ``-D`` each of ``defines``) unless an
-    up-to-date library exists; returns its path."""
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists; returns its path."""
     src = CSRC / f"{name}.cu"
-    out = BUILD_DIR / f"lib{name}-{source_digest(name, defines=defines)[:16]}.so"
+    out = BUILD_DIR / f"lib{name}-{source_digest(name)[:16]}.so"
     log = out.with_suffix(".log")
-    k = key(name, defines)
     if out.exists():
-        if k not in build_logs and log.exists():
-            build_logs[k] = log.read_text()
+        if name not in build_logs and log.exists():
+            build_logs[name] = log.read_text()
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_tool("nvcc"), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(src)]
+    cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {k}.cu ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
-    build_logs[k] = proc.stdout + proc.stderr
-    log.write_text(build_logs[k])
+    build_logs[name] = proc.stdout + proc.stderr
+    log.write_text(build_logs[name])
     os.replace(tmp, out)
     return out
 
 
-def build_all(libs: Sequence) -> Dict[str, Path]:
-    """Compile several libraries at once, one ``nvcc`` process each; a library is
-    a source name or a (name, defines) pair."""
-    pairs = [(lib, ()) if isinstance(lib, str) else (lib[0], tuple(lib[1])) for lib in libs]
-    with ThreadPoolExecutor(max_workers=len(pairs)) as pool:
-        paths = pool.map(lambda nd: build(*nd), pairs)
-        return {key(*nd): path for nd, path in zip(pairs, paths)}
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile several sources at once, one ``nvcc`` process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
-def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    k = key(name, defines)
-    if k not in _loaded:
-        _loaded[k] = ctypes.CDLL(str(build(name, defines)))
-    return _loaded[k]
+    if name not in _loaded:
+        _loaded[name] = ctypes.CDLL(str(build(name)))
+    return _loaded[name]
 
 
 def sass_counts(name: str, opcodes: Sequence[str] = ("HGMMA", "HMMA")) -> Dict[str, Dict[str, int]]:

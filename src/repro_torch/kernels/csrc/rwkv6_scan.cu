@@ -131,7 +131,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) wkv6_state_kernel(const Params p)
     scan::cp_async_commit();
   };
 
-  // S[m0 .. m0+15][v0 .. v0+15] as two accumulator tiles
+  // S[m0 .. m0+15][v0 .. v0+VT) as VT/8 accumulator tiles
   float S[VT / 8][4];
   const long long sidx = (long long)bh * D * D + v0;
 #pragma unroll

@@ -1,13 +1,12 @@
 // Tensor-core building blocks for the fp32 chunked scans (mamba2_ssd.cu, rwkv6_scan.cu)
 // on Hopper (sm_90a): fp32 products on the TF32 tensor cores by mma.sync m16n8k8, split
-// 3xTF32 by default; exponentials on the special-function unit; cp.async tile loads.
+// 3xTF32; exponentials on the special-function unit; cp.async tile loads.
 // Plain inline PTX; no CUTLASS.
 //
 // 3xTF32: each fp32 operand x is split into hi (x rounded to TF32's 19 bits) and
 // lo = x - hi, and a product is accumulated in fp32 as lo.hi + hi.lo + hi.hi; the dropped
 // lo.lo term and lo's own truncation are ~2^-21 of the product, so the result stays near
-// fp32's rounding where one TF32 pass (10-bit mantissa) would leave ~5e-4.  Building with
-// -DSCAN_TF32_PASSES=1 issues the hi.hi pass only, for measuring what the split buys.
+// fp32's rounding where one TF32 pass (10-bit mantissa) would leave ~5e-4.
 //
 // Fragments of mma.m16n8k8.row.col.tf32 (lane = 4 g + t, g = groupID 0..7, t = 0..3):
 //   A [16 x 8] (m x k): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
@@ -22,11 +21,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-
-#ifndef SCAN_TF32_PASSES
-#define SCAN_TF32_PASSES 3
-#endif
-static_assert(SCAN_TF32_PASSES == 1 || SCAN_TF32_PASSES == 3, "1 or 3 TF32 passes");
 
 namespace scan {
 
@@ -46,7 +40,7 @@ struct FragB {
 // cores ignore (a truncation of lo, 2^-21 of x at most)
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = SCAN_TF32_PASSES == 3 ? __float_as_uint(x - __uint_as_float(hi)) : 0u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ FragA frag_a(float a0, float a1, float a2, float a3) {
@@ -98,12 +92,10 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += A B in fp32 (3xTF32, small terms first), or hi.hi only with one pass
+// d += A B in fp32 (3xTF32, small terms first)
 __device__ __forceinline__ void mma(float (&d)[4], const FragA& a, const FragB& b) {
-  if (SCAN_TF32_PASSES == 3) {
-    mma_tf32(d, a.lo, b.hi);
-    mma_tf32(d, a.hi, b.lo);
-  }
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
   mma_tf32(d, a.hi, b.hi);
 }
 

@@ -22,12 +22,11 @@ from . import _build
 
 SHAPES = ((64, 64),)  # (P, N), the compiled head and state sizes
 CHUNKS = (128,)
-TF32_PASSES = (3, 1)  # 3xTF32 (the default), or one TF32 pass to measure what the split buys
 
 
 @functools.cache
-def _kernel(passes: int = 3):
-    lib = _build.load("mamba2_ssd", () if passes == 3 else (f"SCAN_TF32_PASSES={passes}",))
+def _kernel():
+    lib = _build.load("mamba2_ssd")
     fn = lib.ssd_fwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
@@ -62,25 +61,24 @@ def _check(x, dt, A, B, C, state, chunk: int) -> None:
         raise ValueError(f"chunk {chunk} not compiled; the kernel takes {CHUNKS}")
     if not all(a.is_contiguous() for a in ts):
         raise ValueError("ssd_fwd takes contiguous tensors")
+    if any(a.data_ptr() % 16 for a in ts):
+        raise ValueError("ssd_fwd takes 16-byte-aligned tensors (cp.async and float2 loads)")
     if x.numel() == 0:
         raise ValueError("ssd_fwd takes a non-empty sequence")
 
 
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-            C: torch.Tensor, state: torch.Tensor, chunk: int = 128, tf32_passes: int = 3):
+            C: torch.Tensor, state: torch.Tensor, chunk: int = 128):
     """Chunked Mamba2 SSD scan on the card.
 
     x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B, C [Bt,T,N]; state [Bt,H,P,N];
-    fp32, contiguous, (P, N) in ``SHAPES``.  Returns ``y [Bt,T,H,P]`` and the
-    final state ``[Bt,H,P,N]``.  ``tf32_passes=1`` runs the single-pass TF32
-    build, whose products keep a 10-bit mantissa (for measurement only)."""
+    fp32, contiguous, 16-byte-aligned, (P, N) in ``SHAPES``.  Returns
+    ``y [Bt,T,H,P]`` and the final state ``[Bt,H,P,N]``."""
     _check(x, dt, A, B, C, state, chunk)
-    if tf32_passes not in TF32_PASSES:
-        raise ValueError(f"tf32_passes {tf32_passes} not compiled; the kernel takes {TF32_PASSES}")
     bt, t, h, p = x.shape
     y = torch.empty_like(x)
     s_out = torch.empty_like(state)
-    fn, workspace_floats, err_str = _kernel(tf32_passes)
+    fn, workspace_floats, err_str = _kernel()
     work = torch.empty(workspace_floats(bt, t), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

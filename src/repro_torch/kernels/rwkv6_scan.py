@@ -23,12 +23,11 @@ from . import _build
 
 HEAD_DIMS = (64,)     # K = V, the compiled head size
 CHUNKS = (64,)
-TF32_PASSES = (3, 1)  # 3xTF32 (the default), or one TF32 pass to measure what the split buys
 
 
 @functools.cache
-def _kernel(passes: int = 3):
-    lib = _build.load("rwkv6_scan", () if passes == 3 else (f"SCAN_TF32_PASSES={passes}",))
+def _kernel():
+    lib = _build.load("rwkv6_scan")
     fn = lib.wkv6_fwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
@@ -61,25 +60,24 @@ def _check(r, k, v, w, u, state, chunk: int) -> None:
         raise ValueError(f"chunk {chunk} not compiled; the kernel takes {CHUNKS}")
     if not all(x.is_contiguous() for x in ts):
         raise ValueError("wkv6_fwd takes contiguous tensors")
+    if any(x.data_ptr() % 16 for x in ts):
+        raise ValueError("wkv6_fwd takes 16-byte-aligned tensors (cp.async and float2 loads)")
     if r.numel() == 0:
         raise ValueError("wkv6_fwd takes a non-empty sequence")
 
 
 def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-             u: torch.Tensor, state: torch.Tensor, chunk: int = 64, tf32_passes: int = 3):
+             u: torch.Tensor, state: torch.Tensor, chunk: int = 64):
     """Chunked WKV6 recurrence on the card.
 
     r, k, w [B,T,H,K]; v [B,T,H,V]; u [H,K]; state [B,H,K,V]; fp32,
-    contiguous, K = V in ``HEAD_DIMS``.  Returns ``y [B,T,H,V]`` and the
-    final state ``[B,H,K,V]``.  ``tf32_passes=1`` runs the single-pass TF32
-    build, whose products keep a 10-bit mantissa (for measurement only)."""
+    contiguous, 16-byte-aligned, K = V in ``HEAD_DIMS``.  Returns
+    ``y [B,T,H,V]`` and the final state ``[B,H,K,V]``."""
     _check(r, k, v, w, u, state, chunk)
-    if tf32_passes not in TF32_PASSES:
-        raise ValueError(f"tf32_passes {tf32_passes} not compiled; the kernel takes {TF32_PASSES}")
     b, t, h, kd = r.shape
     y = torch.empty_like(v)
     s_out = torch.empty_like(state)
-    fn, workspace_floats, err_str = _kernel(tf32_passes)
+    fn, workspace_floats, err_str = _kernel()
     work = torch.empty(workspace_floats(b, t, h), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
