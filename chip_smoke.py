@@ -13,7 +13,8 @@ Phases, each fatal on failure:
       spills from ptxas;
   (c) kernels: each kernel against its plain PyTorch version on the card at
       the shapes the serving and training paths give it (flash attention
-      forward at hd 128, 112 and minicpm-2b's 64, its backward at minicpm-2b's
+      forward at hd 128, 112 and minicpm-2b's 64, and at mixtral-8x22b's
+      serving shape with its 4096 window biting, its backward at minicpm-2b's
       training shape, the checksum bit for bit at the size of minicpm-2b's
       largest parameter, the WKV6 and SSD scans, with ragged, windowed, offset
       and nonzero-state cases, T at the scans' tile borders, WKV6 decays down to
@@ -39,9 +40,26 @@ Phases, each fatal on failure:
       Then, at 4 layers and full width, the kernel path against the plain
       path (loss, every gradient, the params after 2 steps) in fp32 and bf16
       (``FP32_TOL``, ``TRAIN_TOL``);
-  (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model, a
-      ``training`` JSON line, the nvidia-smi line, and last the
-      ``{"ok": true, ...}`` line.
+  (g) the trainer: minicpm-2b, bf16 params with fp32 master weights and moments,
+      B=2, T=2048, trains through ``Trainer`` on a ``LocalMount`` holding
+      ``repro_torch.launch.train``'s dataset: run U takes 3 steps with no
+      checkpoint; run C saves step 2 and crashes after step 3; a fresh Trainer
+      restores step 2 and takes step 3.  Every leaf of params, mu, nu and master
+      after step 3 must have the same checksum-kernel digest in U and in the
+      resumed run.  At full width unless the disk's free space or a measured
+      save-and-restore rate says a checkpoint would not fit, then at
+      ``TRAINER_CUT_LAYERS`` layers (stated in the JSON).  Save and restore GB/s,
+      by stage;
+  (h) MoE serving: mixtral-8x22b at full width, cut to the most layers that fit
+      the card beside ``MOE_HEADROOM_BYTES`` for the wave's buffers, serves 8
+      requests with prompts of 3072-6144 tokens (past its 4096 window) through
+      ``BatchServer``, with the window's flash kernel launched once per layer a
+      wave; then decode against a prompt longer than the window and the kernel
+      path against the plain one, in bf16 at the cut and in fp32 at 2 layers;
+      and one wave under torch.profiler;
+  (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model
+      (mixtral-8x22b's too), a ``training`` and a ``trainer`` JSON line, the
+      nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -50,8 +68,10 @@ import contextlib
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,10 +90,15 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.mamba2_ssd import ssd_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_fwd  # noqa: E402
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.launch.train import write_dataset  # noqa: E402
+from repro_torch.models import get_model, moe  # noqa: E402
 from repro_torch.serve.server import BatchServer, Request  # noqa: E402
+from repro_torch.storage.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.storage.datapipe import ShardReader  # noqa: E402
+from repro_torch.storage.volume import LocalMount  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W power limit: bf16 on the
 # tensor cores, fp32 on the CUDA cores, and TF32 on the tensor cores, the rate that bounds
@@ -93,9 +118,22 @@ SCAN_TOL = 3e-3     # fp32 WKV6 / SSD scans, tests/test_kernels_pallas.py:57,76-
 # neighbouring bf16 number (the attention's probabilities, a scan's output)
 # sends a one-ulp step through every later layer, and these random-weight
 # models carry it to the logits: measured within 1.5e-2 for codeqwen1.5-7b's
-# 32 layers, 0.16 for zamba2-7b's 81 and 0.09 for rwkv6-1.6b's 24.
-SERVE_TOL = {"codeqwen1.5-7b": 5e-2, "zamba2-7b": 0.25, "rwkv6-1.6b": 0.15}
+# 32 layers, 0.16 for zamba2-7b's 81 and 0.09 for rwkv6-1.6b's 24.  mixtral-8x22b
+# (its 12-layer cut) is checked on shared expert choices (check_moe_consistency):
+# so held, its layers carry the step as codeqwen1.5-7b's do, measured 1.64e-2
+# (kernel vs plain) and 1.70e-2 (decode vs prefill) on an H100, hence 5e-2.  With
+# each path's own choices, a one-ulp step flips near-tied top-2 choices (21-322
+# of 8,792 tokens a layer) and the logits move by 0.195: no tolerance of the
+# rounding bounds that.
+SERVE_TOL = {"codeqwen1.5-7b": 5e-2, "zamba2-7b": 0.25, "rwkv6-1.6b": 0.15,
+             "mixtral-8x22b": 5e-2}
 FP32_TOL = 1e-3
+# Decode reads the bf16 KV cache whatever the weights' dtype, so in fp32 its
+# logits carry the cache's rounding (2^-9 relative a key or value): mixtral's
+# decode past the window is held, in fp32, to the tolerance the reference's
+# decode-vs-forward test gives the bf16 cache (tests/test_models_smoke.py:75;
+# measured 9.8e-3 at 2 layers on an H100).
+CACHE_TOL = 3e-2
 # Training, kernel path vs plain path at 4 layers of minicpm-2b, bf16 weights:
 # the loss, each gradient leaf (against its largest value) and the params
 # after 2 steps (against 1 + |b|).  In bf16 the two backward passes round
@@ -106,6 +144,15 @@ FP32_TOL = 1e-3
 # rounding put it there); the loss by 7.5e-6 (measured on an H100; PERF.md).
 TRAIN_TOL = 2e-2
 TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "minicpm-2b", 2, 2048, 4
+# (g): run C checkpoints every 2 steps and crashes after step 3; at
+# TRAINER_CUT_LAYERS layers when the disk holds less than DISK_MARGIN times
+# the checkpoint, or a save and a restore at the probed rate would take
+# longer than CKPT_BUDGET_S
+TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_CUT_LAYERS = 2, 3, 4
+DISK_MARGIN, CKPT_BUDGET_S, PROBE_BYTES = 1.18, 300.0, 1 << 30
+# (h): mixtral-8x22b keeps as many layers as fit the card beside this much
+# for the serving wave's activations, MoE buffers and checks
+MOE_ARCH, MOE_HEADROOM_BYTES = "mixtral-8x22b", 24e9
 SCAN_SOURCES = ("rwkv6_scan", "mamba2_ssd")
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd": flash_attention_bwd, "checksum": checksum_kernel,
@@ -482,6 +529,10 @@ def phase_kernels():
              # minicpm-2b's training shape: 36 heads of 64
              "train_hd64": flash_case(TRAIN_B, TRAIN_T, TRAIN_T, 36, 1, 64, 0, 0,
                                       torch.bfloat16, 14, timed=True),
+             # mixtral-8x22b's serving wave: 48 heads of 128 over 8 kv heads, its
+             # 4096 window biting on a 5862-token prompt
+             "mixtral_window": flash_case(4, 5862, 5862, 8, 6, 128, 4096, 0,
+                                          torch.bfloat16, 16),
              # a window, a q offset and G=4 in fp32 (SIMT kernel) and bf16 (wgmma kernel)
              "others": [flash_case(1, 1000, 1100, 2, 4, 64, 256, 100, torch.float32, 11),
                         flash_case(1, 1000, 1100, 2, 4, 64, 256, 100, torch.bfloat16, 15),
@@ -563,20 +614,40 @@ def expected_launches(cfg) -> dict:
     return {"flash_attention_fwd": cfg.n_layers}
 
 
+def init_serving_params(api, dtype=torch.bfloat16):
+    t0 = time.perf_counter()
+    params = api.init(0, dtype, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"  init {n_params / 1e9:.3f} B params ({str(dtype).split('.')[-1]}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params, n_params
+
+
 def phase_serving(arch: str):
     cfg = get_arch(arch)
     log(f"(d) serving {arch} at full width: {json.dumps(dataclasses.asdict(cfg))}")
     torch.cuda.reset_peak_memory_stats()
     api = get_model(cfg)
-    t0 = time.perf_counter()
-    params = api.init(0, torch.bfloat16, "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
-    log(f"  init {n_params / 1e9:.3f} B params (bf16) in {time.perf_counter() - t0:.1f} s")
-
-    batch, smax, max_new, n_req = 4, 4096, 32, 8
+    params, n_params = init_serving_params(api)
     gen = torch.Generator().manual_seed(1)
-    lengths = torch.randint(1024, 2049, (n_req,), generator=gen).tolist()
+    lengths = torch.randint(1024, 2049, (8,), generator=gen).tolist()
+    serving = serve_requests(arch, cfg, api, params, n_params, lengths, gen, smax=4096)
+    serving["consistency"] = check_consistency(cfg, api, params, SERVE_TOL[arch])
+    params32 = _tree_map(lambda x: x.float(), params)
+    serving["consistency_fp32"] = check_consistency(cfg, api, params32, FP32_TOL)
+    del params32
+    free_device_memory()
+    serving["profile"] = profile_wave(cfg, api, params, 4, max(lengths), 4096)
+    serving["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return serving
+
+
+def serve_requests(arch, cfg, api, params, n_params, lengths, gen, smax, batch=4, max_new=32):
+    """Serves one request per prompt length (tokens drawn from ``gen``) through
+    ``BatchServer`` after a warm-up, and checks the kernels' launch counts and
+    the outputs."""
+    n_req = len(lengths)
     reqs = [Request(rid=i, prompt=torch.randint(0, cfg.vocab, (n,), generator=gen).tolist(),
                     max_new=max_new) for i, n in enumerate(lengths)]
     srv = BatchServer(cfg, params, batch=batch, smax=smax, device="cuda")
@@ -614,14 +685,6 @@ def phase_serving(arch: str):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log(f"  served: {json.dumps(serving)}")
-    del srv
-    serving["consistency"] = check_consistency(cfg, api, params, SERVE_TOL[arch])
-    params32 = _tree_map(lambda x: x.float(), params)
-    serving["consistency_fp32"] = check_consistency(cfg, api, params32, FP32_TOL)
-    del params32
-    free_device_memory()
-    serving["profile"] = profile_wave(cfg, api, params, batch, max(lengths), smax)
-    serving["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return serving
 
 
@@ -666,9 +729,10 @@ PORT_KERNELS = ("flash_fwd_sm90", "flash_fwd_kernel", "delta_kernel", "dkdv_mma"
                 "wkv6_state_kernel", "wkv6_out_kernel", "checksum_kernel")
 
 
-def _device_summary(prof, wall_s: float):
-    """Device time by kernel from a profiler run, the eight largest rows and every
-    row of the port's own kernels; the idle share is of ``wall_s``."""
+def _device_summary(prof, wall_s: float, named=()):
+    """Device time by kernel from a profiler run, the eight largest rows, every
+    row of the port's own kernels and every row whose name holds one of
+    ``named``; the idle share is of ``wall_s``."""
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
@@ -681,10 +745,13 @@ def _device_summary(prof, wall_s: float):
                      "share_of_busy": us / 1e6 / busy_s} for k, us, n in rows[:8]],
             "port_kernels": [{"kernel": k[:90], "ms": us / 1e3, "calls": n,
                               "share_of_busy": us / 1e6 / busy_s} for k, us, n in rows
-                             if any(name in k for name in PORT_KERNELS)]}
+                             if any(name in k for name in PORT_KERNELS)],
+            **({"named": [{"kernel": k[:90], "ms": us / 1e3, "calls": n,
+                           "share_of_busy": us / 1e6 / busy_s} for k, us, n in rows
+                          if any(name in k for name in named)]} if named else {})}
 
 
-def profile_wave(cfg, api, params, batch: int, t: int, smax: int, steps: int = 4):
+def profile_wave(cfg, api, params, batch: int, t: int, smax: int, steps: int = 4, named=()):
     """Where the time goes in one serving wave: a prefill of [batch, t] and
     ``steps`` decode steps, each under torch.profiler (which adds host time)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -704,7 +771,7 @@ def profile_wave(cfg, api, params, batch: int, t: int, smax: int, steps: int = 4
                         logits, cache = api.decode(params, nxt[:, None], cache, t + i)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            res[phase] = _device_summary(prof, wall)
+            res[phase] = _device_summary(prof, wall, named)
     log(f"  profile: {json.dumps(res)}")
     return res
 
@@ -857,6 +924,302 @@ def check_train_consistency(cfg, dtype, tol: float):
     return res
 
 
+# ------------------------------------------------------------------ (g) the trainer
+
+def _io_report(io: dict) -> dict:
+    """Bytes over wall-clock seconds, and each stage's seconds and share."""
+    stages = {k: v for k, v in io.items() if k.endswith("_s") and k != "s"}
+    return {"bytes": io["bytes"], "s": io["s"], "gb_s": io["bytes"] / io["s"] / 1e9,
+            "stages_s": stages, "stage_shares": {k: v / io["s"] for k, v in stages.items()}}
+
+
+def probe_checkpoint_rate(root: Path) -> dict:
+    """Seconds a byte for a save and a restore of one PROBE_BYTES fp32 leaf on
+    the card, through CheckpointManager on a LocalMount at ``root``."""
+    leaf = torch.randn(PROBE_BYTES // 4, device="cuda").reshape(1024, -1)
+    cm = CheckpointManager(LocalMount(root), "/probe", shards=2)
+    cm.save(0, {"probe": leaf})
+    save = _io_report(cm.last_io)
+    cm.restore({"probe": torch.empty_like(leaf)})
+    restore = _io_report(cm.last_io)
+    shutil.rmtree(root / "probe")
+    return {"bytes": PROBE_BYTES, "save": save, "restore": restore,
+            "save_s_per_byte": save["s"] / save["bytes"],
+            "restore_s_per_byte": restore["s"] / restore["bytes"]}
+
+
+def _digests(trainer) -> dict:
+    """The checksum kernel's digest of every leaf of params, mu, nu and master."""
+    out = {}
+    for part in ("params", "mu", "nu", "master"):
+        for path, leaf in opt.flatten_with_paths(trainer.state_tree()[part] or {}):
+            out["~".join((part, *path))] = ops.tensor_checksum(
+                leaf.reshape(-1).view(torch.int32)).tolist()
+    return out
+
+
+def _train_timed(trainer, n: int) -> list:
+    """``n`` steps through Trainer.train, each timed (host clock, synchronised)."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(1)
+        torch.cuda.synchronize()
+        out.append({**trainer.history[-1], "ms": (time.perf_counter() - t0) * 1e3})
+        log(f"  step {json.dumps(out[-1])}")
+    return out
+
+
+def phase_trainer():
+    """(g): crash and resume through Trainer, held bit for bit to a run without."""
+    full = get_arch(TRAIN_ARCH)
+    log(f"(g) training {TRAIN_ARCH} through the Trainer, with a crash and a resume")
+    torch.cuda.reset_peak_memory_stats()
+    dirs = [ROOT / "build", Path(tempfile.gettempdir())]
+    for d in dirs:
+        d.mkdir(parents=True, exist_ok=True)
+    free = {str(d): shutil.disk_usage(d).free for d in dirs}
+    parent = max(dirs, key=lambda d: free[str(d)])
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_volume_", dir=parent))
+    try:
+        probe = probe_checkpoint_rate(root)
+        full_bytes = full.param_count() * (2 + 3 * 4)   # bf16 params; fp32 master, mu, nu
+        predicted_s = full_bytes * (probe["save_s_per_byte"] + probe["restore_s_per_byte"])
+        cut = None
+        if free[str(parent)] < DISK_MARGIN * full_bytes:
+            cut = (f"{TRAINER_CUT_LAYERS} of {full.n_layers} layers: {free[str(parent)] / 1e9:.1f}"
+                   f" GB free, under {DISK_MARGIN} x the {full_bytes / 1e9:.1f} GB checkpoint")
+        elif predicted_s > CKPT_BUDGET_S:
+            cut = (f"{TRAINER_CUT_LAYERS} of {full.n_layers} layers: a save and a restore of "
+                   f"{full_bytes / 1e9:.1f} GB would take {predicted_s:.0f} s at the probed "
+                   f"rates, over {CKPT_BUDGET_S:.0f} s")
+        cfg = dataclasses.replace(full, n_layers=TRAINER_CUT_LAYERS) if cut else full
+        log(f"  volume {root}; free {json.dumps(free)}; probe {json.dumps(probe)}; "
+            f"cut: {cut}")
+        mnt = LocalMount(root)
+        write_dataset(mnt, cfg.vocab)
+        reader = ShardReader(mnt, "/data", rank=0, world=1, batch=TRAIN_B, seq_len=TRAIN_T)
+        oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=TRAINER_CRASH_AT + 1)
+
+        def trainer(ckpt_every: int) -> Trainer:
+            tc = TrainerConfig(ckpt_every=ckpt_every, max_steps=TRAINER_CRASH_AT)
+            return Trainer(cfg, oc, tc, mnt, reader, seed=0, param_dtype=torch.bfloat16,
+                           device="cuda")
+
+        reset_launches()
+        # run U: TRAINER_CRASH_AT steps, no checkpoint
+        t_u = trainer(ckpt_every=TRAINER_CRASH_AT + 1)
+        n_params = sum(p.numel() for _, p in opt.flatten_with_paths(t_u.params))
+        steps_u = _train_timed(t_u, TRAINER_CRASH_AT)
+        digests_u = _digests(t_u)
+        for path, leaf in opt.flatten_with_paths(t_u.params):
+            words = leaf.reshape(-1).view(torch.int32)
+            if ref.checksum(words).tolist() != digests_u["~".join(("params", *path))]:
+                raise AssertionError(f"checksum kernel vs plain on params {path}")
+        step_u = int(t_u.opt_state.step)
+        del t_u
+        free_device_memory()
+
+        # run C: saves step TRAINER_CKPT_EVERY, crashes after step TRAINER_CRASH_AT
+        t_c = trainer(ckpt_every=TRAINER_CKPT_EVERY)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            t_c.train(TRAINER_CRASH_AT, crash_at=TRAINER_CRASH_AT)
+        except RuntimeError as e:
+            if f"injected trainer crash at step {TRAINER_CRASH_AT}" not in str(e):
+                raise
+        else:
+            raise AssertionError("run C did not crash")
+        run_c_s = time.perf_counter() - t0
+        if t_c.ckpt.list_steps() != [TRAINER_CKPT_EVERY]:
+            raise AssertionError(f"checkpoints after the crash: {t_c.ckpt.list_steps()}")
+        save = _io_report(t_c.ckpt.last_io)
+        log(f"  run C crashed after step {TRAINER_CRASH_AT} ({run_c_s:.1f} s); "
+            f"save {json.dumps(save)}")
+        del t_c
+        free_device_memory()
+
+        # resume: a fresh Trainer restores step TRAINER_CKPT_EVERY and trains on
+        t_r = trainer(ckpt_every=TRAINER_CRASH_AT + 1)
+        if not t_r.resume() or t_r.step != TRAINER_CKPT_EVERY:
+            raise AssertionError(f"resume: step {t_r.step}")
+        restore = _io_report(t_r.ckpt.last_io)
+        log(f"  restored step {t_r.step}: {json.dumps(restore)}")
+        steps_r = _train_timed(t_r, TRAINER_CRASH_AT - TRAINER_CKPT_EVERY)
+        digests_r = _digests(t_r)
+        step_r = int(t_r.opt_state.step)
+        counts = launches()
+        del t_r
+        free_device_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    differ = sorted(k for k in digests_u if digests_r.get(k) != digests_u[k])
+    if differ or step_r != step_u or digests_r.keys() != digests_u.keys():
+        raise AssertionError(f"resumed run differs from run U: leaves {differ}, "
+                             f"steps {step_r} vs {step_u}")
+    n_steps = 2 * TRAINER_CRASH_AT + TRAINER_CRASH_AT - TRAINER_CKPT_EVERY   # U, C, resumed
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_attention_fwd=2 * cfg.n_layers * n_steps,
+                flash_attention_bwd=cfg.n_layers * n_steps, checksum=2 * len(digests_u))
+    if counts != want:
+        raise AssertionError(f"kernel launches through the Trainer {counts}, expected {want}")
+    steady = [s["ms"] for s in steps_u[1:]]
+    trainer_res = {
+        "arch": TRAIN_ARCH, "layers": cfg.n_layers, "cut": cut, "params": n_params,
+        "batch": TRAIN_B, "seq": TRAIN_T, "ckpt_every": TRAINER_CKPT_EVERY,
+        "crash_at": TRAINER_CRASH_AT, "disk_free_gb": {k: v / 1e9 for k, v in free.items()},
+        "volume_parent": str(parent), "probe": probe,
+        "predicted_full_width_ckpt_s": predicted_s, "steps_u": steps_u,
+        "steps_resumed": steps_r, "run_c_s": run_c_s,
+        "step_ms_steady_u": sum(steady) / len(steady), "save": save, "restore": restore,
+        "launches": counts, "train_steps": n_steps, "leaves_digested": len(digests_u),
+        "digests_bit_identical": True, "step_after": step_r,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "digests": digests_u,
+    }
+    log(f"  trainer: {json.dumps({k: v for k, v in trainer_res.items() if k != 'digests'})}")
+    return trainer_res
+
+
+# ------------------------------------------------------------------ (h) MoE serving
+
+def _bf16_layer_bytes(cfg) -> tuple:
+    """Bytes of one layer and of the embeddings of an moe config in bf16 (the
+    router is fp32), from the parameter shapes."""
+    d, hd, fe = cfg.d_model, cfg.hd, cfg.d_expert or cfg.d_ff
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    layer = 2 * (attn + 3 * cfg.n_experts * d * fe + 2 * d) + 4 * d * cfg.n_experts
+    if cfg.dense_residual:
+        layer += 2 * 3 * d * cfg.d_ff
+    vocab = (cfg.vocab + 255) // 256 * 256
+    emb = 2 * (vocab * d * (1 if cfg.tie_embeddings else 2) + d)
+    return layer, emb
+
+
+@contextlib.contextmanager
+def moe_routing(log: list, forced=None):
+    """``moe._route`` logging each call's top-k experts ([tokens, k], tokens in
+    flat B*T order) to ``log``.  ``forced`` maps a call's index to (token
+    indices, experts [n, k]) that replace that call's own choices for those
+    tokens; their weights are renormalised from the call's own probabilities,
+    and the slots counted by ``moe._slots`` as the port counts them."""
+    forced = forced or {}
+    saved = moe._route
+
+    def route(cfg, router, xg, capacity):
+        probs, top_w, top_e = moe._top_k(cfg, router, xg)
+        if len(log) in forced:
+            idx, experts = forced[len(log)]
+            flat = top_e.reshape(-1, cfg.top_k).clone()
+            flat[idx] = experts
+            top_e = flat.reshape(top_e.shape)
+            w = probs.gather(-1, top_e)
+            top_w = w / w.sum(-1, keepdim=True)
+        log.append(top_e.reshape(-1, cfg.top_k))
+        return (*moe._slots(cfg, top_e, capacity), top_w)
+
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = saved
+
+
+def check_moe_consistency(cfg, api, params, tol: float, t: int, decode_tol: float):
+    """check_consistency for an MoE model with no drops (capacity_factor >=
+    E / k), on shared expert choices.  The top-k choice is a step function of
+    the router's logits, and a one-ulp change flips it wherever two experts
+    are nearly tied (top-2/top-3 gaps down to 1e-6 in mixtral's layers), which
+    moves that token by an O(1) amount: so the plain prefill takes the kernel
+    prefill's choices, layer by layer, and the prefill of x + token takes
+    decode's choices for the new token.  The errors with each path's own
+    choices, and how many tokens choose differently, are reported beside."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b = 2
+    toks = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
+    logs = {"kernel": [], "decode": [], "plain_own": []}
+    with torch.inference_mode():
+        with moe_routing(logs["kernel"]):
+            logits_p, cache = api.prefill(params, toks, t + 8)
+        nxt = logits_p[:, -1, :cfg.vocab].argmax(-1)
+        with moe_routing(logs["decode"]):
+            logits_d, _ = api.decode(params, nxt[:, None], cache, t)
+        del cache
+        last = torch.arange(b, device="cuda") * (t + 1) + t
+        with moe_routing([], dict(enumerate((last, e) for e in logs["decode"]))):
+            full, _ = api.prefill(params, torch.cat([toks, nxt[:, None]], 1), t + 8)
+        with plain_ops(), moe_routing(logs["plain_own"]):
+            plain_own, _ = api.prefill(params, toks, t + 8)
+        with plain_ops(), moe_routing([], dict(enumerate((slice(None), e)
+                                                         for e in logs["kernel"]))):
+            plain_p, _ = api.prefill(params, toks, t + 8)
+    ok_d, err_d = rel_close(logits_d[:, 0], full[:, -1], decode_tol)
+    ok_k, err_k = rel_close(logits_p, plain_p, tol)
+    differ = [int((a.sort(-1).values != p.sort(-1).values).any(-1).sum())
+              for a, p in zip(logs["kernel"], logs["plain_own"])]
+    res = {"weights": str(next(_leaves(params)).dtype).split(".")[-1],
+           "consistency_B": b, "consistency_T": t, "capacity_factor": cfg.capacity_factor,
+           "tolerance": tol, "decode_tolerance": decode_tol,
+           "decode_vs_prefill_err": err_d, "kernel_vs_plain_prefill_err": err_k,
+           "kernel_vs_plain_prefill_err_own_routing": rel_close(logits_p, plain_own, tol)[1],
+           "tokens_routed_differently_by_layer": differ, "tokens": b * t,
+           "logit_absmax": float(full.float().abs().max())}
+    log(f"  consistency: {json.dumps(res)}")
+    if not (ok_d and ok_k and torch.isfinite(logits_d).all()):
+        raise AssertionError(f"mixtral consistency check failed: {res}")
+    return res
+
+
+MOE_NAMED_OPS = ("index", "gather", "scatter", "sort", "cumsum", "topk", "nvjet", "gemm")
+
+
+def phase_moe_serving():
+    """(h): mixtral-8x22b at full width, cut to the layers the card holds."""
+    full = get_arch(MOE_ARCH)
+    layer_bytes, emb_bytes = _bf16_layer_bytes(full)
+    total = torch.cuda.get_device_properties(0).total_memory
+    n_layers = min(full.n_layers, int((total - MOE_HEADROOM_BYTES - emb_bytes) // layer_bytes))
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    cut = (f"{n_layers} of {full.n_layers} layers, full width: {layer_bytes / 1e9:.3f} GB of "
+           f"bf16 a layer and {emb_bytes / 1e9:.3f} GB of embeddings, with "
+           f"{MOE_HEADROOM_BYTES / 1e9:.0f} GB of the card's {total / 1e9:.1f} GB left free")
+    log(f"(h) serving {MOE_ARCH}, cut to {cut}: {json.dumps(dataclasses.asdict(cfg))}")
+    torch.cuda.reset_peak_memory_stats()
+    api = get_model(cfg)
+    params, n_params = init_serving_params(api)
+    gen = torch.Generator().manual_seed(1)
+    lengths = torch.randint(3072, 6145, (8,), generator=gen).tolist()
+    if sum(n > cfg.swa_window for n in lengths) < 2:
+        raise AssertionError(f"fewer than two prompts longer than the window: {lengths}")
+    serving = serve_requests(MOE_ARCH, cfg, api, params, n_params, lengths, gen, smax=8192)
+    serving.update(cut=cut, window=cfg.swa_window,
+                   prompts_past_window=sum(n > cfg.swa_window for n in lengths))
+    # no token can drop at capacity_factor = E / k (an expert takes at most one
+    # choice a token), so decode and a longer prefill route alike
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    t_long = cfg.swa_window + 300
+    serving["consistency"] = check_moe_consistency(no_drop, get_model(no_drop), params,
+                                                   SERVE_TOL[MOE_ARCH], t_long,
+                                                   SERVE_TOL[MOE_ARCH])
+    free_device_memory()
+    serving["profile"] = profile_wave(cfg, api, params, 4, max(lengths), 8192,
+                                      named=MOE_NAMED_OPS)
+    del params
+    free_device_memory()
+    cfg2 = dataclasses.replace(no_drop, n_layers=2)
+    api2 = get_model(cfg2)
+    params32, _ = init_serving_params(api2, torch.float32)
+    serving["consistency_fp32"] = check_moe_consistency(cfg2, api2, params32, FP32_TOL, t_long,
+                                                        CACHE_TOL)
+    serving["consistency_fp32"]["layers"] = 2
+    del params32
+    free_device_memory()
+    serving["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return serving
+
+
 # ------------------------------------------------------------------ main
 
 def kernel_line(name, source, replaces, case, launches_by_path, **extra):
@@ -902,8 +1265,15 @@ def main() -> None:
         free_device_memory()
     training = phase_training()
     peaks.append(training["phase_peak_mem_gb"])
+    free_device_memory()
+    trainer = phase_trainer()
+    peaks.append(trainer["peak_mem_gb"])
+    free_device_memory()
+    servings[MOE_ARCH] = phase_moe_serving()
+    peaks.append(servings[MOE_ARCH]["phase_peak_mem_gb"])
     paths = {**{a: s["launches"] for a, s in servings.items()},
-             f"{TRAIN_ARCH}-train": training["launches"]}
+             f"{TRAIN_ARCH}-train": training["launches"],
+             f"{TRAIN_ARCH}-trainer": trainer["launches"]}
 
     def by_path(kernel):
         return {a: n[kernel] for a, n in paths.items() if n[kernel]}
@@ -914,6 +1284,7 @@ def main() -> None:
                     by_path("flash_attention_fwd"), dtype=flash["main"]["dtype"],
                     library="torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
                     hd112=flash["hd112"], train_hd64=flash["train_hd64"],
+                    mixtral_window=flash["mixtral_window"],
                     other_cases=flash["others"], sass_HGMMA=tensor_cores["counts"]["fwd_bf16_HGMMA"],
                     kernels_by_dtype=tensor_cores["kernels"]["flash_attention"]),
         kernel_line("flash_attention_bwd",
@@ -955,6 +1326,7 @@ def main() -> None:
     for serving in servings.values():
         print(json.dumps({"serving": serving, "device": name, "nvidia_smi": smi}))
     print(json.dumps({"training": training, "device": name, "nvidia_smi": smi}))
+    print(json.dumps({"trainer": trainer, "device": name, "nvidia_smi": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 Random-initialises the reduced configuration of ``--arch`` in fp32 from a
 fixed seed (there is no checkpoint restore), then serves a batch of
 synthetic requests through prefill + cached decode and prints the
-generated tokens.  Every family but moe is served (``--arch rwkv6-1.6b``,
-``--arch zamba2-7b``, the dense ones)."""
+generated tokens.  Every family is served (``--arch mixtral-8x22b``,
+``--arch arctic-480b``, ``--arch rwkv6-1.6b``, ``--arch zamba2-7b``, the
+dense ones)."""
 
 from __future__ import annotations
 

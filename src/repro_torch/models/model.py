@@ -3,16 +3,19 @@
     api = get_model(cfg)
     params = api.init(seed, dtype, device)
     logits = api.forward(params, tokens)
-    loss   = api.loss(params, {"tokens", "labels"})       # dense backbone only
+    loss   = api.loss(params, {"tokens", "labels"})       # transformer backbone only
     logits, cache = api.prefill(params, tokens, smax, kv_dtype)
     logits, cache = api.decode(params, token, cache, cache_len)
     cache_spec    = api.cache_spec(batch, smax, kv_dtype)  # {name: (shape, dtype)}
 
 musicgen-large and chameleon-34b reuse the dense backbone; their modality
-frontends are stubs, as in the reference: the inputs are token ids.  For
-rwkv6 (family ``ssm``) and zamba2 (``hybrid``) the cache is the model's
-recurrent state (and, for zamba2, the shared block's K/V): a dict the
-server hands back to ``decode`` unread.
+frontends are stubs, as in the reference: the inputs are token ids.
+mixtral-8x22b and arctic-480b (family ``moe``) use it too, with an MoE
+block in place of the MLP; their load-balance loss is not part of
+``loss``, as in the reference.  For rwkv6 (family ``ssm``) and zamba2
+(``hybrid``) the cache is the model's recurrent state (and, for zamba2,
+the shared block's K/V): a dict the server hands back to ``decode``
+unread.
 """
 
 from __future__ import annotations
@@ -25,9 +28,6 @@ import torch
 from ..configs.base import ArchConfig
 from . import rwkv6, transformer, zamba2
 
-_NOT_PORTED = {
-    "moe": "ROADMAP.md, open item 1.6 (models/moe.py)",
-}
 _NO_TRAINING = "ROADMAP.md, open item 1.13 (training the ssm and hybrid families)"
 
 
@@ -51,10 +51,6 @@ class ModelApi:
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to PyTorch yet; "
-            f"see {_NOT_PORTED[cfg.family]}")
     if cfg.family == "ssm":          # rwkv6
         return ModelApi(
             cfg=cfg,
@@ -82,7 +78,7 @@ def get_model(cfg: ArchConfig) -> ModelApi:
             cache_spec=lambda batch, smax, kv="bfloat16":
                 zamba2.state_spec(cfg, batch, smax, kv),
         )
-    # dense / audio / vlm use the transformer backbone
+    # dense / moe / audio / vlm use the transformer backbone
     return ModelApi(
         cfg=cfg,
         init=lambda seed=0, dtype=torch.bfloat16, device="cuda":

@@ -1,13 +1,21 @@
-"""Decoder-only LM, dense backbone: init, forward and loss, prefill, decode.
+"""Decoder-only LM, dense and MoE: init, forward and loss, prefill, decode.
 
 Mirrors ``repro.models.transformer`` for the dense, audio and vlm families
 (codeqwen1.5-7b, phi3-medium-14b, minicpm-2b, qwen1.5-32b, musicgen-large,
-chameleon-34b).  Layer parameters keep the reference's stacked leading
-[L] axis; a Python loop over it takes the place of ``lax.scan``, and
+chameleon-34b) and the moe family (mixtral-8x22b, arctic-480b), whose
+feed-forward half is ``moe.moe_block``.  Layer parameters keep the
+reference's stacked leading [L] axis; a Python loop over it takes the
+place of ``lax.scan``, and
 ``torch.utils.checkpoint`` on each layer that of ``jax.checkpoint``.
 Attention in the forward and in prefill goes through
 ``ops.flash_attention``, so on the card it runs the hand-written flash
 kernels, forward and backward.
+
+One difference: with a sliding window, prefill stores position j of the
+prompt in cache slot j mod W, where decode writes it.  The reference
+stores the last W positions in slots 0..W-1, so for a prompt longer than
+W, and not a multiple of it, its decode overwrites a key still inside
+the window and keeps one that has left it.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from . import layers
+from . import layers, moe
 from .layers import Params
 
 Cache = Dict[str, torch.Tensor]
@@ -34,6 +42,21 @@ def _residual_scale(cfg: ArchConfig) -> float:
 
 # ------------------------------------------------------------------ init
 
+def init_layer(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+    if cfg.family == "moe":
+        dev = gen.device
+        p = {
+            "ln1": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+            "attn": layers.init_attention(cfg, gen, dtype),
+            "ln2": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+            "moe": moe.init_moe_block(cfg, gen, dtype),
+        }
+        if cfg.dense_residual:
+            p["mlp"] = layers.init_mlp(cfg.d_model, cfg.d_ff, gen, dtype)
+        return p
+    return layers.init_block(cfg, gen, dtype)
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
                 device="cuda") -> Params:
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
@@ -43,12 +66,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     emb = layers.init_embeddings(cfg, gen, dtype)
-    stacked = layers.init_stacked(cfg.n_layers,
-                                  lambda: layers.init_block(cfg, gen, dtype))
+    stacked = layers.init_stacked(cfg.n_layers, lambda: init_layer(cfg, gen, dtype))
     return {"emb": emb, "layers": stacked}
 
 
 # ------------------------------------------------------------------ forward
+
+def _mix(cfg: ArchConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    """The feed-forward (MLP or MoE) half of a block."""
+    hin = layers.rms_norm(h, lp["ln2"])
+    if cfg.family == "moe":
+        return moe.moe_block(cfg, lp["moe"], hin,
+                             mlp=lp.get("mlp") if cfg.dense_residual else None)
+    return layers.swiglu(lp["mlp"], hin)
+
 
 def _attn_full(cfg: ArchConfig, lp: Params, h: torch.Tensor,
                positions: torch.Tensor):
@@ -80,7 +111,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tens
 
     def block(h, lp):
         h = h + rs * _attn_full(cfg, lp, h, positions)[0]
-        return h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
+        return h + rs * _mix(cfg, lp, h)
 
     for lp in layers.unstack(params["layers"]):
         h = checkpoint(block, h, lp, use_reentrant=False)
@@ -134,10 +165,12 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,
     for i, lp in enumerate(layers.unstack(params["layers"])):
         attn, k, v = _attn_full(cfg, lp, h, positions)
         h = h + rs * attn
-        h = h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
-        # cache tail: last cache_smax positions (= all for full attention)
+        h = h + rs * _mix(cfg, lp, h)
+        # cache tail: last cache_smax positions (= all for full attention),
+        # position j in slot j mod cache_smax, the ring decode continues
         k_tail, v_tail = k[:, -cache_smax:], v[:, -cache_smax:]
         n = k_tail.shape[1]
+        shift = (t - n) % cache_smax        # nonzero only when the prompt wraps the ring
         if kv_dtype_name == "int8":
             # quantized after zero-padding, as the reference does, so the
             # unused slots hold the scale of a zero row
@@ -145,10 +178,10 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,
             (kq, ks), (vq, vs) = (layers._quantize_kv(F.pad(x, pad))
                                   for x in (k_tail, v_tail))
             for name, x in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
-                cache[name][i] = x
+                cache[name][i] = x.roll(shift, 1)
         else:
-            cache["k"][i, :, :n] = k_tail
-            cache["v"][i, :, :n] = v_tail
+            cache["k"][i, :, :n] = k_tail.roll(shift, 1)
+            cache["v"][i, :, :n] = v_tail.roll(shift, 1)
     return layers.unembed(params["emb"], h[:, -1:]), cache
 
 
@@ -169,5 +202,5 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
             cfg, lp["attn"], layers.rms_norm(h, lp["ln1"]), cache["k"][i],
             cache["v"][i], write_pos, cache_len, n_valid, kv_scale=scales)
         h = h + rs * out
-        h = h + rs * layers.swiglu(lp["mlp"], layers.rms_norm(h, lp["ln2"]))
+        h = h + rs * _mix(cfg, lp, h)
     return layers.unembed(params["emb"], h), cache

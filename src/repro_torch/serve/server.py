@@ -30,8 +30,11 @@ class Request:
 
 
 class BatchServer:
+    """``temperature`` is accepted and never read, as in the reference:
+    decoding is greedy."""
+
     def __init__(self, cfg: ArchConfig, params, batch: int = 4,
-                 smax: int = 128, device="cuda"):
+                 smax: int = 128, temperature: float = 0.0, device="cuda"):
         self.cfg = cfg
         self.api = get_model(cfg)
         self.params = params

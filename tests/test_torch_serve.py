@@ -37,6 +37,20 @@ def test_batch_server_tokens_match_jax():
     assert all(len(r.out) == 6 for r in got)
 
 
+def test_batch_server_takes_temperature_and_ignores_it():
+    """The reference's constructor takes ``temperature`` (fifth, or by name)
+    and never reads it: decoding stays greedy."""
+    cfg = torch_get_arch("codeqwen1.5-7b").reduced()
+    params = interop.to_torch(jax.tree.map(np.asarray, jax_model(get_arch(
+        "codeqwen1.5-7b").reduced()).init(jax.random.PRNGKey(7), jnp.float32)), "cpu")
+    greedy = BatchServer(cfg, params, batch=2, smax=32, device="cpu")
+    outs = [[r.out for r in srv.serve(_requests(Request, cfg.vocab))]
+            for srv in (greedy, BatchServer(cfg, params, 2, 32, 0.8, device="cpu"),
+                        BatchServer(cfg, params, batch=2, smax=32, temperature=1.5,
+                                    device="cpu"))]
+    assert outs[0] == outs[1] == outs[2]
+
+
 def test_launch_serve_on_cpu(capsys):
     launch_serve.main(["--device", "cpu", "--requests", "3", "--max-new", "3"])
     out = capsys.readouterr().out
