@@ -40,23 +40,21 @@ Phases, each fatal on failure:
       Then, at 4 layers and full width, the kernel path against the plain
       path (loss, every gradient, the params after 2 steps) in fp32 and bf16
       (``FP32_TOL``, ``TRAIN_TOL``);
-  (g) the trainer: minicpm-2b, bf16 params with fp32 master weights and moments,
+  (g) the trainer: minicpm-2b at full width cut to ``TRAINER_LAYERS`` layers
+      (stated in the JSON), bf16 params with fp32 master weights and moments,
       B=2, T=2048, trains through ``Trainer`` on a ``LocalMount`` holding
       ``repro_torch.launch.train``'s dataset: run U takes 3 steps with no
       checkpoint; run C saves step 2 and crashes after step 3; a fresh Trainer
       restores step 2 and takes step 3.  Every leaf of params, mu, nu and master
       after step 3 must have the same checksum-kernel digest in U and in the
-      resumed run.  At full width unless the disk's free space or a measured
-      save-and-restore rate says a checkpoint would not fit, then at
-      ``TRAINER_CUT_LAYERS`` layers (stated in the JSON).  Save and restore GB/s,
-      by stage;
+      resumed run.  Save and restore GB/s, by stage;
   (h) MoE serving: mixtral-8x22b at full width, cut to the most layers that fit
       the card beside ``MOE_HEADROOM_BYTES`` for the wave's buffers, serves 8
       requests with prompts of 3072-6144 tokens (past its 4096 window) through
       ``BatchServer``, with the window's flash kernel launched once per layer a
       wave; then decode against a prompt longer than the window and the kernel
-      path against the plain one, in bf16 at the cut and in fp32 at 2 layers;
-      and one wave under torch.profiler;
+      path against the plain one, on shared expert choices, in bf16 at the cut
+      and in fp32 at 2 layers; and one wave under torch.profiler;
   (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model
       (mixtral-8x22b's too), a ``training`` and a ``trainer`` JSON line, the
       nvidia-smi line, and last the ``{"ok": true, ...}`` line.
@@ -91,9 +89,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import ssd_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_fwd  # noqa: E402
 from repro_torch.launch.train import write_dataset  # noqa: E402
-from repro_torch.models import get_model, moe  # noqa: E402
+from repro_torch.models import get_model, moe, transformer  # noqa: E402
 from repro_torch.serve.server import BatchServer, Request  # noqa: E402
-from repro_torch.storage.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.storage.datapipe import ShardReader  # noqa: E402
 from repro_torch.storage.volume import LocalMount  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
@@ -114,26 +111,24 @@ SCAN_TOL = 3e-3     # fp32 WKV6 / SSD scans, tests/test_kernels_pallas.py:57,76-
 # on an fp32 copy of them.  In fp32 the paths differ only in the order of
 # summation (measured <= 6.2e-5 on zamba2-7b and rwkv6-1.6b on an H100;
 # PERF.md) and, for codeqwen1.5-7b, in the bf16 KV cache its decode reads
-# whatever the weights' dtype (6.6e-4), hence FP32_TOL.  In bf16 (8-bit mantissa) a path that rounds a value to the
-# neighbouring bf16 number (the attention's probabilities, a scan's output)
-# sends a one-ulp step through every later layer, and these random-weight
-# models carry it to the logits: measured within 1.5e-2 for codeqwen1.5-7b's
-# 32 layers, 0.16 for zamba2-7b's 81 and 0.09 for rwkv6-1.6b's 24.  mixtral-8x22b
-# (its 12-layer cut) is checked on shared expert choices (check_moe_consistency):
-# so held, its layers carry the step as codeqwen1.5-7b's do, measured 1.64e-2
-# (kernel vs plain) and 1.70e-2 (decode vs prefill) on an H100, hence 5e-2.  With
-# each path's own choices, a one-ulp step flips near-tied top-2 choices (21-322
-# of 8,792 tokens a layer) and the logits move by 0.195: no tolerance of the
-# rounding bounds that.
+# whatever the weights' dtype (6.6e-4), hence FP32_TOL.  In bf16 (8-bit
+# mantissa) a path that rounds a value to the neighbouring bf16 number (the
+# attention's probabilities, a scan's output) sends a one-ulp step through
+# every later layer, and these random-weight models carry it to the logits:
+# measured within 1.5e-2 for codeqwen1.5-7b's 32 layers, 0.16 for zamba2-7b's
+# 81 and 0.09 for rwkv6-1.6b's 24.  mixtral-8x22b (its 12-layer cut) is
+# checked on shared expert choices (check_consistency): so held, its layers
+# carry the step as codeqwen1.5-7b's do, measured 1.64e-2 (kernel vs plain)
+# and 1.70e-2 (decode vs prefill) on an H100, hence 5e-2.  With each path's
+# own choices, a one-ulp step flips near-tied top-2 choices (21-322 of 8,792
+# tokens a layer) and the logits move by 0.195: no tolerance of the rounding
+# bounds that.  Its fp32 copy, at 2 layers, decodes twice: against the bf16
+# cache, whose rounding alone moves its logits by 9.8e-3, held to the bf16
+# SERVE_TOL; and against an fp32 cache (fp32_kv_cache), which leaves 1.2e-5
+# (both on an H100 80GB HBM3 at 700 W), held to FP32_TOL.
 SERVE_TOL = {"codeqwen1.5-7b": 5e-2, "zamba2-7b": 0.25, "rwkv6-1.6b": 0.15,
              "mixtral-8x22b": 5e-2}
 FP32_TOL = 1e-3
-# Decode reads the bf16 KV cache whatever the weights' dtype, so in fp32 its
-# logits carry the cache's rounding (2^-9 relative a key or value): mixtral's
-# decode past the window is held, in fp32, to the tolerance the reference's
-# decode-vs-forward test gives the bf16 cache (tests/test_models_smoke.py:75;
-# measured 9.8e-3 at 2 layers on an H100).
-CACHE_TOL = 3e-2
 # Training, kernel path vs plain path at 4 layers of minicpm-2b, bf16 weights:
 # the loss, each gradient leaf (against its largest value) and the params
 # after 2 steps (against 1 + |b|).  In bf16 the two backward passes round
@@ -144,12 +139,12 @@ CACHE_TOL = 3e-2
 # rounding put it there); the loss by 7.5e-6 (measured on an H100; PERF.md).
 TRAIN_TOL = 2e-2
 TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "minicpm-2b", 2, 2048, 4
-# (g): run C checkpoints every 2 steps and crashes after step 3; at
-# TRAINER_CUT_LAYERS layers when the disk holds less than DISK_MARGIN times
-# the checkpoint, or a save and a restore at the probed rate would take
-# longer than CKPT_BUDGET_S
-TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_CUT_LAYERS = 2, 3, 4
-DISK_MARGIN, CKPT_BUDGET_S, PROBE_BYTES = 1.18, 300.0, 1 << 30
+# (g): run C checkpoints every 2 steps and crashes after step 3; minicpm-2b cut
+# to TRAINER_LAYERS of its 40 layers at full width (a 7.4 GB checkpoint: the
+# 38.2 GB one of all 40 layers took 155 s to save and restore on an H100 80GB
+# HBM3 at 700 W, and doubled the script's time), on a disk with DISK_MARGIN
+# times the checkpoint free
+TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_LAYERS, DISK_MARGIN = 2, 3, 4, 1.18
 # (h): mixtral-8x22b keeps as many layers as fit the card beside this much
 # for the serving wave's activations, MoE buffers and checks
 MOE_ARCH, MOE_HEADROOM_BYTES = "mixtral-8x22b", 24e9
@@ -697,27 +692,95 @@ def _tree_map(fn, tree):
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
-def check_consistency(cfg, api, params, tol: float):
+@contextlib.contextmanager
+def moe_routing(forced=()):
+    """``moe._route`` patched for the block; yields (chosen, rerouted): each
+    call's top-k experts ([tokens, k], tokens in flat B*T order), and for each
+    forced call how many tokens chose otherwise.  ``forced[i]`` is (token
+    indices, experts [n, k]) that replace call i's own choices for those
+    tokens; their weights are renormalised from the call's own probabilities,
+    and the slots counted by ``moe._slots`` as the port counts them."""
+    chosen, rerouted = [], []
+    saved = moe._route
+
+    def route(cfg, router, xg, capacity):
+        probs, top_w, top_e = moe._top_k(cfg, router, xg)
+        flat = top_e.reshape(-1, cfg.top_k)
+        if len(chosen) < len(forced):
+            idx, experts = forced[len(chosen)]
+            rerouted.append(int((flat[idx].sort(-1).values != experts.sort(-1).values)
+                                .any(-1).sum()))
+            flat = flat.clone()
+            flat[idx] = experts
+            top_e = flat.reshape(top_e.shape)
+            w = probs.gather(-1, top_e)
+            top_w = w / w.sum(-1, keepdim=True)
+        chosen.append(flat)
+        return (*moe._slots(cfg, top_e, capacity), top_w)
+
+    moe._route = route
+    try:
+        yield chosen, rerouted
+    finally:
+        moe._route = saved
+
+
+@contextlib.contextmanager
+def fp32_kv_cache():
+    """The transformer's prefill allocates its KV cache in fp32, not bf16,
+    for the block; decode writes and reads it in the cache's dtype."""
+    saved = transformer.kv_cache_spec
+
+    def spec(*args):
+        return {name: (shape, torch.float32 if dt == torch.bfloat16 else dt)
+                for name, (shape, dt) in saved(*args).items()}
+
+    transformer.kv_cache_spec = spec
+    try:
+        yield
+    finally:
+        transformer.kv_cache_spec = saved
+
+
+def check_consistency(cfg, api, params, tol: float, t: int = 512):
     """decode(prefill(x)) vs prefill(x + token) (tests/test_models_smoke.py), and
-    kernel-path vs plain-path prefill logits, on the full-width weights."""
+    kernel-path vs plain-path prefill logits, on the full-width weights.
+
+    An MoE model (at a capacity factor with no drops) is held on shared expert
+    choices: the top-k choice is a step function of the router's logits, and a
+    one-ulp change flips it wherever two experts are nearly tied, which moves
+    that token by an O(1) amount.  So the prefill of x + token takes the
+    prefill of x's choices for x and decode's for the token, and the plain
+    prefill takes the kernel prefill's; how many tokens would have chosen
+    otherwise is reported by layer."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    b, t = 2, 512
+    b = 2
     toks = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
     with torch.inference_mode():
-        logits_p, cache = api.prefill(params, toks, t + 8)
+        with moe_routing() as (chosen_p, _):
+            logits_p, cache = api.prefill(params, toks, t + 8)
         nxt = logits_p[:, -1, :cfg.vocab].argmax(-1)
-        logits_d, _ = api.decode(params, nxt[:, None], cache, t)
+        with moe_routing() as (chosen_d, _):
+            logits_d, _ = api.decode(params, nxt[:, None], cache, t)
         del cache
-        full, _ = api.prefill(params, torch.cat([toks, nxt[:, None]], 1), t + 8)
+        shared = [(slice(None), torch.cat([p.reshape(b, t, -1), d.reshape(b, 1, -1)], 1)
+                   .reshape(b * (t + 1), -1)) for p, d in zip(chosen_p, chosen_d)]
+        with moe_routing(shared) as (_, rerouted_full):
+            full, _ = api.prefill(params, torch.cat([toks, nxt[:, None]], 1), t + 8)
         ok_d, err_d = rel_close(logits_d[:, 0], full[:, -1], tol)
 
-        with plain_ops():
+        kernel_choices = [(slice(None), p) for p in chosen_p]
+        with plain_ops(), moe_routing(kernel_choices) as (_, rerouted_plain):
             plain_p, _ = api.prefill(params, toks, t + 8)
         ok_k, err_k = rel_close(logits_p, plain_p, tol)
     res = {"weights": str(next(_leaves(params)).dtype).split(".")[-1],
            "consistency_B": b, "consistency_T": t, "tolerance": tol,
            "decode_vs_prefill_err": err_d, "kernel_vs_plain_prefill_err": err_k,
            "logit_absmax": float(full.float().abs().max())}
+    if chosen_p:
+        res.update(capacity_factor=cfg.capacity_factor, tokens=b * t,
+                   tokens_rerouted_by_layer={"prefill_x_plus_token": rerouted_full,
+                                             "plain_prefill": rerouted_plain})
     log(f"  consistency: {json.dumps(res)}")
     if not (ok_d and ok_k and torch.isfinite(logits_d).all()):
         raise AssertionError(f"full-width consistency check failed: {res}")
@@ -933,21 +996,6 @@ def _io_report(io: dict) -> dict:
             "stages_s": stages, "stage_shares": {k: v / io["s"] for k, v in stages.items()}}
 
 
-def probe_checkpoint_rate(root: Path) -> dict:
-    """Seconds a byte for a save and a restore of one PROBE_BYTES fp32 leaf on
-    the card, through CheckpointManager on a LocalMount at ``root``."""
-    leaf = torch.randn(PROBE_BYTES // 4, device="cuda").reshape(1024, -1)
-    cm = CheckpointManager(LocalMount(root), "/probe", shards=2)
-    cm.save(0, {"probe": leaf})
-    save = _io_report(cm.last_io)
-    cm.restore({"probe": torch.empty_like(leaf)})
-    restore = _io_report(cm.last_io)
-    shutil.rmtree(root / "probe")
-    return {"bytes": PROBE_BYTES, "save": save, "restore": restore,
-            "save_s_per_byte": save["s"] / save["bytes"],
-            "restore_s_per_byte": restore["s"] / restore["bytes"]}
-
-
 def _digests(trainer) -> dict:
     """The checksum kernel's digest of every leaf of params, mu, nu and master."""
     out = {}
@@ -974,29 +1022,20 @@ def _train_timed(trainer, n: int) -> list:
 def phase_trainer():
     """(g): crash and resume through Trainer, held bit for bit to a run without."""
     full = get_arch(TRAIN_ARCH)
-    log(f"(g) training {TRAIN_ARCH} through the Trainer, with a crash and a resume")
+    cfg = dataclasses.replace(full, n_layers=TRAINER_LAYERS)
+    ckpt_bytes = cfg.param_count() * (2 + 3 * 4)   # bf16 params; fp32 master, mu, nu
+    cut = (f"{TRAINER_LAYERS} of {full.n_layers} layers, full width: a checkpoint of "
+           f"{ckpt_bytes / 1e9:.1f} GB")
+    log(f"(g) training {TRAIN_ARCH} through the Trainer, with a crash and a resume; {cut}")
     torch.cuda.reset_peak_memory_stats()
-    dirs = [ROOT / "build", Path(tempfile.gettempdir())]
-    for d in dirs:
-        d.mkdir(parents=True, exist_ok=True)
-    free = {str(d): shutil.disk_usage(d).free for d in dirs}
-    parent = max(dirs, key=lambda d: free[str(d)])
+    parent = ROOT / "build"
+    parent.mkdir(exist_ok=True)
+    free = shutil.disk_usage(parent).free
+    if free < DISK_MARGIN * ckpt_bytes:
+        raise AssertionError(f"{free / 1e9:.1f} GB free under {parent}, under {DISK_MARGIN} x "
+                             f"the {ckpt_bytes / 1e9:.1f} GB checkpoint")
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_volume_", dir=parent))
     try:
-        probe = probe_checkpoint_rate(root)
-        full_bytes = full.param_count() * (2 + 3 * 4)   # bf16 params; fp32 master, mu, nu
-        predicted_s = full_bytes * (probe["save_s_per_byte"] + probe["restore_s_per_byte"])
-        cut = None
-        if free[str(parent)] < DISK_MARGIN * full_bytes:
-            cut = (f"{TRAINER_CUT_LAYERS} of {full.n_layers} layers: {free[str(parent)] / 1e9:.1f}"
-                   f" GB free, under {DISK_MARGIN} x the {full_bytes / 1e9:.1f} GB checkpoint")
-        elif predicted_s > CKPT_BUDGET_S:
-            cut = (f"{TRAINER_CUT_LAYERS} of {full.n_layers} layers: a save and a restore of "
-                   f"{full_bytes / 1e9:.1f} GB would take {predicted_s:.0f} s at the probed "
-                   f"rates, over {CKPT_BUDGET_S:.0f} s")
-        cfg = dataclasses.replace(full, n_layers=TRAINER_CUT_LAYERS) if cut else full
-        log(f"  volume {root}; free {json.dumps(free)}; probe {json.dumps(probe)}; "
-            f"cut: {cut}")
         mnt = LocalMount(root)
         write_dataset(mnt, cfg.vocab)
         reader = ShardReader(mnt, "/data", rank=0, world=1, batch=TRAIN_B, seq_len=TRAIN_T)
@@ -1070,9 +1109,7 @@ def phase_trainer():
     trainer_res = {
         "arch": TRAIN_ARCH, "layers": cfg.n_layers, "cut": cut, "params": n_params,
         "batch": TRAIN_B, "seq": TRAIN_T, "ckpt_every": TRAINER_CKPT_EVERY,
-        "crash_at": TRAINER_CRASH_AT, "disk_free_gb": {k: v / 1e9 for k, v in free.items()},
-        "volume_parent": str(parent), "probe": probe,
-        "predicted_full_width_ckpt_s": predicted_s, "steps_u": steps_u,
+        "crash_at": TRAINER_CRASH_AT, "disk_free_gb": free / 1e9, "steps_u": steps_u,
         "steps_resumed": steps_r, "run_c_s": run_c_s,
         "step_ms_steady_u": sum(steady) / len(steady), "save": save, "restore": restore,
         "launches": counts, "train_steps": n_steps, "leaves_digested": len(digests_u),
@@ -1096,80 +1133,6 @@ def _bf16_layer_bytes(cfg) -> tuple:
     vocab = (cfg.vocab + 255) // 256 * 256
     emb = 2 * (vocab * d * (1 if cfg.tie_embeddings else 2) + d)
     return layer, emb
-
-
-@contextlib.contextmanager
-def moe_routing(log: list, forced=None):
-    """``moe._route`` logging each call's top-k experts ([tokens, k], tokens in
-    flat B*T order) to ``log``.  ``forced`` maps a call's index to (token
-    indices, experts [n, k]) that replace that call's own choices for those
-    tokens; their weights are renormalised from the call's own probabilities,
-    and the slots counted by ``moe._slots`` as the port counts them."""
-    forced = forced or {}
-    saved = moe._route
-
-    def route(cfg, router, xg, capacity):
-        probs, top_w, top_e = moe._top_k(cfg, router, xg)
-        if len(log) in forced:
-            idx, experts = forced[len(log)]
-            flat = top_e.reshape(-1, cfg.top_k).clone()
-            flat[idx] = experts
-            top_e = flat.reshape(top_e.shape)
-            w = probs.gather(-1, top_e)
-            top_w = w / w.sum(-1, keepdim=True)
-        log.append(top_e.reshape(-1, cfg.top_k))
-        return (*moe._slots(cfg, top_e, capacity), top_w)
-
-    moe._route = route
-    try:
-        yield
-    finally:
-        moe._route = saved
-
-
-def check_moe_consistency(cfg, api, params, tol: float, t: int, decode_tol: float):
-    """check_consistency for an MoE model with no drops (capacity_factor >=
-    E / k), on shared expert choices.  The top-k choice is a step function of
-    the router's logits, and a one-ulp change flips it wherever two experts
-    are nearly tied (top-2/top-3 gaps down to 1e-6 in mixtral's layers), which
-    moves that token by an O(1) amount: so the plain prefill takes the kernel
-    prefill's choices, layer by layer, and the prefill of x + token takes
-    decode's choices for the new token.  The errors with each path's own
-    choices, and how many tokens choose differently, are reported beside."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    b = 2
-    toks = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
-    logs = {"kernel": [], "decode": [], "plain_own": []}
-    with torch.inference_mode():
-        with moe_routing(logs["kernel"]):
-            logits_p, cache = api.prefill(params, toks, t + 8)
-        nxt = logits_p[:, -1, :cfg.vocab].argmax(-1)
-        with moe_routing(logs["decode"]):
-            logits_d, _ = api.decode(params, nxt[:, None], cache, t)
-        del cache
-        last = torch.arange(b, device="cuda") * (t + 1) + t
-        with moe_routing([], dict(enumerate((last, e) for e in logs["decode"]))):
-            full, _ = api.prefill(params, torch.cat([toks, nxt[:, None]], 1), t + 8)
-        with plain_ops(), moe_routing(logs["plain_own"]):
-            plain_own, _ = api.prefill(params, toks, t + 8)
-        with plain_ops(), moe_routing([], dict(enumerate((slice(None), e)
-                                                         for e in logs["kernel"]))):
-            plain_p, _ = api.prefill(params, toks, t + 8)
-    ok_d, err_d = rel_close(logits_d[:, 0], full[:, -1], decode_tol)
-    ok_k, err_k = rel_close(logits_p, plain_p, tol)
-    differ = [int((a.sort(-1).values != p.sort(-1).values).any(-1).sum())
-              for a, p in zip(logs["kernel"], logs["plain_own"])]
-    res = {"weights": str(next(_leaves(params)).dtype).split(".")[-1],
-           "consistency_B": b, "consistency_T": t, "capacity_factor": cfg.capacity_factor,
-           "tolerance": tol, "decode_tolerance": decode_tol,
-           "decode_vs_prefill_err": err_d, "kernel_vs_plain_prefill_err": err_k,
-           "kernel_vs_plain_prefill_err_own_routing": rel_close(logits_p, plain_own, tol)[1],
-           "tokens_routed_differently_by_layer": differ, "tokens": b * t,
-           "logit_absmax": float(full.float().abs().max())}
-    log(f"  consistency: {json.dumps(res)}")
-    if not (ok_d and ok_k and torch.isfinite(logits_d).all()):
-        raise AssertionError(f"mixtral consistency check failed: {res}")
-    return res
 
 
 MOE_NAMED_OPS = ("index", "gather", "scatter", "sort", "cumsum", "topk", "nvjet", "gemm")
@@ -1200,9 +1163,8 @@ def phase_moe_serving():
     # choice a token), so decode and a longer prefill route alike
     no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     t_long = cfg.swa_window + 300
-    serving["consistency"] = check_moe_consistency(no_drop, get_model(no_drop), params,
-                                                   SERVE_TOL[MOE_ARCH], t_long,
-                                                   SERVE_TOL[MOE_ARCH])
+    serving["consistency"] = check_consistency(no_drop, get_model(no_drop), params,
+                                               SERVE_TOL[MOE_ARCH], t_long)
     free_device_memory()
     serving["profile"] = profile_wave(cfg, api, params, 4, max(lengths), 8192,
                                       named=MOE_NAMED_OPS)
@@ -1211,9 +1173,12 @@ def phase_moe_serving():
     cfg2 = dataclasses.replace(no_drop, n_layers=2)
     api2 = get_model(cfg2)
     params32, _ = init_serving_params(api2, torch.float32)
-    serving["consistency_fp32"] = check_moe_consistency(cfg2, api2, params32, FP32_TOL, t_long,
-                                                        CACHE_TOL)
-    serving["consistency_fp32"]["layers"] = 2
+    serving["consistency_fp32"] = {
+        "layers": 2,
+        "bf16_kv_cache": check_consistency(cfg2, api2, params32, SERVE_TOL[MOE_ARCH], t_long)}
+    with fp32_kv_cache():
+        serving["consistency_fp32"]["fp32_kv_cache"] = check_consistency(cfg2, api2, params32,
+                                                                         FP32_TOL, t_long)
     del params32
     free_device_memory()
     serving["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
