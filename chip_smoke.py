@@ -5,12 +5,13 @@
 
 Phases, each fatal on failure:
   (a) device: the card's name and power limit (nvidia-smi);
-  (b) build: nvcc compiles the port's five CUDA sources for sm_90a, all at once;
+  (b) build: nvcc compiles the port's seven CUDA sources for sm_90a, all at once;
       cuobjdump proves the bf16 flash kernels run on the tensor cores (HGMMA in
       the forward, HMMA in the backward) and the fp32 ones do not, and that
-      every kernel of the WKV6 and SSD scans issues tensor-core instructions
-      (3xTF32 mma.sync) without spilling, beside each kernel's registers and
-      spills from ptxas;
+      every kernel of the WKV6 and SSD scans, forward and backward, issues
+      tensor-core instructions (3xTF32 mma.sync; the backward's sums over
+      partials have no products) and none spills, beside each kernel's
+      registers and spills from ptxas;
   (c) kernels: each kernel against its plain PyTorch version on the card at
       the shapes the serving and training paths give it (flash attention
       forward at hd 128, 112 and minicpm-2b's 64, and at mixtral-8x22b's
@@ -19,8 +20,11 @@ Phases, each fatal on failure:
       largest parameter, the WKV6 and SSD scans, with ragged, windowed, offset
       and nonzero-state cases, T at the scans' tile borders, WKV6 decays down to
       the reference's 1e-30 clamp and SSD decays that underflow within a chunk),
-      with its time, the plain version's, one library call's where there is one,
-      and its bound;
+      the scans' backward kernels at the training shapes of (i) against the
+      plain backward (autograd through the chunked forms), with a nonzero
+      initial state and final-state cotangent, a ragged T and strong decays
+      (WKV6's dw exactly 0 where w < 1e-30), each with its time, the plain
+      version's, one library call's where there is one, and its bound;
   (d) serving, one model after another, each at full published width with
       random bf16 weights from a seed: codeqwen1.5-7b, zamba2-7b and
       rwkv6-1.6b each serve 8 requests through ``BatchServer``.  Every
@@ -55,9 +59,16 @@ Phases, each fatal on failure:
       wave; then decode against a prompt longer than the window and the kernel
       path against the plain one, on shared expert choices, in bf16 at the cut
       and in fp32 at 2 layers; and one wave under torch.profiler;
+  (i) training the ssm and hybrid families: (f)'s phase for rwkv6-1.6b at full
+      width and depth and zamba2-7b at full width cut to ``SSM_TRAIN_LAYERS``
+      layers (stated in the JSON), their scans running K4/K3 forward (twice a
+      layer, with the recompute) and K4-bwd/K3-bwd backward (once), zamba2's
+      shared block K1 and K1-bwd at hd 112; the launch counts checked per step,
+      and the kernel path against the plain one at ``SSM_CHECK_LAYERS`` layers;
   (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model
-      (mixtral-8x22b's too), a ``training`` and a ``trainer`` JSON line, the
-      nvidia-smi line, and last the ``{"ok": true, ...}`` line.
+      (mixtral-8x22b's too), a ``training`` and a ``trainer`` JSON line, one
+      ``training`` line each for (i)'s models, the nvidia-smi line, and last the
+      ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -86,8 +97,8 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.checksum import checksum as checksum_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
-from repro_torch.kernels.mamba2_ssd import ssd_fwd  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import wkv6_fwd  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import ssd_bwd, ssd_fwd  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import wkv6_bwd, wkv6_fwd  # noqa: E402
 from repro_torch.launch.train import write_dataset  # noqa: E402
 from repro_torch.models import get_model, moe, transformer  # noqa: E402
 from repro_torch.serve.server import BatchServer, Request  # noqa: E402
@@ -138,6 +149,15 @@ FP32_TOL = 1e-3
 # (a step is about +-lr, 5e-4 then 1e-3, for a gradient near zero whichever
 # rounding put it there); the loss by 7.5e-6 (measured on an H100; PERF.md).
 TRAIN_TOL = 2e-2
+# (i) in bf16: rwkv6's and zamba2's gradients are far more sensitive to rounding than
+# minicpm-2b's.  The plain path differs from itself, with its scans run at half the
+# chunk (the same function, other rounding), by 7.1e-2 (rwkv6-1.6b, 2 layers) and
+# 4.0e-2 (zamba2-7b, 6 layers) of a gradient leaf's largest value, and the kernel path
+# from the plain one by 1.03e-1 and 9.6e-2 (H100 80GB HBM3, 700 W; PERF.md), largest in
+# emb.out; in fp32 all three agree within 4.1e-6.  So there the gradients are held to
+# SSM_BF16_GRAD_TOL, the check reports that noise floor beside them, and the loss, the
+# params after 2 steps and the fp32 check keep TRAIN_TOL and FP32_TOL.
+SSM_BF16_GRAD_TOL = 0.25
 TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "minicpm-2b", 2, 2048, 4
 # (g): run C checkpoints every 2 steps and crashes after step 3; minicpm-2b cut
 # to TRAINER_LAYERS of its 40 layers at full width (a 7.4 GB checkpoint: the
@@ -148,16 +168,36 @@ TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_LAYERS, DISK_MARGIN = 2, 3, 4, 1.1
 # (h): mixtral-8x22b keeps as many layers as fit the card beside this much
 # for the serving wave's activations, MoE buffers and checks
 MOE_ARCH, MOE_HEADROOM_BYTES = "mixtral-8x22b", 24e9
-SCAN_SOURCES = ("rwkv6_scan", "mamba2_ssd")
+# (i): rwkv6-1.6b whole; zamba2-7b cut to SSM_TRAIN_LAYERS of its 81 layers (a multiple
+# of its attn_every, so every shared-block site is whole); kernel vs plain training at
+# SSM_CHECK_LAYERS layers
+SSM_TRAIN = ("rwkv6-1.6b", "zamba2-7b")
+SSM_TRAIN_LAYERS = {"zamba2-7b": 36}
+SSM_CHECK_LAYERS = {"rwkv6-1.6b": 2, "zamba2-7b": 6}
+SCAN_SOURCES = ("rwkv6_scan", "mamba2_ssd", "rwkv6_scan_bwd", "mamba2_ssd_bwd")
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd": flash_attention_bwd, "checksum": checksum_kernel,
-           "ssd_fwd": ssd_fwd, "wkv6_fwd": wkv6_fwd}
-PLAIN_OPS = {       # ref.flash_attention is differentiable: its backward is the plain one
+           "ssd_fwd": ssd_fwd, "wkv6_fwd": wkv6_fwd, "ssd_bwd": ssd_bwd, "wkv6_bwd": wkv6_bwd}
+PLAIN_OPS = {       # the plain forms are differentiable: their backward is autograd's
     "flash_attention": lambda q, k, v, window=0, q_offset=0: ref.flash_attention(
         q, k, v, q_offset=q_offset, window=window),
     "mamba2_ssd": ref.mamba2_ssd,
     "wkv6": ref.rwkv6_chunked,
 }
+
+
+def _half_chunk(fn, default: int):
+    """A plain chunked scan at half the chunk it is called with: the same function,
+    summed in another order."""
+    def call(*args, chunk=default):
+        if len(args) > 6:
+            args, chunk = args[:6], args[6]
+        return fn(*args, chunk=chunk // 2)
+    return call
+
+
+PLAIN_HALF_CHUNK = {**PLAIN_OPS, "mamba2_ssd": _half_chunk(ref.mamba2_ssd, 128),
+                    "wkv6": _half_chunk(ref.rwkv6_chunked, 64)}
 
 
 def log(msg: str) -> None:
@@ -174,12 +214,12 @@ def launches() -> dict:
 
 
 @contextlib.contextmanager
-def plain_ops():
+def plain_ops(routes=PLAIN_OPS):
     """``ops`` routed to the plain versions for the duration, and checked to
     launch no kernel."""
     before = launches()
-    saved = {name: getattr(ops, name) for name in PLAIN_OPS}
-    for name, fn in PLAIN_OPS.items():
+    saved = {name: getattr(ops, name) for name in routes}
+    for name, fn in routes.items():
         setattr(ops, name, fn)
     try:
         yield
@@ -225,7 +265,9 @@ def kernel_resources(source: str) -> dict:
 def tensor_core_proof() -> dict:
     """The bf16 flash forward must issue wgmma (HGMMA) and the bf16 backward
     mma.sync or wgmma (HMMA/HGMMA); the fp32 flash instantiations none; every
-    kernel of the fp32 scans HMMA or HGMMA (TF32), with no spills."""
+    kernel of the fp32 scans, forward and backward, HMMA or HGMMA (TF32), but the
+    backward's sums over partials (``*reduce*``), which have no products; no scan
+    kernel spills."""
     res = {src: kernel_resources(src)
            for src in ("flash_attention", "flash_attention_bwd", *SCAN_SOURCES)}
 
@@ -248,7 +290,8 @@ def tensor_core_proof() -> dict:
     if proof["fp32_HMMA_HGMMA"]:
         raise AssertionError(f"an fp32 flash kernel issues tensor-core instructions: {proof}")
     for src in SCAN_SOURCES:
-        idle = [n for n, r in res[src].items() if r["HMMA"] + r["HGMMA"] == 0]
+        idle = [n for n, r in res[src].items()
+                if r["HMMA"] + r["HGMMA"] == 0 and "reduce" not in n]
         spills = {n: r for n, r in res[src].items()
                   if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
         if idle or spills:
@@ -431,6 +474,103 @@ def ssd_inputs(seed, b, t, h, p=64, n=64, strong=False):
             r(b, h, p, n) * 0.2)
 
 
+def wkv6_bwd_work(b, t, h, d, chunk):
+    """Flops (exponentials and logarithms apart) and bytes of the WKV6 backward on real
+    rows, K = V = d: its inputs r, k, v, w, u, the initial state, dy and the final
+    state's cotangent read once, dr, dk, dv, dw, du and ds0 written once."""
+    flops = trans = 0
+    for c in _chunk_rows(t, chunk):
+        pairs = c * (c - 1) // 2
+        flops += (2 * c * d * d + 2 * d * d     # the state pass: (r e^clp)^T dy, the decay
+                  + 2 * c * d                    # log-decay cumsum, r e^clp
+                  + 2 * (pairs + c) * d          # datt = dy v^T (j <= i)
+                  + 4 * pairs * d + 3 * c * d    # att and the u bonus
+                  + 2 * (pairs + c) * d + 2 * c * d * d + c * d   # dv
+                  + 2 * c * d * d + 2 * c * d * d + 2 * c * d     # dy S^T, v dS^T, scaled
+                  + 2 * 5 * pairs * d            # datt's terms of dr and dk
+                  + 8 * c * d                    # dr, dk, dclp, dcl, du
+                  + 2 * d * d + 4 * c * d)       # the last row's term, dlog w, dw
+        trans += 2 * c * d + 3 * pairs * d + 2 * d
+    nbytes = 4 * (9 * b * t * h * d + 2 * h * d + 3 * b * h * d * d)
+    return flops * b * h, trans * b * h, nbytes
+
+
+def ssd_bwd_work(b, t, h, p, n, chunk):
+    """Flops (exponentials apart) and bytes of the SSD backward on real rows; C B^T is
+    counted once per batch.  Inputs x, dt, A, B, C, the initial state, dy and the final
+    state's cotangent read once; dx, ddt, dA, dB, dC and ds0 written once."""
+    flops = trans = shared = 0
+    for c in _chunk_rows(t, chunk):
+        pairs = c * (c + 1) // 2
+        shared += 2 * pairs * n                  # C B^T, causal half
+        flops += (2 * c * p * n + 2 * p * n + 2 * c   # the state pass, cumsum
+                  + 2 * pairs * p + c * p        # dy xs^T, xs
+                  + 4 * pairs                    # L, M, dG
+                  + 2 * pairs * p + 2 * c * n * p + 2 * c * p   # dxs, dx
+                  + 2 * c * p * n + c * n + 2 * pairs * n       # dC
+                  + 2 * pairs * n + 2 * c * p * n + c * n       # dB
+                  + 4 * pairs + 6 * c * p + 2 * p * n + 6 * c)  # dcl, da, ddt, dA
+        trans += pairs + 3 * c
+    nbytes = 4 * (3 * b * t * h * p + 2 * b * t * h + 2 * h + 4 * b * t * n + 3 * b * h * p * n)
+    return flops * b * h + shared * b, trans * b * h, nbytes
+
+
+def scan_bwd_case(name, fwd, bwd, plain_bwd, inputs, shape, work=None, note=None, seed=0,
+                  w_index=None):
+    """A scan's backward kernel on the forward kernel's chunk states against the plain
+    backward (autograd through the chunked form), for random cotangents of y and of the
+    final state.  ``w_index``: that input's gradient is held as w * dw (strong decays:
+    dw = dlog w / w multiplies the rounding of dlog w by up to 1e30), and must be 0
+    exactly where w < 1e-30.  Beside the errors, the plain backward at half the chunk
+    against itself: the same function in another order, the inputs' own noise floor."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x0, state = inputs[0], inputs[5]
+    y_shape = x0.shape[:3] + (state.shape[-1] if name == "wkv6_bwd" else x0.shape[-1],)
+    dy = torch.randn(y_shape, generator=gen, device="cuda")
+    ds = torch.randn(state.shape, generator=gen, device="cuda") * 0.5
+    _, _, states = fwd(*inputs, chunk_states=True)
+    got = bwd(*inputs[:5], states, dy, ds)
+    torch.cuda.synchronize()
+    want = plain_bwd(*inputs, dy, ds)
+    half = plain_bwd(*inputs, dy, ds, chunk=shape["chunk"] // 2)
+
+    def held(grads):     # the gradients as compared: w * dw in place of dw for w_index
+        return [g * inputs[i] if i == w_index else g for i, g in enumerate(grads)]
+
+    def rel_errs(grads):
+        return [float(((g - w).abs() / (1 + w.abs())).max())
+                for g, w in zip(held(grads), held(want))]
+
+    abs_err, rel_err, finite = _scan_errors(held(got), held(want))
+    clamped_zero = (w_index is None
+                    or bool((got[w_index][inputs[w_index] < 1e-30] == 0).all()))
+    noise = rel_errs(half)
+    del half
+    again = bwd(*inputs[:5], states, dy, ds)
+    rerun_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    case = {"shape": shape, **({"inputs": note} if note else {}), "max_abs_err": abs_err,
+            "max_rel_err": rel_err, "rel_err_by_grad": rel_errs(got),
+            "plain_half_chunk_rel_err": max(noise), "plain_half_chunk_rel_err_by_grad": noise,
+            "tolerance": SCAN_TOL, "rerun_bit_identical": rerun_equal,
+            "ok": finite and rel_err <= SCAN_TOL and rerun_equal and clamped_zero}
+    if w_index is not None:
+        case["dw_zero_where_w_below_1e-30"] = clamped_zero
+        case["dw_compared_as"] = "w * dw"
+    log(f"  {name} case {json.dumps(case)}")
+    if not case["ok"]:
+        raise AssertionError(f"{name} kernel disagrees with the plain backward, or a rerun "
+                             f"differs: {case}")
+    if work is not None:
+        flops, trans, nbytes = work
+        case.update(bound(flops, nbytes, "tf32"), exps=trans,
+                    bound_ms_fp32_cuda_cores=bound(flops, nbytes, torch.float32)["bound_ms"])
+        case["ms"] = cuda_ms(lambda: bwd(*inputs[:5], states, dy, ds), 10)
+        case["plain_ms"] = cuda_ms(lambda: plain_bwd(*inputs, dy, ds), 2, warmup=1)
+        case["library_ms"] = None     # no single PyTorch call computes the scan's backward
+        log(f"  {name} timed {json.dumps(case)}")
+    return case
+
+
 def flash_bwd_case(b, t, kv, g, hd, window, q_offset, dtype, seed, tk=None, timed=False):
     """K1-bwd on the forward kernel's out and lse, against ref._flash_bwd_impl
     on the plain forward's own lse, so a wrong lse from K1 shows here too."""
@@ -559,6 +699,39 @@ def phase_kernels():
             + [scan_case("ssd", ssd_fwd, ref.mamba2_ssd, ssd_inputs(32, 2, 300, 112, strong=True),
                          {"Bt": 2, "T": 300, "H": 112, "P": 64, "N": 64, "chunk": 128},
                          note="strong decays: A scaled by 50")]}
+    # the backward kernels at the training shapes (rwkv6-1.6b: B=2, H=32; zamba2-7b:
+    # Bt=2, H=112), then a ragged T and strong decays, each with a nonzero initial state
+    # and a nonzero cotangent of the final state
+    wkv6_bwd_cases = {
+        "main": scan_bwd_case("wkv6_bwd", wkv6_fwd, wkv6_bwd, ref.rwkv6_chunked_bwd,
+                              wkv6_inputs(60, TRAIN_B, TRAIN_T, 32),
+                              {"B": TRAIN_B, "T": TRAIN_T, "H": 32, "K": 64, "V": 64,
+                               "chunk": 64}, wkv6_bwd_work(TRAIN_B, TRAIN_T, 32, 64, 64),
+                              seed=60),
+        "others": [scan_bwd_case("wkv6_bwd", wkv6_fwd, wkv6_bwd, ref.rwkv6_chunked_bwd,
+                                 wkv6_inputs(61, 2, 1000, 32),
+                                 {"B": 2, "T": 1000, "H": 32, "K": 64, "V": 64, "chunk": 64},
+                                 seed=61),
+                   scan_bwd_case("wkv6_bwd", wkv6_fwd, wkv6_bwd, ref.rwkv6_chunked_bwd,
+                                 wkv6_inputs(62, 2, 300, 32, strong=True),
+                                 {"B": 2, "T": 300, "H": 32, "K": 64, "V": 64, "chunk": 64},
+                                 note="strong decays: w = e^-U(0,69), w = 0 in every 16th "
+                                      "column", seed=62, w_index=3)]}
+    ssd_bwd_cases = {
+        "main": scan_bwd_case("ssd_bwd", ssd_fwd, ssd_bwd, ref.mamba2_ssd_bwd,
+                              ssd_inputs(70, TRAIN_B, TRAIN_T, 112),
+                              {"Bt": TRAIN_B, "T": TRAIN_T, "H": 112, "P": 64, "N": 64,
+                               "chunk": 128}, ssd_bwd_work(TRAIN_B, TRAIN_T, 112, 64, 64, 128),
+                              seed=70),
+        "others": [scan_bwd_case("ssd_bwd", ssd_fwd, ssd_bwd, ref.mamba2_ssd_bwd,
+                                 ssd_inputs(71, 2, 1000, 112),
+                                 {"Bt": 2, "T": 1000, "H": 112, "P": 64, "N": 64,
+                                  "chunk": 128}, seed=71),
+                   scan_bwd_case("ssd_bwd", ssd_fwd, ssd_bwd, ref.mamba2_ssd_bwd,
+                                 ssd_inputs(72, 2, 300, 112, strong=True),
+                                 {"Bt": 2, "T": 300, "H": 112, "P": 64, "N": 64,
+                                  "chunk": 128}, note="strong decays: A scaled by 50",
+                                 seed=72)]}
     # minicpm-2b's training shape (36 heads of 64, bf16, causal), then fp32 at
     # hd 128 with G=2 and a ragged T, a window with a q offset, and hd 112
     flash_bwd = {"main": flash_bwd_case(TRAIN_B, TRAIN_T, 36, 1, 64, 0, 0, torch.bfloat16, 40,
@@ -574,7 +747,7 @@ def phase_kernels():
                                       timed=True),
                 "others": [checksum_case(n, block, 51 + i) for i, (n, block) in
                            enumerate(((1000, 256), (4096, 4096), (10000, 512), (0, 4096)))]}
-    return flash, flash_bwd, checksum, wkv6, ssd
+    return flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases
 
 
 # ------------------------------------------------------------------ (d) serving
@@ -789,7 +962,8 @@ def check_consistency(cfg, api, params, tol: float, t: int = 512):
 
 PORT_KERNELS = ("flash_fwd_sm90", "flash_fwd_kernel", "delta_kernel", "dkdv_mma", "dq_mma",
                 "dkdv_kernel", "dq_kernel", "ssd_gram_kernel", "ssd_scan_kernel",
-                "wkv6_state_kernel", "wkv6_out_kernel", "checksum_kernel")
+                "wkv6_state_kernel", "wkv6_out_kernel", "checksum_kernel", "wkv6_bwd_",
+                "ssd_bwd_")
 
 
 def _device_summary(prof, wall_s: float, named=()):
@@ -857,9 +1031,36 @@ def train_batch(cfg, b: int, t: int, seed: int) -> dict:
     return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
 
 
-def phase_training():
-    cfg = get_arch(TRAIN_ARCH)
-    log(f"(f) training {TRAIN_ARCH} at full width: {json.dumps(dataclasses.asdict(cfg))}")
+def train_launches(cfg) -> dict:
+    """Kernel launches of one train step: each layer's forward kernel twice (the
+    remat recompute runs it again), its backward kernel once; every kernel named."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        per = {"wkv6_fwd": 2 * L, "wkv6_bwd": L}
+    elif cfg.family == "hybrid":
+        sites = L // cfg.attn_every
+        per = {"ssd_fwd": 2 * L, "ssd_bwd": L, "flash_attention_fwd": 2 * sites,
+               "flash_attention_bwd": sites}
+    else:
+        per = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L}
+    return {name: per.get(name, 0) for name in KERNELS}
+
+
+SCAN_KERNEL_NAMES = {"ssm": ("wkv6_state_kernel", "wkv6_out_kernel", "wkv6_bwd_"),
+                     "hybrid": ("ssd_gram_kernel", "ssd_scan_kernel", "ssd_bwd_")}
+
+
+def phase_training(arch: str = TRAIN_ARCH, n_layers: int = 0, check_layers: int = 4):
+    """(f), and (i) for the ssm and hybrid families: ``arch`` at full width (cut
+    to ``n_layers`` if given), TRAIN_STEPS steps of ``make_train_step`` and one
+    under the profiler, every trained leaf digested by K2, then the kernel path
+    against the plain one at ``check_layers`` layers in fp32 and bf16."""
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
+    phase = "(f)" if arch == TRAIN_ARCH else "(i)"
+    cut = f"{cfg.n_layers} of {full.n_layers} layers, full width" if n_layers else None
+    log(f"{phase} training {arch} {f'cut to {cut}' if cut else 'at full width'}: "
+        f"{json.dumps(dataclasses.asdict(cfg))}")
     api = get_model(cfg)
     oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS + 1)
     torch.cuda.reset_peak_memory_stats()
@@ -887,9 +1088,8 @@ def phase_training():
         log(f"  step {json.dumps(steps[-1])}")
     counts = launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    want = {name: 0 for name in KERNELS}
-    want.update(flash_attention_fwd=2 * cfg.n_layers * TRAIN_STEPS,
-                flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
+    per_step = train_launches(cfg)
+    want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
     if counts != want:
         raise AssertionError(f"kernel launches over {TRAIN_STEPS} train steps {counts}, "
                              f"expected {want}")
@@ -911,9 +1111,10 @@ def phase_training():
 
     steady_ms = sum(s["ms"] for s in steps[1:]) / (len(steps) - 1)
     training = {
-        "arch": TRAIN_ARCH, "layers": cfg.n_layers, "params": n_params, "batch": TRAIN_B,
-        "seq": TRAIN_T, "steps": steps, "launches": counts, "launches_per_step": {
-            "flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers},
+        "arch": arch, "layers": cfg.n_layers, **({"cut": cut} if cut else {}),
+        "params": n_params, "batch": TRAIN_B,
+        "seq": TRAIN_T, "steps": steps, "launches": counts,
+        "launches_per_step": {k: v for k, v in per_step.items() if v},
         "step_ms_steady": steady_ms, "first_step_ms": steps[0]["ms"],
         "trained_tok_s": TRAIN_B * TRAIN_T / (steady_ms / 1e3), "peak_mem_gb": peak,
         "opt": {"lr": oc.lr, "warmup_steps": oc.warmup_steps, "total_steps": oc.total_steps,
@@ -932,12 +1133,20 @@ def phase_training():
         wall = time.perf_counter() - t0
     training["profile"] = {"step": TRAIN_STEPS + 1, "loss": float(metrics["loss"]),
                            **_device_summary(prof, wall)}
+    scans = SCAN_KERNEL_NAMES.get(cfg.family)
+    if scans and "port_kernels" in training["profile"]:
+        rows = [r for r in training["profile"]["port_kernels"]
+                if any(n in r["kernel"] for n in scans)]
+        training["profile"]["scan_fwd_ms"] = sum(r["ms"] for r in rows if "bwd" not in r["kernel"])
+        training["profile"]["scan_bwd_ms"] = sum(r["ms"] for r in rows if "bwd" in r["kernel"])
     log(f"  profile: {json.dumps(training['profile'])}")
     del params, state, metrics, step
     free_device_memory()
-    training["consistency"] = check_train_consistency(cfg, torch.float32, FP32_TOL)
+    training["consistency"] = check_train_consistency(cfg, torch.float32, FP32_TOL, check_layers)
     free_device_memory()
-    training["consistency_bf16"] = check_train_consistency(cfg, torch.bfloat16, TRAIN_TOL)
+    training["consistency_bf16"] = check_train_consistency(
+        cfg, torch.bfloat16, TRAIN_TOL, check_layers,
+        SSM_BF16_GRAD_TOL if cfg.family in ("ssm", "hybrid") else None)
     free_device_memory()
     training["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return training
@@ -960,29 +1169,52 @@ def _train_run(cfg, dtype, batches):
     return loss.detach(), grads, dict(opt.flatten_with_paths(params))
 
 
-def check_train_consistency(cfg, dtype, tol: float):
+def _grad_errs(grads, want):
+    """Per leaf, the largest difference over the leaf's largest value."""
+    return {".".join(path): float((grads[path].float() - g.float()).abs().max()
+                                  / g.float().abs().max().clamp(min=1e-30))
+            for path, g in want.items()}
+
+
+def check_train_consistency(cfg, dtype, tol: float, n_layers: int = 4, grad_tol=None):
     """The kernel path against the plain path (PLAIN_OPS, forward and backward)
-    at 4 layers and full width: the loss, every gradient leaf (error over the
-    leaf's largest value) and the params after 2 steps (|a-b| / (1 + |b|))."""
-    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    at ``n_layers`` layers and full width: the loss, every gradient leaf (error
+    over the leaf's largest value) and the params after 2 steps (|a-b| / (1 + |b|)),
+    and each path's kernel launches.  With ``grad_tol`` the gradients are held to
+    it instead of ``tol``, and the plain path is run again with its scans at half
+    the chunk, its gradients' distance from the first plain run reported: the
+    noise floor of the function's own rounding."""
+    cfg4 = dataclasses.replace(cfg, n_layers=n_layers)
     batches = [train_batch(cfg, TRAIN_B, TRAIN_T, 200 + i) for i in range(2)]
+    reset_launches()
     loss_k, grads_k, params_k = _train_run(cfg4, dtype, batches)
+    counts = launches()
+    # the loss and gradients once, then a step per batch
+    want = {name: 3 * n for name, n in train_launches(cfg4).items()}
+    if counts != want:
+        raise AssertionError(f"kernel launches of the kernel path {counts}, expected {want}")
     with plain_ops():
         loss_p, grads_p, params_p = _train_run(cfg4, dtype, batches)
     _, loss_err = rel_close(loss_k, loss_p, tol)
-    grad_errs = {".".join(path): float((grads_k[path].float() - g.float()).abs().max()
-                                       / g.float().abs().max().clamp(min=1e-30))
-                 for path, g in grads_p.items()}
+    grad_errs = _grad_errs(grads_k, grads_p)
+    noise = {}
+    if grad_tol is not None:
+        with plain_ops(PLAIN_HALF_CHUNK):
+            _, grads_h, _ = _train_run(cfg4, dtype, batches)
+        noise = _grad_errs(grads_h, grads_p)
+        del grads_h
     param_errs = {".".join(path): rel_close(params_k[path], p, tol)[1]
                   for path, p in params_p.items()}
     res = {"dtype": str(dtype).split(".")[-1], "layers": cfg4.n_layers, "B": TRAIN_B,
-           "T": TRAIN_T, "tolerance": tol, "loss_kernel": float(loss_k),
-           "loss_plain": float(loss_p), "loss_err": loss_err,
+           "T": TRAIN_T, "tolerance": tol, "grad_tolerance": grad_tol or tol,
+           "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "loss_err": loss_err,
            "grad_err_max": max(grad_errs.values()), "param_err_max": max(param_errs.values()),
-           "grad_errs": grad_errs, "param_errs": param_errs}
+           **({"plain_vs_half_chunk_grad_err_max": max(noise.values())} if noise else {}),
+           "launches_kernel_path": counts, "grad_errs": grad_errs, "param_errs": param_errs,
+           **({"plain_vs_half_chunk_grad_errs": noise} if noise else {})}
     log(f"  train consistency: {json.dumps(res)}")
-    if not (torch.isfinite(loss_k) and max(loss_err, res["grad_err_max"],
-                                           res["param_err_max"]) <= tol):
+    if not (torch.isfinite(loss_k) and max(loss_err, res["param_err_max"]) <= tol
+            and res["grad_err_max"] <= (grad_tol or tol)):
         raise AssertionError(f"training kernel path vs plain path ({res['dtype']}): {res}")
     return res
 
@@ -1100,9 +1332,8 @@ def phase_trainer():
         raise AssertionError(f"resumed run differs from run U: leaves {differ}, "
                              f"steps {step_r} vs {step_u}")
     n_steps = 2 * TRAINER_CRASH_AT + TRAINER_CRASH_AT - TRAINER_CKPT_EVERY   # U, C, resumed
-    want = {name: 0 for name in KERNELS}
-    want.update(flash_attention_fwd=2 * cfg.n_layers * n_steps,
-                flash_attention_bwd=cfg.n_layers * n_steps, checksum=2 * len(digests_u))
+    want = {name: n * n_steps for name, n in train_launches(cfg).items()}
+    want["checksum"] = 2 * len(digests_u)
     if counts != want:
         raise AssertionError(f"kernel launches through the Trainer {counts}, expected {want}")
     steady = [s["ms"] for s in steps_u[1:]]
@@ -1220,7 +1451,7 @@ def main() -> None:
     log(f"(b) built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s")
     tensor_cores = tensor_core_proof()
 
-    flash, flash_bwd, checksum, wkv6, ssd = phase_kernels()
+    flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases = phase_kernels()
     peaks = [torch.cuda.max_memory_allocated() / 1e9]
     free_device_memory()
     servings = {}
@@ -1236,9 +1467,17 @@ def main() -> None:
     free_device_memory()
     servings[MOE_ARCH] = phase_moe_serving()
     peaks.append(servings[MOE_ARCH]["phase_peak_mem_gb"])
+    free_device_memory()
+    ssm_training = {}
+    for arch in SSM_TRAIN:
+        ssm_training[arch] = phase_training(arch, SSM_TRAIN_LAYERS.get(arch, 0),
+                                            SSM_CHECK_LAYERS[arch])
+        peaks.append(ssm_training[arch]["phase_peak_mem_gb"])
+        free_device_memory()
     paths = {**{a: s["launches"] for a, s in servings.items()},
              f"{TRAIN_ARCH}-train": training["launches"],
-             f"{TRAIN_ARCH}-trainer": trainer["launches"]}
+             f"{TRAIN_ARCH}-trainer": trainer["launches"],
+             **{f"{a}-train": t["launches"] for a, t in ssm_training.items()}}
 
     def by_path(kernel):
         return {a: n[kernel] for a, n in paths.items() if n[kernel]}
@@ -1281,6 +1520,24 @@ def main() -> None:
                     library=None, max_rel_err=ssd["main"]["max_rel_err"],
                     **_scan_extra(ssd["main"], tensor_cores, "mamba2_ssd"),
                     other_cases=ssd["others"]),
+        kernel_line("wkv6_bwd", "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+                    "src/repro/kernels/ref.py:285", wkv6_bwd_cases["main"], by_path("wkv6_bwd"),
+                    replaces_note="no Pallas kernel: the reference differentiates "
+                                  "ref.rwkv6_chunked (ref.py:285-345) by JAX's autodiff",
+                    dtype="float32 (3xTF32 on the tensor cores)",
+                    exps=wkv6_bwd_cases["main"]["exps"], library=None,
+                    max_rel_err=wkv6_bwd_cases["main"]["max_rel_err"],
+                    **_scan_extra(wkv6_bwd_cases["main"], tensor_cores, "rwkv6_scan_bwd"),
+                    other_cases=wkv6_bwd_cases["others"]),
+        kernel_line("ssd_bwd", "src/repro_torch/kernels/csrc/mamba2_ssd_bwd.cu",
+                    "src/repro/kernels/ref.py:366", ssd_bwd_cases["main"], by_path("ssd_bwd"),
+                    replaces_note="no Pallas kernel: the reference differentiates "
+                                  "ref.mamba2_ssd (ref.py:366-420) by JAX's autodiff",
+                    dtype="float32 (3xTF32 on the tensor cores)",
+                    exps=ssd_bwd_cases["main"]["exps"], library=None,
+                    max_rel_err=ssd_bwd_cases["main"]["max_rel_err"],
+                    **_scan_extra(ssd_bwd_cases["main"], tensor_cores, "mamba2_ssd_bwd"),
+                    other_cases=ssd_bwd_cases["others"]),
     ]
     for k in kernels:
         if k["launches"] == 0:
@@ -1292,6 +1549,8 @@ def main() -> None:
         print(json.dumps({"serving": serving, "device": name, "nvidia_smi": smi}))
     print(json.dumps({"training": training, "device": name, "nvidia_smi": smi}))
     print(json.dumps({"trainer": trainer, "device": name, "nvidia_smi": smi}))
+    for t in ssm_training.values():
+        print(json.dumps({"training": t, "device": name, "nvidia_smi": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -37,7 +37,9 @@
 //     zero: the library's expf takes a slow path there, and e^(cl_i - cl_j) goes there
 //     whenever the decay between two rows is strong;
 //   * the ragged last chunk is masked here (rows past T read as x = B = C = dt = 0, and
-//     are not written), which keeps the final state exact without padding in memory.
+//     are not written), which keeps the final state exact without padding in memory;
+//   * for the backward (mamba2_ssd_bwd.cu) it also writes, when asked, the state before
+//     every 64 rows to S_chunks [Bt, ceil(T / 64), H, P, N].
 
 #include <cuda_runtime.h>
 
@@ -64,6 +66,7 @@ struct Params {
   const float* s0;
   float* y;
   float* s_out;
+  float* S_chunks;  // [Bt][ceil(T/64)][H][P][N] the state before every 64 rows, or null
   float4* G;      // [Bt][n_chunks][G_TILES][32 lanes] A fragments of C B^T
   int Bt, T, H, n_chunks;
 };
@@ -167,6 +170,16 @@ __global__ void __launch_bounds__(NTHREADS, 4) ssd_scan_kernel(const Params p) {
   load_chunk(0, 0);
   for (int c = 0; c < p.n_chunks; ++c) {
     const int t0 = c * CH;
+    if (p.S_chunks && t0 % 64 == 0) {
+      float* s = p.S_chunks + (((long long)b * ((p.T + 63) / 64) + t0 / 64) * p.H + h) * P * N;
+#pragma unroll
+      for (int nt = 0; nt < N / 8; ++nt) {
+        *reinterpret_cast<float2*>(s + (p0 + g) * N + 8 * nt + 2 * t) =
+            make_float2(S[nt][0], S[nt][1]);
+        *reinterpret_cast<float2*>(s + (p0 + g + 8) * N + 8 * nt + 2 * t) =
+            make_float2(S[nt][2], S[nt][3]);
+      }
+    }
     const float* x_s = smem + (c & 1) * STAGE;
     const float* B_s = x_s + CH * LD;
     const float* C_s = B_s + CH * LD;
@@ -303,13 +316,15 @@ long long ssd_workspace_floats(int Bt, int T) {
 
 // Returns a cudaError_t: 0 when both kernels were launched.  All tensors are contiguous
 // fp32; P = N = 64 and chunk 128 are the compiled sizes (the kernel walks the chunk in
-// four quarters); `work` holds ssd_workspace_floats(Bt, T) floats.
+// four quarters); `work` holds ssd_workspace_floats(Bt, T) floats; s_chunks, if not
+// null, receives the state before every 64 rows [Bt, ceil(T / 64), H, P, N].
 int ssd_fwd(const float* x, const float* dt, const float* A, const float* Bm, const float* Cm,
-            const float* s0, float* y, float* s_out, int Bt, int T, int H, int P_, int N_,
-            int chunk, void* work, void* stream) {
+            const float* s0, float* y, float* s_out, float* s_chunks, int Bt, int T, int H,
+            int P_, int N_, int chunk, void* work, void* stream) {
   if (P_ != P || N_ != N || chunk != 128 || T <= 0) return cudaErrorInvalidValue;
   const int n_chunks = (T + CH - 1) / CH;
-  const Params p{x, dt, A, Bm, Cm, s0, y, s_out, static_cast<float4*>(work), Bt, T, H, n_chunks};
+  const Params p{x,  dt,      A,  Bm, Cm, s0, y, s_out, s_chunks, static_cast<float4*>(work),
+                 Bt, T, H, n_chunks};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   ssd_gram_kernel<<<dim3(n_chunks, Bt), GRAM_THREADS, 0, st>>>(p);
   cudaError_t err = cudaGetLastError();

@@ -79,34 +79,6 @@ struct Params {
 
 __device__ __forceinline__ float exp2c(float x) { return scan::ex2(fminf(x, CLAMP2)); }
 
-// In place: s[i][c] (64 x 64, row stride LD) holds w; afterwards the inclusive cumsum of
-// log2(max(w, 1e-30)) down each column.  Rows at or past `valid` count as w = 1.  A warp
-// takes 8 columns: lane (rg, cs) sums rows 16rg..16rg+15 of column cs, then a shuffle scan
-// across the four row groups.  The caller synchronises before and after.
-template <int LD>
-__device__ __forceinline__ void log2_cumsum(float* s, int valid, int tid) {
-  const int warp = tid >> 5, lane = tid & 31, rg = lane >> 3, cs = lane & 7;
-#pragma unroll
-  for (int c0 = 0; c0 < D; c0 += 32) {
-    float* col = s + 16 * rg * LD + c0 + 8 * warp + cs;
-    float v[16];
-    float run = 0.f;
-#pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      run += 16 * rg + q < valid ? scan::lg2(fmaxf(col[q * LD], 1e-30f)) : 0.f;
-      v[q] = run;
-    }
-    float incl = run;
-    float o = __shfl_up_sync(0xffffffffu, incl, 8);
-    if (rg >= 1) incl += o;
-    o = __shfl_up_sync(0xffffffffu, incl, 16);
-    if (rg >= 2) incl += o;
-    const float excl = incl - run;
-#pragma unroll
-    for (int q = 0; q < 16; ++q) col[q * LD] = v[q] + excl;
-  }
-}
-
 // ------------------------------------------------------------------ (a) state pass
 
 constexpr int ST_STAGE = 2 * CH * LDK + CH * LDV;    // k, w (then cl), v tile
@@ -159,7 +131,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) wkv6_state_kernel(const Params p)
     scan::cp_async_wait<0>();
     __syncthreads();            // chunk c has landed; every warp is done with chunk c-1
     if (c + 1 < p.n_chunks) load_chunk(c + 1, (c + 1) & 1);
-    log2_cumsum<LDK>(cl_s, p.T - c * CH, tid);
+    scan::log2_cumsum<LDK, NTHREADS>(cl_s, p.T - c * CH, tid);
     __syncthreads();
 
     // S' = 2^cl_last S + kd^T v, kd_jk = k_jk 2^(cl_last,k - cl_jk); A = kd^T [k rows][j]
@@ -223,7 +195,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) wkv6_out_kernel(const Params p) {
   if (tid < D) u_s[tid] = p.u[(long long)h * D + tid];
   scan::cp_async_wait<0>();
   __syncthreads();
-  log2_cumsum<LDR>(cl_s, valid, tid);
+  scan::log2_cumsum<LDR, NTHREADS>(cl_s, valid, tid);
   __syncthreads();
 
   const int i0 = 16 * warp;           // this warp's rows: i0 .. i0+15

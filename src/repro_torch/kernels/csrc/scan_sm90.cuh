@@ -1,5 +1,5 @@
-// Tensor-core building blocks for the fp32 chunked scans (mamba2_ssd.cu, rwkv6_scan.cu)
-// on Hopper (sm_90a): fp32 products on the TF32 tensor cores by mma.sync m16n8k8, split
+// Tensor-core building blocks for the fp32 chunked scans and their backward
+// (mamba2_ssd.cu, rwkv6_scan.cu, *_bwd.cu) on Hopper (sm_90a): fp32 products on the TF32 tensor cores by mma.sync m16n8k8, split
 // 3xTF32; exponentials on the special-function unit; cp.async tile loads.
 // Plain inline PTX; no CUTLASS.
 //
@@ -97,6 +97,64 @@ __device__ __forceinline__ void mma(float (&d)[4], const FragA& a, const FragB& 
   mma_tf32(d, a.lo, b.hi);
   mma_tf32(d, a.hi, b.lo);
   mma_tf32(d, a.hi, b.hi);
+}
+
+// ---------------------------------------------------------------- WKV6 log-decay cumsum
+
+// In place: s[i][c] (64 x 64, row stride LD) holds w; afterwards the inclusive cumsum of
+// log2(max(w, 1e-30)) down each column.  Rows at or past `valid` count as w = 1.  A warp
+// takes 8 columns at a time: lane (rg, cs) sums rows 16rg..16rg+15 of column cs, then a
+// shuffle scan across the four row groups.  The caller synchronises before and after.
+template <int LD, int NTHREADS>
+__device__ __forceinline__ void log2_cumsum(float* s, int valid, int tid) {
+  const int warp = tid >> 5, lane = tid & 31, rg = lane >> 3, cs = lane & 7;
+#pragma unroll
+  for (int c0 = 0; c0 < 64; c0 += 8 * (NTHREADS / 32)) {
+    float* col = s + 16 * rg * LD + c0 + 8 * warp + cs;
+    float v[16];
+    float run = 0.f;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      run += 16 * rg + q < valid ? lg2(fmaxf(col[q * LD], 1e-30f)) : 0.f;
+      v[q] = run;
+    }
+    float incl = run;
+    float o = __shfl_up_sync(0xffffffffu, incl, 8);
+    if (rg >= 1) incl += o;
+    o = __shfl_up_sync(0xffffffffu, incl, 16);
+    if (rg >= 2) incl += o;
+    const float excl = incl - run;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) col[q * LD] = v[q] + excl;
+  }
+}
+
+// ---------------------------------------------------------------- generic warp product
+
+// A warp's C[16 x 8 NT] += A[16 x K] B[K x 8 NT] (3xTF32), its operands read through
+// a(m, k) and b(k, n); K % 8 == 0.  Accumulator slot q of tile nt holds C[m][n] with
+// m = g + 8 (q >> 1), n = 8 nt + 2 t + (q & 1).  The backward kernels build their
+// products from it (the forwards hand-place their fragments).
+template <int NT, int K, typename FA, typename FB>
+__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], FA a, FB b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const FragA fa = frag_a(a(g, k0 + t), a(g + 8, k0 + t), a(g, k0 + t + 4), a(g + 8, k0 + t + 4));
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      mma(acc[nt], fa, frag_b(b(k0 + t, 8 * nt + g), b(k0 + t + 4, 8 * nt + g)));
+  }
+}
+
+// Calls f(m, n, value) for every element of a warp_gemm accumulator.
+template <int NT, typename F>
+__device__ __forceinline__ void for_each_acc(const float (&acc)[NT][4], F f) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f(g + 8 * (q >> 1), 8 * nt + 2 * t + (q & 1), acc[nt][q]);
 }
 
 // ---------------------------------------------------------------- cp.async

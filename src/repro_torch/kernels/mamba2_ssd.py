@@ -1,4 +1,5 @@
-"""Hand-written CUDA Mamba2 SSD scan for Hopper (``csrc/mamba2_ssd.cu``).
+"""Hand-written CUDA Mamba2 SSD scan for Hopper, forward (``csrc/mamba2_ssd.cu``)
+and backward (``csrc/mamba2_ssd_bwd.cu``).
 
 Replaces the TPU kernel ``repro.kernels.mamba2_ssd.ssd_fwd`` and, unlike
 it, takes the initial state and returns the final one, as the model's
@@ -9,26 +10,34 @@ outputs and the workspace (C B^T per batch and chunk), launches on PyTorch's
 current stream and counts its launches in ``ssd_fwd.launches``: one a call,
 though a call runs two CUDA kernels.  It takes CUDA tensors only: the plain
 version is ``ref.mamba2_ssd``.
+
+``ssd_bwd`` is the backward (its plain version ``ref.mamba2_ssd_bwd``), which
+reads the state at every 64 rows that the forward writes when asked, and
+``SSD`` the autograd function that joins the two; ``ssd_bwd.launches``
+counts its calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import _build
+from .rwkv6_scan import aligned
 
 SHAPES = ((64, 64),)  # (P, N), the compiled head and state sizes
 CHUNKS = (128,)
+STATE_ROWS = 64       # rows between the chunk states the forward keeps for the backward
 
 
 @functools.cache
 def _kernel():
     lib = _build.load("mamba2_ssd")
     fn = lib.ssd_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     lib.ssd_workspace_floats.argtypes = [ctypes.c_int] * 2
     lib.ssd_workspace_floats.restype = ctypes.c_longlong
@@ -37,58 +46,147 @@ def _kernel():
     return fn, lib.ssd_workspace_floats, lib.ssd_error_string
 
 
-def _check(x, dt, A, B, C, state, chunk: int) -> None:
-    ts = (x, dt, A, B, C, state)
+@functools.cache
+def _bwd_kernel():
+    lib = _build.load("mamba2_ssd_bwd")
+    fn = lib.ssd_bwd
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    lib.ssd_bwd_workspace_floats.argtypes = [ctypes.c_int] * 3
+    lib.ssd_bwd_workspace_floats.restype = ctypes.c_longlong
+    lib.ssd_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_bwd_error_string.restype = ctypes.c_char_p
+    return fn, lib.ssd_bwd_workspace_floats, lib.ssd_bwd_error_string
+
+
+def _check(x, dt, A, B, C, state, chunk: int, name: str = "ssd_fwd", dy=None,
+           ds_out=None) -> None:
+    """The forward's inputs, or with ``dy`` the backward's: then ``state`` is the
+    forward's chunk states [Bt, ceil(T / STATE_ROWS), H, P, N] and ``ds_out``
+    may be None."""
+    ts = tuple(a for a in (x, dt, A, B, C, state, dy, ds_out) if a is not None)
     if not (x.is_cuda and all(t.device == x.device for t in ts)):
-        raise ValueError("ssd_fwd takes x, dt, A, B, C, state on one CUDA device; got "
+        raise ValueError(f"{name} takes x, dt, A, B, C, state on one CUDA device; got "
                          f"{[str(t.device) for t in ts]}")
     if any(t.dtype != torch.float32 for t in ts):
-        raise ValueError(f"ssd_fwd takes fp32 tensors; got {[t.dtype for t in ts]}")
+        raise ValueError(f"{name} takes fp32 tensors; got {[t.dtype for t in ts]}")
     if x.dim() != 4 or B.dim() != 3:
         raise ValueError(f"expected x [Bt,T,H,P], B/C [Bt,T,N]; got {tuple(x.shape)}, "
                          f"{tuple(B.shape)}")
     bt, t, h, p = x.shape
     n = B.shape[-1]
+    s_shape = (bt, h, p, n) if dy is None else (bt, -(-t // STATE_ROWS), h, p, n)
     if (dt.shape != (bt, t, h) or A.shape != (h,) or B.shape != (bt, t, n)
-            or C.shape != B.shape or state.shape != (bt, h, p, n)):
+            or C.shape != B.shape or state.shape != s_shape
+            or (dy is not None and dy.shape != x.shape)
+            or (ds_out is not None and ds_out.shape != (bt, h, p, n))):
+        want = "[Bt,H,P,N]" if dy is None else "chunk states [Bt,n,H,P,N]"
         raise ValueError(
-            f"expected x [Bt,T,H,P], dt [Bt,T,H], A [H], B/C [Bt,T,N], state [Bt,H,P,N]; "
-            f"got x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
-            f"B {tuple(B.shape)}, C {tuple(C.shape)}, state {tuple(state.shape)}")
+            f"expected x [Bt,T,H,P], dt [Bt,T,H], A [H], B/C [Bt,T,N], state {want}, "
+            f"dy [Bt,T,H,P], "
+            f"ds_out [Bt,H,P,N]; got x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+            f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
+            f"state {tuple(state.shape)}"
+            + ("" if dy is None else f", dy {tuple(dy.shape)}, ds_out "
+               f"{None if ds_out is None else tuple(ds_out.shape)}"))
     if (p, n) not in SHAPES:
         raise ValueError(f"(P, N) = {(p, n)} not compiled; the kernel takes {SHAPES}")
     if chunk not in CHUNKS:
         raise ValueError(f"chunk {chunk} not compiled; the kernel takes {CHUNKS}")
     if not all(a.is_contiguous() for a in ts):
-        raise ValueError("ssd_fwd takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
     if any(a.data_ptr() % 16 for a in ts):
-        raise ValueError("ssd_fwd takes 16-byte-aligned tensors (cp.async and float2 loads)")
+        raise ValueError(f"{name} takes 16-byte-aligned tensors (cp.async and float2 loads)")
     if x.numel() == 0:
-        raise ValueError("ssd_fwd takes a non-empty sequence")
+        raise ValueError(f"{name} takes a non-empty sequence")
 
 
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-            C: torch.Tensor, state: torch.Tensor, chunk: int = 128):
+            C: torch.Tensor, state: torch.Tensor, chunk: int = 128, *,
+            chunk_states: bool = False):
     """Chunked Mamba2 SSD scan on the card.
 
     x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B, C [Bt,T,N]; state [Bt,H,P,N];
     fp32, contiguous, 16-byte-aligned, (P, N) in ``SHAPES``.  Returns
-    ``y [Bt,T,H,P]`` and the final state ``[Bt,H,P,N]``."""
+    ``y [Bt,T,H,P]`` and the final state ``[Bt,H,P,N]``; with
+    ``chunk_states`` also the state before every ``STATE_ROWS`` rows
+    ``[Bt, ceil(T / STATE_ROWS), H, P, N]``, which ``ssd_bwd`` reads."""
     _check(x, dt, A, B, C, state, chunk)
     bt, t, h, p = x.shape
     y = torch.empty_like(x)
     s_out = torch.empty_like(state)
+    states = (torch.empty((bt, -(-t // STATE_ROWS), *state.shape[1:]), dtype=torch.float32,
+                          device=x.device) if chunk_states else None)
     fn, workspace_floats, err_str = _kernel()
     work = torch.empty(workspace_floats(bt, t), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                state.data_ptr(), y.data_ptr(), s_out.data_ptr(), bt, t, h, p,
+                state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+                0 if states is None else states.data_ptr(), bt, t, h, p,
                 B.shape[-1], chunk, work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_fwd launch failed: cudaError {rc} ({err_str(rc).decode()})")
     ssd_fwd.launches += 1
-    return y, s_out
+    return (y, s_out, states) if chunk_states else (y, s_out)
 
 
 ssd_fwd.launches = 0
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, states: torch.Tensor, dy: torch.Tensor,
+            ds_out: Optional[torch.Tensor] = None, chunk: int = 128):
+    """Gradients of the chunked Mamba2 SSD scan on the card.
+
+    x, dt, A, B, C and chunk as ``ssd_fwd`` took them; ``states`` the chunk
+    states it returned with ``chunk_states=True`` (their first is the initial
+    state); ``dy [Bt,T,H,P]`` the cotangent of y and ``ds_out [Bt,H,P,N]`` that
+    of the final state (``None``: zero, not read).  All fp32, contiguous,
+    16-byte-aligned.  Returns ``dx, ddt, dA, dB, dC, ds0``: dA summed over
+    batch and time, dB and dC over the heads."""
+    _check(x, dt, A, B, C, states, chunk, "ssd_bwd", dy, ds_out)
+    bt, t, h, p = x.shape
+    n = B.shape[-1]
+    dx, ddt, dA, dB, dC = (torch.empty_like(a) for a in (x, dt, A, B, C))
+    ds0 = torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
+    fn, workspace_floats, err_str = _bwd_kernel()
+    work = torch.empty(workspace_floats(bt, t, h), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                states.data_ptr(), dy.data_ptr(), 0 if ds_out is None else ds_out.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                ds0.data_ptr(), bt, t, h, p, n, chunk, work.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_bwd launch failed: cudaError {rc} ({err_str(rc).decode()})")
+    ssd_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, ds0
+
+
+ssd_bwd.launches = 0
+
+
+class SSD(torch.autograd.Function):
+    """The chunked Mamba2 SSD scan on the card, differentiable: the forward is
+    ``ssd_fwd`` (keeping its chunk states when a gradient is wanted), the
+    backward ``ssd_bwd``.  The gradient of the final state may be absent (a
+    loss never reads it); it is then not materialised."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, state, chunk: int = 128):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        if not any(ctx.needs_input_grad):
+            return ssd_fwd(x, dt, A, B, C, state, chunk)
+        y, s_out, states = ssd_fwd(x, dt, A, B, C, state, chunk, chunk_states=True)
+        ctx.save_for_backward(x, dt, A, B, C, states)
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, ds_out):
+        x, dt, A, B, C, states = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else aligned(dy)
+        grads = ssd_bwd(x, dt, A, B, C, states, dy,
+                        None if ds_out is None else aligned(ds_out), ctx.chunk)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)

@@ -13,8 +13,8 @@ import torch
 from . import ref
 from .checksum import checksum as checksum_kernel
 from .flash_attention import FlashAttention
-from .mamba2_ssd import ssd_fwd
-from .rwkv6_scan import wkv6_fwd
+from .mamba2_ssd import SSD
+from .rwkv6_scan import WKV6
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,10 +31,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, state: torch.Tensor, chunk: int = 64):
-    """Chunked RWKV6 WKV recurrence with a state in and out.
+    """Chunked RWKV6 WKV recurrence with a state in and out, differentiable: its
+    backward is the WKV6 backward kernel on the card, autograd through the
+    plain form on the CPU.
     r,k,w [B,T,H,K]; v [B,T,H,V]; u [H,K]; state [B,H,K,V] -> (y, state)."""
     if r.is_cuda:
-        return wkv6_fwd(r, k, v, w, u, state, chunk)
+        return WKV6.apply(r, k, v, w, u, state, chunk)
     if r.device.type == "cpu":
         return ref.rwkv6_chunked(r, k, v, w, u, state, chunk)
     raise ValueError(f"wkv6: no kernel for device {r.device}")
@@ -42,10 +44,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                C: torch.Tensor, state: torch.Tensor, chunk: int = 128):
-    """Chunked Mamba2 SSD scan with a state in and out.
+    """Chunked Mamba2 SSD scan with a state in and out, differentiable: its
+    backward is the SSD backward kernel on the card, autograd through the plain
+    form on the CPU.
     x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B,C [Bt,T,N]; state [Bt,H,P,N] -> (y, state)."""
     if x.is_cuda:
-        return ssd_fwd(x, dt, A, B, C, state, chunk)
+        return SSD.apply(x, dt, A, B, C, state, chunk)
     if x.device.type == "cpu":
         return ref.mamba2_ssd(x, dt, A, B, C, state, chunk)
     raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")

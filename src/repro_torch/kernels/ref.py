@@ -9,7 +9,8 @@ Mirrors ``repro.kernels.ref``:
     (the reference's custom VJP), so ``flash_attention`` is differentiable;
   * the RWKV6 WKV recurrence and the Mamba2 SSD scan, each as its per-step
     oracle (``*_naive``) and its chunked form, with a state in and the final
-    state out;
+    state out, and the chunked forms' backward (``*_bwd``: autograd through
+    them, as the reference's gradients are JAX's autodiff of its own);
   * the positional-weighted checksum, in int64 with every product and sum
     reduced mod 2^32.
 The CPU tests hold these to the JAX functions; ``chip_smoke.py`` holds the
@@ -267,6 +268,24 @@ def rwkv6_chunked(r, k, v, w, u, state, chunk: int = 64):
     return y[:, :t], S
 
 
+def _vjp(fn, inputs, dy, ds_out):
+    """Gradients of every input of ``fn(*inputs) -> (y, final state)`` for the
+    cotangents ``dy`` and ``ds_out`` (``None``: the final state is not read)."""
+    with torch.enable_grad():
+        xs = [a.detach().requires_grad_() for a in inputs]
+        y, s = fn(*xs)
+        outs, cots = ([y, s], [dy, ds_out]) if ds_out is not None else ([y], [dy])
+        return torch.autograd.grad(outs, xs, cots)
+
+
+def rwkv6_chunked_bwd(r, k, v, w, u, state, dy, ds_out=None, chunk: int = 64):
+    """The backward of ``rwkv6_chunked`` by autograd through it: the gradients
+    of r, k, v, w, u and the initial state for the cotangents ``dy`` of y and
+    ``ds_out`` of the final state.  Where w < 1e-30 (the forward's clamp), dw
+    is 0."""
+    return _vjp(lambda *a: rwkv6_chunked(*a, chunk=chunk), (r, k, v, w, u, state), dy, ds_out)
+
+
 # ================================================================ Mamba2 (SSD)
 
 def mamba2_naive(x, dt, A, B, C, state):
@@ -322,6 +341,13 @@ def mamba2_ssd(x, dt, A, B, C, state, chunk: int = 128):
         ys.append(y)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(bt, nt * chunk, h, p)
     return y[:, :t].to(x.dtype), S
+
+
+def mamba2_ssd_bwd(x, dt, A, B, C, state, dy, ds_out=None, chunk: int = 128):
+    """The backward of ``mamba2_ssd`` by autograd through it: the gradients of
+    x, dt, A, B, C and the initial state for the cotangents ``dy`` of y and
+    ``ds_out`` of the final state."""
+    return _vjp(lambda *a: mamba2_ssd(*a, chunk=chunk), (x, dt, A, B, C, state), dy, ds_out)
 
 
 # ================================================================ checksum

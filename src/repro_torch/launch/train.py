@@ -5,22 +5,37 @@ dataset into a volume on a local directory (``--root``; by default a fresh
 temporary directory, removed at exit), trains through ``Trainer`` with
 checkpoints on that volume, and, with ``--crash-at``, injects a crash and
 resumes from the last checkpoint.  The same flags as
-``repro.launch.train``, plus ``--device`` and ``--root``.
+``repro.launch.train``, plus ``--device`` and ``--root``.  Every family
+trains (``--arch rwkv6-1.6b`` and ``--arch zamba2-7b`` through their scans'
+backward kernels on the card).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 from typing import List, Optional
 
 import numpy as np
 
 from ..configs import ARCH_NAMES, get_arch
+from ..configs.base import ArchConfig
 from ..storage.datapipe import ShardReader, ShardWriter
 from ..storage.volume import LocalMount
 from ..train import optimizer as opt
 from ..train.trainer import Trainer, TrainerConfig
+
+
+def reduced_config(arch: str, device: str) -> ArchConfig:
+    """The reduced configuration of ``arch``, as the reference's launchers run it.
+    On the card, the ssm and hybrid families' scan head size (32) and SSD state
+    (16) are raised to 64: the only sizes the WKV6 and SSD kernels are compiled for."""
+    cfg = get_arch(arch).reduced()
+    if device == "cuda" and cfg.family in ("ssm", "hybrid"):
+        cfg = dataclasses.replace(cfg, ssm_head_dim=64,
+                                  ssm_state=64 if cfg.family == "hybrid" else cfg.ssm_state)
+    return cfg
 
 
 def write_dataset(mnt, vocab: int, n_docs: int = 8) -> None:
@@ -35,7 +50,7 @@ def write_dataset(mnt, vocab: int, n_docs: int = 8) -> None:
 
 
 def run(args, root: str) -> Trainer:
-    cfg = get_arch(args.arch).reduced()
+    cfg = reduced_config(args.arch, args.device)
     print(f"arch={cfg.name} (reduced: {cfg.n_layers}L d={cfg.d_model}) on {args.device}, "
           f"volume {root}")
     mnt = LocalMount(root)

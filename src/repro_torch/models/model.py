@@ -3,7 +3,7 @@
     api = get_model(cfg)
     params = api.init(seed, dtype, device)
     logits = api.forward(params, tokens)
-    loss   = api.loss(params, {"tokens", "labels"})       # transformer backbone only
+    loss   = api.loss(params, {"tokens", "labels"})
     logits, cache = api.prefill(params, tokens, smax, kv_dtype)
     logits, cache = api.decode(params, token, cache, cache_len)
     cache_spec    = api.cache_spec(batch, smax, kv_dtype)  # {name: (shape, dtype)}
@@ -28,17 +28,6 @@ import torch
 from ..configs.base import ArchConfig
 from . import rwkv6, transformer, zamba2
 
-_NO_TRAINING = "ROADMAP.md, open item 1.13 (training the ssm and hybrid families)"
-
-
-def _loss_not_ported(cfg: ArchConfig):
-    def loss(params, batch):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported to PyTorch "
-            f"yet (it needs backward kernels for its scans); see {_NO_TRAINING}")
-    return loss
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     cfg: ArchConfig
@@ -57,7 +46,7 @@ def get_model(cfg: ArchConfig) -> ModelApi:
             init=lambda seed=0, dtype=torch.bfloat16, device="cuda":
                 rwkv6.init_params(cfg, seed, dtype, device),
             forward=lambda p, toks: rwkv6.forward(cfg, p, toks)[0],
-            loss=_loss_not_ported(cfg),
+            loss=lambda p, b: rwkv6.loss_fn(cfg, p, b),
             prefill=lambda p, toks, smax=0, kv="bfloat16":
                 rwkv6.prefill(cfg, p, toks, smax, kv),
             decode=lambda p, tok, cache, cache_len:
@@ -70,7 +59,7 @@ def get_model(cfg: ArchConfig) -> ModelApi:
             init=lambda seed=0, dtype=torch.bfloat16, device="cuda":
                 zamba2.init_params(cfg, seed, dtype, device),
             forward=lambda p, toks: zamba2.forward(cfg, p, toks)[0],
-            loss=_loss_not_ported(cfg),
+            loss=lambda p, b: zamba2.loss_fn(cfg, p, b),
             prefill=lambda p, toks, smax, kv="bfloat16":
                 zamba2.prefill(cfg, p, toks, smax, kv),
             decode=lambda p, tok, cache, cache_len:

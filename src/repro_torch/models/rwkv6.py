@@ -4,8 +4,11 @@ Mirrors ``repro.models.rwkv6``: data-dependent token shift (ddlerp with a
 shared low-rank projection), data-dependent per-channel decay
 w_t = exp(-exp(w0 + lora(x_t))), and the same parameter tree with layers
 stacked on [L].  At T > 1 the WKV recurrence goes through ``ops.wkv6``, so
-on the card it runs the hand-written WKV6 kernel; a single decode step
-takes the per-step ``ref.rwkv6_naive``, as the reference does.
+on the card it runs the hand-written WKV6 kernel, and in training its
+backward kernel; a single decode step takes the per-step
+``ref.rwkv6_naive``, as the reference does.  ``loss_fn`` checkpoints each
+layer (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+its scanned block does.
 
 State per layer: tmix shift [B,d], cmix shift [B,d] (both in the compute
 dtype, as the reference returns them, whatever ``state_spec`` says) and
@@ -18,6 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
@@ -146,6 +150,15 @@ def zero_state(cfg: ArchConfig, batch: int, device="cpu") -> State:
             for k, (shape, dt) in state_spec(cfg, batch).items()}
 
 
+def _block(cfg: ArchConfig, lp: Params, h: torch.Tensor, tx: torch.Tensor,
+           cx: torch.Tensor, wkv: torch.Tensor):
+    """One layer: h [B,T,d] and its state in -> (h, tmix shift, cmix shift, wkv state)."""
+    att, tx2, wkv2 = tmix(cfg, lp["tmix"], layers.rms_norm(h, lp["ln1"]), tx.to(h.dtype), wkv)
+    h = h + att
+    ffn, cx2 = cmix(lp["cmix"], layers.rms_norm(h, lp["ln2"]), cx.to(h.dtype))
+    return h + ffn, tx2, cx2, wkv2
+
+
 def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
               state: State = None) -> Tuple[torch.Tensor, State]:
     """tokens [B,T] -> (final hidden [B,T,d], new state)."""
@@ -155,12 +168,8 @@ def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     h = layers.embed(params["emb"], tokens)
     tx, cx, wkv = [], [], []
     for i, lp in enumerate(layers.unstack(params["layers"])):
-        att, tx2, wkv2 = tmix(cfg, lp["tmix"], layers.rms_norm(h, lp["ln1"]),
-                              state["tmix_x"][i].to(h.dtype), state["wkv"][i])
-        h = h + att
-        ffn, cx2 = cmix(lp["cmix"], layers.rms_norm(h, lp["ln2"]),
-                        state["cmix_x"][i].to(h.dtype))
-        h = h + ffn
+        h, tx2, cx2, wkv2 = _block(cfg, lp, h, state["tmix_x"][i], state["cmix_x"][i],
+                                   state["wkv"][i])
         tx.append(tx2)
         cx.append(cx2)
         wkv.append(wkv2)
@@ -173,6 +182,27 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     """tokens [B,T] -> (logits [B,T,V], new state)."""
     h, new_state = _backbone(cfg, params, tokens, state)
     return layers.unembed(params["emb"], h), new_state
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]``, from the zero state.  Differentiable in every parameter
+    leaf; each layer keeps only its input for the backward and runs again
+    inside it."""
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    h = layers.embed(params["emb"], tokens)
+    H = cfg.d_model // cfg.ssm_head_dim
+    shift = h.new_zeros((b, cfg.d_model))
+    wkv = torch.zeros((b, H, cfg.ssm_head_dim, cfg.ssm_head_dim), dtype=torch.float32,
+                      device=tokens.device)
+
+    def block(h, lp):
+        return _block(cfg, lp, h, shift, shift, wkv)[0]
+
+    for lp in layers.unstack(params["layers"]):
+        h = checkpoint(block, h, lp, use_reentrant=False)
+    return layers.cross_entropy(layers.unembed(params["emb"], h), batch["labels"], cfg.vocab)
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,

@@ -8,10 +8,12 @@ tail, the SSD scan, gated RMSNorm, out_proj.
 
 At T > 1 the SSD scan goes through ``ops.mamba2_ssd`` and the shared
 block's attention through ``ops.flash_attention``, so on the card both run
-hand-written kernels (the reference calls ``ref.mamba2_ssd`` and
-``ref.flash_attention`` directly); a single decode step takes the
-per-step ``ref.mamba2_naive`` and ``layers.attention_decode``, as the
-reference does.
+hand-written kernels, forward and, in training, backward (the reference
+calls ``ref.mamba2_ssd`` and ``ref.flash_attention`` directly); a single
+decode step takes the per-step ``ref.mamba2_naive`` and
+``layers.attention_decode``, as the reference does.  ``loss_fn``
+checkpoints each mamba layer and each shared-block site, as the
+reference's ``jax.checkpoint`` does, and keeps no K/V cache.
 
 State: per mamba layer the conv tail [B, din+2N, K-1] (in the compute
 dtype, as the reference returns it) and the fp32 SSD state [B,H,P,N]; per
@@ -25,6 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
@@ -202,6 +205,31 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     """tokens [B,T] -> (logits [B,T,V], new state)."""
     h, new_state = _backbone(cfg, params, tokens, state)
     return layers.unembed(params["emb"], h), new_state
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]``, from the zero state.  Differentiable in every parameter
+    leaf; each mamba layer and each shared-block site keeps only its input for
+    the backward and runs again inside it.  No K/V cache is written."""
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    positions = transformer._positions(b, t, tokens.device)
+    h = layers.embed(params["emb"], tokens)
+    conv = h.new_zeros((b, _din(cfg) + 2 * cfg.ssm_state, CONV_K - 1))
+    ssd = torch.zeros(ssd_state_spec(cfg, b)[1:], dtype=torch.float32, device=tokens.device)
+
+    def mamba_block(h, lp):
+        return h + mamba_layer(cfg, lp, h, conv, ssd)[0]
+
+    def shared_block(h, sp):
+        return _shared_block(cfg, sp, h, positions)[0]
+
+    for i, lp in enumerate(layers.unstack(params["mamba"])):
+        h = checkpoint(mamba_block, h, lp, use_reentrant=False)
+        if (i + 1) % cfg.attn_every == 0:
+            h = checkpoint(shared_block, h, params["shared"], use_reentrant=False)
+    return layers.cross_entropy(layers.unembed(params["emb"], h), batch["labels"], cfg.vocab)
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,

@@ -22,8 +22,8 @@ import torch
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.checksum import checksum as checksum_kernel
 from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
-from repro_torch.kernels.mamba2_ssd import ssd_fwd
-from repro_torch.kernels.rwkv6_scan import wkv6_fwd
+from repro_torch.kernels.mamba2_ssd import ssd_bwd, ssd_fwd
+from repro_torch.kernels.rwkv6_scan import wkv6_bwd, wkv6_fwd
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 SCAN_TOL = 3e-3
@@ -263,16 +263,20 @@ def test_scan_kernel_reruns_are_bit_identical(cuda, scan):
 
 @pytest.mark.cuda
 def test_scan_kernels_run_on_the_tensor_cores(cuda):
-    """Every kernel of both scans issues mma.sync or wgmma (HMMA/HGMMA, TF32) and
-    none spills."""
+    """Every kernel of both scans, forward and backward, that computes products issues
+    mma.sync or wgmma (HMMA/HGMMA, TF32), and none spills (the backward's sums over
+    partials have no products)."""
     for source, kernels in (("rwkv6_scan", ("wkv6_state_kernel", "wkv6_out_kernel")),
-                            ("mamba2_ssd", ("ssd_gram_kernel", "ssd_scan_kernel"))):
+                            ("mamba2_ssd", ("ssd_gram_kernel", "ssd_scan_kernel")),
+                            ("rwkv6_scan_bwd", ("wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel")),
+                            ("mamba2_ssd_bwd", ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel"))):
         counts, usage = _build.sass_counts(source), _build.ptxas_usage(source)
         for kernel in kernels:
             names = [n for n in counts if kernel in n]
             assert names, f"{kernel} not in {source}'s library"
             assert sum(counts[n]["HMMA"] + counts[n]["HGMMA"] for n in names) > 0, kernel
             assert all(usage.get(n, {}).get("spill_stores", 0) == 0 for n in names), usage
+        assert all(u.get("spill_stores", 0) == 0 for u in usage.values()), usage
 
 
 def _offset_copy(x):
@@ -298,6 +302,171 @@ def test_scan_kernels_reject_unaligned_views(cuda, scan):
             kernel(*shifted)
     for got, want in zip(kernel(*xs), plain(*xs)):
         _close(got, want, SCAN_TOL)
+
+
+# ---------------------------------------------------------------- scan backward
+
+SCANS = {"wkv6": (wkv6_fwd, wkv6_bwd, ref.rwkv6_chunked_bwd),
+         "ssd": (ssd_fwd, ssd_bwd, ref.mamba2_ssd_bwd)}
+
+
+def _bwd_case(scan, xs, ds_out=True, seed=0):
+    """The backward kernel's and the plain backward's gradients for random
+    cotangents of y (x's or v's shape) and of the final state (or none)."""
+    fwd, bwd, plain = SCANS[scan]
+    state = xs[5]
+    gen = torch.Generator().manual_seed(seed)
+    dy = torch.randn(xs[2 if scan == "wkv6" else 0].shape, generator=gen).to(state.device)
+    ds = torch.randn(state.shape, generator=gen).to(state.device) * 0.5 if ds_out else None
+    _, _, states = fwd(*xs, chunk_states=True)
+    got = bwd(*xs[:5], states, dy, ds)
+    torch.cuda.synchronize()
+    return got, plain(*xs, dy, ds), (states, dy, ds)
+
+
+def _close_grads(got, want, xs, w_index=None):
+    """Each gradient against the plain one within SCAN_TOL of 1 + |want|; with
+    ``w_index``, that input's gradient as w * dw (strong decays: dw = dlog w / w
+    carries the rounding of dlog w times up to 1e30)."""
+    for i, (a, b, x) in enumerate(zip(got, want, xs)):
+        assert a.shape == x.shape and a.dtype == x.dtype and torch.isfinite(a).all(), i
+        if i == w_index:
+            a, b = a * x, b * x
+        _close(a, b, SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,ds_out", [
+    (2, 1, 2, True), (2, 37, 3, True), (1, 200, 2, True), (2, 128, 3, False),
+    (2, 2048, 32, True),       # rwkv6-1.6b's training shape: B=2, H=32
+    *((2, t, 3, True) for t in (63, 65, 129, 1000)),
+])
+def test_wkv6_bwd_kernel_matches_plain(cuda, b, t, h, ds_out):
+    xs = _wkv6_inputs(80 + t, b, t, h, cuda)
+    got, want, _ = _bwd_case("wkv6", xs, ds_out, seed=t)
+    _close_grads(got, want, xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,ds_out", [
+    (2, 1, 2, True), (2, 37, 3, True), (1, 200, 2, True), (2, 256, 9, False),
+    (2, 2048, 112, True),      # zamba2-7b's training shape: Bt=2, H=112
+    *((2, t, 11, True) for t in (63, 65, 129, 1000)),   # 11 heads: a partial group of 8
+])
+def test_ssd_bwd_kernel_matches_plain(cuda, b, t, h, ds_out):
+    xs = _ssd_inputs(90 + t, b, t, h, cuda)
+    got, want, _ = _bwd_case("ssd", xs, ds_out, seed=t)
+    _close_grads(got, want, xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [64, 300])
+def test_scan_bwd_kernels_with_strong_decays(cuda, t):
+    """dw is exactly 0 where w < 1e-30, the forward's clamp, and w * dw agrees."""
+    xs = _wkv6_strong(100 + t, 2, t, 3, cuda)
+    got, want, _ = _bwd_case("wkv6", xs, seed=t)
+    _close_grads(got, want, xs, w_index=3)
+    clamped = xs[3] < 1e-30
+    assert clamped.any() and (got[3][clamped] == 0).all()
+    xs = _ssd_strong(110 + t, 2, t, 3, cuda)
+    got, want, _ = _bwd_case("ssd", xs, seed=t)
+    _close_grads(got, want, xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["wkv6", "ssd"])
+def test_scan_bwd_kernel_reruns_are_bit_identical(cuda, scan):
+    """No atomics and a fixed order of every sum, the head sums of dB and dC too."""
+    xs = (_wkv6_inputs(120, 2, 1000, 4, cuda) if scan == "wkv6"
+          else _ssd_inputs(121, 2, 1000, 20, cuda))
+    got, _, (states, dy, ds) = _bwd_case(scan, xs)
+    again = SCANS[scan][1](*xs[:5], states, dy, ds)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["wkv6", "ssd"])
+def test_scan_bwd_kernels_reject_what_they_do_not_take(cuda, scan):
+    """Unaligned and strided inputs, a wrong state shape and an uncompiled chunk are
+    refused before a launch; the card stays usable."""
+    xs = (_wkv6_inputs(130, 1, 100, 2, cuda) if scan == "wkv6"
+          else _ssd_inputs(131, 1, 100, 2, cuda))
+    fwd, bwd, plain = SCANS[scan]
+    _, _, states = fwd(*xs, chunk_states=True)
+    dy = torch.randn(xs[0].shape[:3] + (64,), device=cuda)
+    args = [*xs[:5], states, dy]
+    for i in range(len(args)):
+        shifted = list(args)
+        shifted[i] = _offset_copy(args[i])
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            bwd(*shifted)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(*args[:6], dy.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="chunk states"):
+        bwd(*args[:5], states[:, :1], dy)
+    with pytest.raises(ValueError, match="chunk"):
+        bwd(*args, None, 32)
+    with pytest.raises(ValueError, match="fp32"):
+        bwd(*args[:6], dy.double())
+    for a, b in zip(bwd(*args), plain(*xs, dy)):
+        _close(a, b, SCAN_TOL)
+
+
+@pytest.mark.cuda
+def test_scan_ops_backward_on_cuda_launch_their_kernels(cuda, monkeypatch):
+    """Autograd through ops.wkv6 / ops.mamba2_ssd on the card: one forward and one
+    backward launch each, a strided incoming gradient made aligned, no gradient for
+    an initial state that does not need one, and the final state's unread."""
+    for fn in (wkv6_fwd, wkv6_bwd, ssd_fwd, ssd_bwd):
+        monkeypatch.setattr(fn, "launches", 0)
+    for op, plain, xs in ((ops.wkv6, ref.rwkv6_chunked, _wkv6_inputs(140, 2, 150, 3, cuda)),
+                          (ops.mamba2_ssd, ref.mamba2_ssd, _ssd_inputs(141, 2, 150, 3, cuda))):
+        leaves = [x.clone().requires_grad_() for x in xs[:5]]
+        y, _ = op(*leaves, xs[5])
+        co = torch.randn(y.shape[:2] + (y.shape[3], y.shape[2]), device=cuda).transpose(2, 3)
+        got = torch.autograd.grad((y * co).sum(), leaves)
+        cpu = [x.detach().cpu().requires_grad_() for x in xs[:5]]
+        want = torch.autograd.grad((plain(*cpu, xs[5].cpu())[0] * co.cpu()).sum(), cpu)
+        for a, b in zip(got, want):
+            _close(a.cpu(), b, SCAN_TOL)
+    assert (wkv6_fwd.launches, wkv6_bwd.launches, ssd_fwd.launches, ssd_bwd.launches) == (1,) * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_ssm_and_hybrid_loss_and_grads_on_cuda(cuda, arch, monkeypatch):
+    """fp32 reduced rwkv6 / zamba2 at the kernels' head size of 64 (zamba2 with 7
+    layers: a tail after its 3 sites): the loss and every gradient leaf on the card
+    (scans forward twice a layer with the recompute, backward once) within 2e-3 of
+    their largest value against the CPU's plain path."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt
+    cfg = get_arch(arch).reduced()
+    cfg = dataclasses.replace(cfg, d_model=256, ssm_head_dim=64,
+                              **({"ssm_state": 64, "n_layers": 7} if arch == "zamba2-7b" else {}))
+    api = get_model(cfg)
+    params = api.init(0, torch.float32, cuda)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (2, 161), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    fwd, bwd = (wkv6_fwd, wkv6_bwd) if arch == "rwkv6-1.6b" else (ssd_fwd, ssd_bwd)
+    monkeypatch.setattr(fwd, "launches", 0)
+    monkeypatch.setattr(bwd, "launches", 0)
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        pairs = [(path, p.detach().to(dev).requires_grad_())
+                 for path, p in opt.flatten_with_paths(params)]
+        loss = api.loss(opt.unflatten(pairs), {k: v.to(dev) for k, v in batch.items()})
+        results.append((loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(
+            loss, [p for _, p in pairs])]))
+    assert (fwd.launches, bwd.launches) == (2 * cfg.n_layers, cfg.n_layers)
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    _close(loss_k, loss_p, 1e-4)
+    for a, b in zip(grads_k, grads_p):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max().clamp(min=1e-30))
 
 
 # ---------------------------------------------------------------- flash backward
@@ -462,6 +631,40 @@ def test_trainer_crash_and_resume_on_cuda_is_bit_exact(cuda, tmp_path, monkeypat
     assert resumed.step == 5
     assert _state_equal(resumed.state_tree(), whole.state_tree())
     assert resumed.history == whole.history[2:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "rwkv6-1.6b", "zamba2-7b"])
+def test_launch_train_crash_and_resume_on_cuda(cuda, tmp_path, capsys, arch, monkeypatch):
+    """The training launcher on the card, every family: a crash after step 3 and a
+    resume from the step-2 checkpoint match a straight run bit for bit (rwkv6 and
+    zamba2 train through the scans' backward kernels, at their head size of 64;
+    5 steps straight, 3 crashed and 3 resumed: 11 backward launches a layer)."""
+    from repro_torch.launch import train as launch_train
+    for fn in (wkv6_bwd, ssd_bwd):
+        monkeypatch.setattr(fn, "launches", 0)
+    common = ["--device", "cuda", "--steps", "5", "--ckpt-every", "2", "--seq", "64",
+              "--arch", arch]
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    whole = launch_train.main(common + ["--root", str(tmp_path / "a")])
+    resumed = launch_train.main(common + ["--root", str(tmp_path / "b"), "--crash-at", "3"])
+    out = capsys.readouterr().out
+    assert "injected trainer crash at step 3" in out and "resumed at step 2" in out
+    assert resumed.history == whole.history[2:]
+    assert _state_equal(resumed.state_tree(), whole.state_tree())
+    L = whole.cfg.n_layers
+    assert (wkv6_bwd.launches, ssd_bwd.launches) == {
+        "minicpm-2b": (0, 0), "rwkv6-1.6b": (11 * L, 0), "zamba2-7b": (0, 11 * L)}[arch]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_launch_serve_ssm_and_hybrid_on_cuda(cuda, capsys, arch):
+    from repro_torch.launch import serve as launch_serve
+    launch_serve.main(["--device", "cuda", "--arch", arch, "--requests", "3",
+                       "--max-new", "3"])
+    assert "served 3 requests" in capsys.readouterr().out
 
 
 @pytest.mark.cuda

@@ -10,6 +10,7 @@ test_torch_cuda.py.  Tolerance 3e-3, the JAX package's fp32 tolerance for
 these scans.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -161,3 +162,72 @@ def test_ops_on_cpu_is_the_plain_chunked_form():
     for got, want in zip(ops.mamba2_ssd(x, dt, A, B, C, s, chunk=16),
                          tref.mamba2_ssd(x, dt, A, B, C, s, chunk=16)):
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------- backward
+
+def _cotangents(seed, y_shape, s_shape):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal(y_shape, dtype=np.float32),
+            rng.standard_normal(s_shape, dtype=np.float32) * 0.5)
+    return tuple(map(jnp.asarray, arrs)), tuple(map(torch.from_numpy, arrs))
+
+
+def _close_grad(got, want, tol=TOL):
+    """|got - want| <= tol * (1 + |want|) elementwise: the measure of chip_smoke.py's
+    _scan_errors for the kernels."""
+    got, want = got.numpy(), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = np.abs(got - want) / (1 + np.abs(want))
+    assert float(err.max(initial=0.0)) <= tol, float(err.max())
+
+
+@pytest.mark.parametrize("t,chunk,strong", [(64, 16, False), (100, 32, False),
+                                            (37, 64, False), (100, 32, True), (17, 64, True)])
+def test_plain_rwkv6_chunked_bwd_matches_jax_vjp(t, chunk, strong):
+    """Every input's gradient from a nonzero initial state, for random cotangents of y
+    and of the final state.  With strong decays, dw = dlog(w) / w multiplies the fp32
+    rounding of dlog(w)'s cancelling sums by up to 1e30 wherever w is tiny, in JAX's
+    autodiff as in torch's, so dw is held as w * dw there (the gradient of log w, which
+    is well conditioned), and must be exactly 0 where the clamp at 1e-30 bites."""
+    (jr, jk, jv, jw, ju, js), (r, k, v, w, u, s) = (
+        _wkv6_strong(500 + t, t) if strong else _wkv6_inputs(500 + t, t))
+    (jdy, jds), (dy, ds) = _cotangents(600 + t, tuple(r.shape), tuple(s.shape))
+    _, vjp = jax.vjp(lambda *a: jref.rwkv6_chunked(*a, chunk=chunk), jr, jk, jv, jw, ju, js)
+    want = vjp((jdy, jds))
+    got = tref.rwkv6_chunked_bwd(r, k, v, w, u, s, dy, ds, chunk=chunk)
+    for name, g, wnt in zip("r k v w u s".split(), got, want):
+        assert torch.isfinite(g).all(), name
+        if name == "w" and strong:
+            _close_grad(g * w, np.asarray(wnt) * np.asarray(jw))
+        else:
+            _close_grad(g, wnt)
+    if strong:
+        clamped = w < 1e-30
+        assert clamped.any() and (got[3][clamped] == 0).all()
+        assert (np.asarray(want[3])[clamped.numpy()] == 0).all()
+    # no cotangent for the final state: the gradients through y alone
+    _, vjp_y = jax.vjp(lambda *a: jref.rwkv6_chunked(*a, chunk=chunk)[0], jr, jk, jv, jw, ju, js)
+    for g, wnt in zip(tref.rwkv6_chunked_bwd(r, k, v, w, u, s, dy, None, chunk=chunk)[:3],
+                      vjp_y(jdy)[:3]):
+        _close_grad(g, wnt)
+
+
+@pytest.mark.parametrize("t,chunk,strong", [(64, 16, False), (100, 32, False),
+                                            (20, 128, False), (100, 32, True), (17, 128, True)])
+def test_plain_mamba2_ssd_bwd_matches_jax_vjp(t, chunk, strong):
+    """Every input's gradient (dA summed over batch and time, dB and dC over the heads)
+    from a nonzero initial state, for random cotangents of y and of the final state;
+    ``strong``: decays that underflow within a chunk."""
+    (jx, jdt, jA, jB, jC, js), (x, dt, A, B, C, s) = (
+        _ssd_strong(700 + t, t) if strong else _ssd_inputs(700 + t, t))
+    (jdy, jds), (dy, ds) = _cotangents(800 + t, tuple(x.shape), tuple(s.shape))
+    _, vjp = jax.vjp(lambda *a: jref.mamba2_ssd(*a, chunk=chunk), jx, jdt, jA, jB, jC, js)
+    got = tref.mamba2_ssd_bwd(x, dt, A, B, C, s, dy, ds, chunk=chunk)
+    for g, wnt in zip(got, vjp((jdy, jds))):
+        assert torch.isfinite(g).all()
+        _close_grad(g, wnt)
+    _, vjp_y = jax.vjp(lambda *a: jref.mamba2_ssd(*a, chunk=chunk)[0], jx, jdt, jA, jB, jC, js)
+    for g, wnt in zip(tref.mamba2_ssd_bwd(x, dt, A, B, C, s, dy, None, chunk=chunk),
+                      vjp_y(jdy)):
+        _close_grad(g, wnt)

@@ -1,7 +1,7 @@
 """The port's training path against the JAX package, on the CPU.
 
-Flash backward, cross-entropy, the dense loss and its gradients, the
-optimizer and the train step.  The same numpy inputs (and JAX-initialised
+Flash backward, cross-entropy, the loss and its gradients (dense, rwkv6 and
+zamba2), the optimizer and the train step.  The same numpy inputs (and JAX-initialised
 fp32 parameters, carried across with ``repro_torch.interop``) go through
 both packages.  Everything here is fp32, so only the order of summation
 differs; the tolerances are stated beside each check.
@@ -19,14 +19,16 @@ from repro.configs import get_arch
 from repro.kernels import ref as jref
 from repro.models import get_model as jax_model
 from repro.models import layers as jax_layers
+from repro.models import rwkv6 as jax_rwkv6
 from repro.models import transformer as jax_transformer
+from repro.models import zamba2 as jax_zamba2
 from repro.train import optimizer as jopt
 from repro.train.train_step import make_train_step as jax_make_train_step
 from repro_torch import interop
 from repro_torch.configs import get_arch as torch_get_arch
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.models import get_model, layers, transformer
+from repro_torch.models import get_model, layers
 from repro_torch.train import optimizer as topt
 from repro_torch.train.train_step import make_eval_step, make_train_step
 
@@ -173,8 +175,13 @@ def test_cross_entropy_grad_keeps_the_reference_max_term():
 
 # ---------------------------------------------------------------- loss and grads
 
-def _model(arch):
-    cfg = get_arch(arch).reduced()
+def _model(arch, n_layers=None):
+    """Reduced configs of both packages (``n_layers`` replaced if given), JAX-initialised
+    fp32 params and their torch copy, and one batch."""
+    cfg, tcfg = get_arch(arch).reduced(), torch_get_arch(arch).reduced()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        tcfg = dataclasses.replace(tcfg, n_layers=n_layers)
     jp = jax_model(cfg).init(jax.random.PRNGKey(0), jnp.float32)
     tp = interop.to_torch(jax.tree.map(np.asarray, jp), "cpu")
     rng = np.random.default_rng(5)
@@ -182,29 +189,43 @@ def _model(arch):
     batch_np = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     batch_t = {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch_np.items()}
     batch_j = {k: jnp.asarray(v) for k, v in batch_np.items()}
-    return cfg, torch_get_arch(arch).reduced(), jp, tp, batch_j, batch_t
+    return cfg, tcfg, jp, tp, batch_j, batch_t
+
+
+def _jax_logits(cfg, p, tokens, remat):
+    """The reference's training forward, with or without ``jax.checkpoint``."""
+    if cfg.family == "ssm":
+        return jax_rwkv6.forward(cfg, p, tokens, remat=remat)[0]
+    if cfg.family == "hybrid":
+        return jax_zamba2.forward(cfg, p, tokens, remat=remat)[0]
+    return jax_transformer.forward(cfg, p, tokens, remat=remat)
 
 
 def _path_name(path):
     return tuple(str(p.key) for p in path)
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "codeqwen1.5-7b"])
+@pytest.mark.parametrize("arch,n_layers", [
+    ("minicpm-2b", None), ("codeqwen1.5-7b", None), ("rwkv6-1.6b", None), ("zamba2-7b", None),
+    ("zamba2-7b", 5),      # two shared-block sites and one mamba layer after the last
+])
 @pytest.mark.parametrize("remat", [True, False])
-def test_loss_and_grads_match_jax(arch, remat):
-    """The port's one path (every layer checkpointed) against JAX's loss and
-    grads with and without ``jax.checkpoint`` on the scanned block."""
-    jcfg, tcfg, jp, tp, batch_j, batch_t = _model(arch)
+def test_loss_and_grads_match_jax(arch, n_layers, remat):
+    """The port's one path (every layer checkpointed; for zamba2 every mamba layer
+    and every shared-block site) against JAX's loss and grads with and without
+    ``jax.checkpoint``.  rwkv6's and zamba2's scans take their plain chunked forms
+    on the CPU, differentiated by autograd as JAX differentiates the reference's."""
+    jcfg, tcfg, jp, tp, batch_j, batch_t = _model(arch, n_layers)
 
     def jloss(p):
-        logits = jax_transformer.forward(jcfg, p, batch_j["tokens"], remat=remat)
+        logits = _jax_logits(jcfg, p, batch_j["tokens"], remat)
         return jax_layers.cross_entropy(logits, batch_j["labels"], jcfg.vocab)
 
     j_loss, j_grads = jax.value_and_grad(jloss)(jp)
     np.testing.assert_allclose(float(jax_model(jcfg).loss(jp, batch_j)), float(j_loss),
                                rtol=1e-6)
     pairs = [(path, p.requires_grad_()) for path, p in topt.flatten_with_paths(tp)]
-    loss = transformer.loss_fn(tcfg, topt.unflatten(pairs), batch_t)
+    loss = get_model(tcfg).loss(topt.unflatten(pairs), batch_t)
     grads = torch.autograd.grad(loss, [p for _, p in pairs])
     np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-5)
     j_flat = {_path_name(path): g for path, g in jax.tree_util.tree_flatten_with_path(j_grads)[0]}
@@ -213,13 +234,6 @@ def test_loss_and_grads_match_jax(arch, remat):
         assert g.shape == j_flat[path].shape, path
         _close_to_max(g, j_flat[path], 1e-4)
     assert np.isclose(float(get_model(tcfg).loss(tp, batch_t)), float(j_loss), rtol=1e-5)
-
-
-def test_ssm_and_hybrid_loss_is_not_ported_yet():
-    for arch in ("rwkv6-1.6b", "zamba2-7b"):
-        api = get_model(torch_get_arch(arch).reduced())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.loss({}, {})
 
 
 # ---------------------------------------------------------------- optimizer
@@ -300,11 +314,22 @@ def test_adamw_update_matches_jax(moment, master):
 
 # ---------------------------------------------------------------- train step
 
-def test_three_train_steps_match_jax():
+# per arch (see test_three_train_steps_match_jax): the moments' tolerance (of the
+# leaf's largest value); the part of the learning rate summed over the steps taken
+# that a moved element may differ by on top of 1e-5 of its leaf's largest value;
+# and the part of it that an exempt element may differ by
+STEP_TOL = {"minicpm-2b": (1e-5, 0.0, 0.05), "rwkv6-1.6b": (5e-5, 2e-4, 0.25),
+            "zamba2-7b": (5e-5, 2e-4, 0.25)}
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "rwkv6-1.6b", "zamba2-7b"])
+def test_three_train_steps_match_jax(arch):
     """Reduced minicpm-2b (WSD, depth-scaled residual, tied embeddings) with
-    fp32 master weights: step, metrics, moments, params and master weights
-    after each of 3 steps of ``make_train_step`` against the JAX one under
-    ``jax.jit``, within 1e-5 (relative, or of the leaf's largest value).
+    fp32 master weights, reduced rwkv6-1.6b and zamba2-7b (cosine, their scans'
+    backward through the plain chunked forms): step, metrics, moments, params
+    and master weights (where kept) after each of 3 steps of
+    ``make_train_step`` against the JAX one under ``jax.jit``, within 1e-5
+    (relative, or of the leaf's largest value).
 
     One set of elements is exempt from 1e-5: those whose gradient fell below
     1e-5 of its leaf's largest at some step taken (about 0.1% of them).
@@ -316,11 +341,24 @@ def test_three_train_steps_match_jax():
     at most 2.1% of one step's lr).  Every other element is held to 1e-5 of
     its leaf's largest value (measured: at most 8.7e-6), at least five times
     under one step's weight decay (lr * 0.1 * |w|) on the leaf's largest
-    weights, so a missing or misplaced decay fails."""
-    jcfg, tcfg, jp, tp, batch_j, batch_t = _model("minicpm-2b")
+    weights, so a missing or misplaced decay fails.
+
+    rwkv6's and zamba2's gradients agree to about 2e-5 of their leaf's largest
+    (their scans sum in other orders), so their moments are held to 5e-5 of it
+    (measured: at most 1.7e-5).  They have leaves that start constant (the
+    token-shift mixes maa_*, conv_b, A_log): their largest value is itself a
+    few steps, so 1e-5 of it is 1e-5 of one step.  Their moved elements also
+    get 2e-4 of the summed lr (measured: at most 7.9e-5 of it beyond 1e-5 of
+    the leaf, zamba2's conv_b; a missing decay, 1e-4 of a weight a step, still
+    fails on the leaves of random weights), and the exempt ones 25% of it
+    (measured: 10.6%, zamba2's emb.out: an element whose gradient is near
+    Adam's eps moves by about lr * g / eps, noise and all)."""
+    jcfg, tcfg, jp, tp, batch_j, batch_t = _model(arch)
+    moment_tol, moved_tol, exempt_tol = STEP_TOL[arch]
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=20)
     joc, toc = jopt.opt_config_for(jcfg, **kw), topt.opt_config_for(tcfg, **kw)
-    assert toc.master_weights and toc.schedule == "wsd"
+    assert (toc.schedule, toc.master_weights) == (joc.schedule, joc.master_weights)
+    assert arch != "minicpm-2b" or (toc.master_weights and toc.schedule == "wsd")
     j_step = jax.jit(jax_make_train_step(jcfg, joc))
     j_grad = jax.jit(jax.grad(jax_model(jcfg).loss))
     t_step = make_train_step(tcfg, toc)
@@ -339,15 +377,17 @@ def test_three_train_steps_match_jax():
         lr_sum += float(jm["lr"])
         for got_tree, want_tree, moved in ((tp, jp, True), (ts.mu, js.mu, False),
                                            (ts.nu, js.nu, False),
-                                           (ts.master, js.master, True)):
+                                           (ts.master, js.master, True))[:4 if js.master else 3]:
             want = {_path_name(p): x for p, x in
                     jax.tree_util.tree_flatten_with_path(want_tree)[0]}
             for path, got in topt.flatten_with_paths(got_tree):
                 w = np.asarray(want[path])
                 err = np.abs(_np(got) - w)
                 exempt = tiny[path] if moved else np.zeros_like(tiny[path])
-                assert float(err[~exempt].max(initial=0.0)) <= 1e-5 * float(np.abs(w).max()), path
-                assert float(err[exempt].max(initial=0.0)) <= 0.05 * lr_sum, path
+                bound = (1e-5 * float(np.abs(w).max()) + moved_tol * lr_sum if moved
+                         else moment_tol * float(np.abs(w).max()))
+                assert float(err[~exempt].max(initial=0.0)) <= bound, path
+                assert float(err[exempt].max(initial=0.0)) <= exempt_tol * lr_sum, path
     assert all(not p.requires_grad and p.grad is None for _, p in topt.flatten_with_paths(tp))
     np.testing.assert_allclose(float(make_eval_step(tcfg)(tp, batch_t)),
                                float(jax_model(jcfg).loss(jp, batch_j)), rtol=1e-5)

@@ -81,17 +81,22 @@ def test_state_tree_is_the_reference_tree(tmp_path):
     assert TrainerConfig().micro_batches == 1     # a field nothing reads, as in the reference
 
 
-def test_launch_train_crash_and_resume_on_cpu(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ["minicpm-2b", "rwkv6-1.6b", "zamba2-7b"])
+def test_launch_train_crash_and_resume_on_cpu(tmp_path, capsys, arch):
     """``--crash-at 3`` with ``--ckpt-every 2``: the run crashes after step 3,
     resumes from the step-2 checkpoint and finishes; steps 3 to 6 and the
-    final params match an uninterrupted run bit for bit."""
+    final params match an uninterrupted run bit for bit.  The default arch, and
+    the ssm and hybrid families, whose scans' backward runs here through their
+    plain chunked forms."""
     (tmp_path / "a").mkdir()
     (tmp_path / "b").mkdir()
-    common = ["--device", "cpu", "--steps", "6", "--ckpt-every", "2", "--seq", "16"]
+    common = ["--device", "cpu", "--steps", "6", "--ckpt-every", "2", "--seq", "16",
+              "--arch", arch]
     whole = launch_train.main(common + ["--root", str(tmp_path / "a")])
     capsys.readouterr()
     resumed = launch_train.main(common + ["--root", str(tmp_path / "b"), "--crash-at", "3"])
     out = capsys.readouterr().out
+    assert f"arch={arch}" in out
     assert "injected trainer crash at step 3" in out and "resumed at step 2" in out
     assert "checkpoints on volume: [4, 6]" in out
     assert resumed.step == whole.step == 6
@@ -113,3 +118,21 @@ def test_cuda_trainer_without_a_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.main(["--root", str(tmp_path), "--steps", "1"])
+
+
+def test_reduced_config_takes_the_scan_kernels_sizes_on_the_card():
+    """On the CPU the launchers run the reference's reduced configs; on the card the
+    ssm and hybrid families' scan head size and SSD state become 64, the sizes the
+    WKV6 and SSD kernels are compiled for, and nothing else changes."""
+    import dataclasses
+    from repro_torch.configs import ARCH_NAMES
+    for arch in ARCH_NAMES:
+        reduced = torch_get_arch(arch).reduced()
+        assert launch_train.reduced_config(arch, "cpu") == reduced
+        on_card = launch_train.reduced_config(arch, "cuda")
+        if reduced.family == "ssm":
+            assert on_card == dataclasses.replace(reduced, ssm_head_dim=64)
+        elif reduced.family == "hybrid":
+            assert on_card == dataclasses.replace(reduced, ssm_head_dim=64, ssm_state=64)
+        else:
+            assert on_card == reduced
