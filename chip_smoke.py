@@ -24,7 +24,10 @@ Phases, each fatal on failure:
       plain backward (autograd through the chunked forms), with a nonzero
       initial state and final-state cotangent, a ragged T and strong decays
       (WKV6's dw exactly 0 where w < 1e-30), each with its time, the plain
-      version's, one library call's where there is one, and its bound;
+      version's, one library call's where there is one, and its bound; for the
+      scans' backward also each CUDA kernel's device time (profiler), threads,
+      shared memory a block and blocks an SM, and the workspace's bytes beside
+      the I/O bound;
   (d) serving, one model after another, each at full published width with
       random bf16 weights from a seed: codeqwen1.5-7b, zamba2-7b and
       rwkv6-1.6b each serve 8 requests through ``BatchServer``.  Every
@@ -74,6 +77,7 @@ Phases, each fatal on failure:
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -314,17 +318,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device time of ``fn``'s kernels per call (torch.profiler), without the
-    host's work between them."""
+def _kernel_name(key: str) -> str:
+    return key.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """Device time per call of each CUDA kernel that ``fn`` launches (torch.profiler),
+    without the host's work between them."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / iters / 1e3
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = _kernel_name(e.key)
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters / 1e3
+    return out
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of ``fn``'s kernels per call."""
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def bound(flops: int, nbytes: int, dtype) -> dict:
@@ -515,6 +532,48 @@ def ssd_bwd_work(b, t, h, p, n, chunk):
     return flops * b * h + shared * b, trans * b * h, nbytes
 
 
+# the scans' backward: each wrapper's source and its CUDA kernels, in the order of the
+# source's <name>_occupancy
+SCAN_BWD = {"wkv6_bwd": ("rwkv6_scan_bwd", ("wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel",
+                                            "wkv6_bwd_du_reduce_kernel")),
+            "ssd_bwd": ("mamba2_ssd_bwd", ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel",
+                                           "ssd_bwd_reduce_kernel", "ssd_bwd_dA_reduce_kernel"))}
+
+
+def bwd_occupancy(name: str) -> dict:
+    """Per CUDA kernel of a scan's backward: its threads and dynamic shared memory a block
+    and the blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    source, kernels = SCAN_BWD[name]
+    fn = getattr(_build.load(source), f"{name}_occupancy")
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = {}
+    for i, kernel in enumerate(kernels):
+        vals = [ctypes.c_int() for _ in range(3)]
+        rc = fn(i, *(ctypes.byref(v) for v in vals))
+        if rc:
+            raise RuntimeError(f"{name}_occupancy({i}) failed: cudaError {rc}")
+        out[kernel] = dict(zip(("threads", "smem_bytes", "blocks_per_sm"),
+                               (v.value for v in vals)))
+    return out
+
+
+def bwd_workspace(name: str, b: int, t: int, h: int, d: int = 64) -> dict:
+    """A scan backward's workspace (the size its wrapper allocates) and the bytes it adds
+    to the inputs and outputs: each chunk's state gradient written and read once, the
+    forward's chunk states read once, and the partial sums written and read once (the
+    state is saved every 64 rows, K = V = P = N = d)."""
+    source, _ = SCAN_BWD[name]
+    fn = getattr(_build.load(source), f"{name}_workspace_floats")
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    nc = -(-t // 64)
+    states = 4 * b * nc * h * d * d
+    parts = (4 * b * nc * h * d if name == "wkv6_bwd"
+             else 4 * (2 * b * -(-h // 8) * t * d + b * nc * h))
+    return {"workspace_bytes": 4 * fn(b, t, h), "workspace_traffic_bytes": 3 * states + 2 * parts}
+
+
 def scan_bwd_case(name, fwd, bwd, plain_bwd, inputs, shape, work=None, note=None, seed=0,
                   w_index=None):
     """A scan's backward kernel on the forward kernel's chunk states against the plain
@@ -564,7 +623,13 @@ def scan_bwd_case(name, fwd, bwd, plain_bwd, inputs, shape, work=None, note=None
         flops, trans, nbytes = work
         case.update(bound(flops, nbytes, "tf32"), exps=trans,
                     bound_ms_fp32_cuda_cores=bound(flops, nbytes, torch.float32)["bound_ms"])
-        case["ms"] = cuda_ms(lambda: bwd(*inputs[:5], states, dy, ds), 10)
+        call = lambda: bwd(*inputs[:5], states, dy, ds)
+        case["ms"] = cuda_ms(call, 10)
+        case["sub_kernel_device_ms"] = device_ms_by_kernel(call, 10)
+        case["occupancy"] = bwd_occupancy(name)
+        case.update(bwd_workspace(name, shape.get("B", shape.get("Bt")), shape["T"], shape["H"]))
+        case["bound_ms_with_workspace"] = ((nbytes + case["workspace_traffic_bytes"])
+                                           / HBM_BYTES_S * 1e3)
         case["plain_ms"] = cuda_ms(lambda: plain_bwd(*inputs, dy, ds), 2, warmup=1)
         case["library_ms"] = None     # no single PyTorch call computes the scan's backward
         log(f"  {name} timed {json.dumps(case)}")
@@ -1428,6 +1493,12 @@ def kernel_line(name, source, replaces, case, launches_by_path, **extra):
             "flops": case["flops"], "bytes": case["bytes"], **extra}
 
 
+def _bwd_extra(case) -> dict:
+    keys = ("sub_kernel_device_ms", "occupancy", "workspace_bytes", "workspace_traffic_bytes",
+            "bound_ms_with_workspace")
+    return {k: case[k] for k in keys}
+
+
 def _scan_extra(case, tensor_cores, source) -> dict:
     keys = ("bound_ms_fp32_cuda_cores", "rerun_bit_identical")
     return {**{k: case[k] for k in keys},
@@ -1528,6 +1599,7 @@ def main() -> None:
                     exps=wkv6_bwd_cases["main"]["exps"], library=None,
                     max_rel_err=wkv6_bwd_cases["main"]["max_rel_err"],
                     **_scan_extra(wkv6_bwd_cases["main"], tensor_cores, "rwkv6_scan_bwd"),
+                    **_bwd_extra(wkv6_bwd_cases["main"]),
                     other_cases=wkv6_bwd_cases["others"]),
         kernel_line("ssd_bwd", "src/repro_torch/kernels/csrc/mamba2_ssd_bwd.cu",
                     "src/repro/kernels/ref.py:366", ssd_bwd_cases["main"], by_path("ssd_bwd"),
@@ -1537,6 +1609,7 @@ def main() -> None:
                     exps=ssd_bwd_cases["main"]["exps"], library=None,
                     max_rel_err=ssd_bwd_cases["main"]["max_rel_err"],
                     **_scan_extra(ssd_bwd_cases["main"], tensor_cores, "mamba2_ssd_bwd"),
+                    **_bwd_extra(ssd_bwd_cases["main"]),
                     other_cases=ssd_bwd_cases["others"]),
     ]
     for k in kernels:

@@ -131,23 +131,121 @@ __device__ __forceinline__ void log2_cumsum(float* s, int valid, int tid) {
 
 // ---------------------------------------------------------------- generic warp product
 
-// A warp's C[16 x 8 NT] += A[16 x K] B[K x 8 NT] (3xTF32), its operands read through
-// a(m, k) and b(k, n); K % 8 == 0.  Accumulator slot q of tile nt holds C[m][n] with
-// m = g + 8 (q >> 1), n = 8 nt + 2 t + (q & 1).  The backward kernels build their
-// products from it (the forwards hand-place their fragments).
-template <int NT, int K, typename FA, typename FB>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], FA a, FB b) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four (two) 8 x 8 b16 matrices, read as 8 rows of 4 floats each: lane l gives the address
+// of row l % 8 of matrix l / 8, and receives element (l / 4, l % 4) of each matrix: the
+// layout of an mma.m16n8k8.tf32 fragment.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// A warp's C[16 x 8 NT] += A[16 x K] B[K x 8 NT] (3xTF32) over k in [k_begin, k_end)
+// (multiples of 8) and n-tiles nt < nt_end (a triangular operand's zero blocks are left
+// out this way).  a(k0)
+// gives the A fragment of columns k0 .. k0+7, b(k0, nt) the B fragment of rows k0 .. k0+7
+// and n-tile nt.  Accumulator slot q of tile nt holds C[m][n] with m = g + 8 (q >> 1),
+// n = 8 nt + 2 t + (q & 1).  The backward kernels build their products from it (the
+// forwards hand-place their fragments).
+template <int NT, typename PA, typename PB>
+__device__ __forceinline__ void gemm(float (&acc)[NT][4], const PA& a, const PB& b, int k_begin,
+                                     int k_end, int nt_end = NT) {
 #pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    const FragA fa = frag_a(a(g, k0 + t), a(g + 8, k0 + t), a(g, k0 + t + 4), a(g + 8, k0 + t + 4));
+  for (int k0 = k_begin; k0 < k_end; k0 += 8) {
+    const FragA fa = a(k0);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
-      mma(acc[nt], fa, frag_b(b(k0 + t, 8 * nt + g), b(k0 + t + 4, 8 * nt + g)));
+      if (nt < nt_end) mma(acc[nt], fa, b(k0, nt));
   }
 }
 
-// Calls f(m, n, value) for every element of a warp_gemm accumulator.
+// A operand: rows r0 .. r0+15 of a row-major fp32 tile (row stride ld floats, rows
+// 16-byte aligned), one ldmatrix a fragment; with `scale`, row m is multiplied by scale[m]
+// before the split (xs = x dt formed, and rounded, as the function forms it)
+struct RowsA {
+  const float* p;
+  const float* scale;
+  __device__ RowsA(const float* tile, int ld, int r0, const float* scale_ = nullptr)
+      : scale(scale_) {
+    const int lane = threadIdx.x & 31;
+    p = tile + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 4 * (lane >> 4);
+  }
+  __device__ FragA operator()(int k0) const {
+    uint32_t r[4];
+    ldsm_x4(r, p + k0);
+    float a[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]),
+                  __uint_as_float(r[3])};
+    if (scale) {
+      const int g = (threadIdx.x & 31) >> 2;
+      a[0] *= scale[g], a[1] *= scale[g + 8], a[2] *= scale[g], a[3] *= scale[g + 8];
+    }
+    return frag_a(a[0], a[1], a[2], a[3]);
+  }
+};
+
+// B operand stored transposed, B[k][n] = tile[(n0 + n) * ld + k]: one ldmatrix a fragment;
+// with `scale`, column n is multiplied by scale[n] before the split
+struct ColsB {
+  const float* p;
+  const float* scale;
+  int ld;
+  __device__ ColsB(const float* tile, int ld_, int n0, const float* scale_ = nullptr)
+      : scale(scale_), ld(ld_) {
+    const int lane = threadIdx.x & 31;
+    p = tile + (n0 + (lane & 7)) * ld + 4 * ((lane >> 3) & 1);
+  }
+  __device__ FragB operator()(int k0, int nt) const {
+    uint32_t r[2];
+    ldsm_x2(r, p + 8 * nt * ld + k0);
+    float b0 = __uint_as_float(r[0]), b1 = __uint_as_float(r[1]);
+    if (scale) {
+      const float s = scale[8 * nt + ((threadIdx.x & 31) >> 2)];
+      b0 *= s, b1 *= s;
+    }
+    return frag_b(b0, b1);
+  }
+};
+
+// A and B read element by element through a(m, k) and b(k, n) (elem_a, elem_b)
+template <typename F>
+struct ElemA {
+  F f;
+  __device__ FragA operator()(int k0) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    return frag_a(f(g, k0 + t), f(g + 8, k0 + t), f(g, k0 + t + 4), f(g + 8, k0 + t + 4));
+  }
+};
+template <typename F>
+struct ElemB {
+  F f;
+  __device__ FragB operator()(int k0, int nt) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    return frag_b(f(k0 + t, 8 * nt + g), f(k0 + t + 4, 8 * nt + g));
+  }
+};
+
+template <typename F>
+__device__ __forceinline__ ElemA<F> elem_a(F f) {
+  return {f};
+}
+template <typename F>
+__device__ __forceinline__ ElemB<F> elem_b(F f) {
+  return {f};
+}
+
+// Calls f(m, n, value) for every element of a gemm accumulator.
 template <int NT, typename F>
 __device__ __forceinline__ void for_each_acc(const float (&acc)[NT][4], F f) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -157,11 +255,20 @@ __device__ __forceinline__ void for_each_acc(const float (&acc)[NT][4], F f) {
     for (int q = 0; q < 4; ++q) f(g + 8 * (q >> 1), 8 * nt + 2 * t + (q & 1), acc[nt][q]);
 }
 
-// ---------------------------------------------------------------- cp.async
+// ---------------------------------------------------------------- launch
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// Lets `kernel` take `smem` bytes of dynamic shared memory, with the largest shared-memory
+// carveout, so that as many blocks fit an SM as the bytes allow.
+template <typename K>
+cudaError_t prepare_smem(K kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
+
+// ---------------------------------------------------------------- cp.async
 
 // 16 bytes from global to shared; zeros instead when `in` is false
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {

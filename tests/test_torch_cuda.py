@@ -16,6 +16,8 @@ must be equal bit for bit.  The flash kernels take bf16 on the tensor cores and
 fp32 on the CUDA cores, so each feature is tested in both dtypes.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -277,6 +279,22 @@ def test_scan_kernels_run_on_the_tensor_cores(cuda):
             assert sum(counts[n]["HMMA"] + counts[n]["HGMMA"] for n in names) > 0, kernel
             assert all(usage.get(n, {}).get("spill_stores", 0) == 0 for n in names), usage
         assert all(u.get("spill_stores", 0) == 0 for u in usage.values()), usage
+
+
+@pytest.mark.cuda
+def test_scan_bwd_kernels_hold_their_blocks_per_sm(cuda):
+    """The backward kernels' designs count on their occupancy (``<name>_occupancy`` in
+    each source): both reverse state passes and K4-bwd's chunk pass hold two blocks an SM,
+    K3-bwd's chunk pass, whose head tiles are double-buffered in 230.7 KB, one."""
+    for name, source, blocks in (("wkv6_bwd", "rwkv6_scan_bwd", {0: 2, 1: 2}),
+                                 ("ssd_bwd", "mamba2_ssd_bwd", {0: 2, 1: 1})):
+        fn = getattr(_build.load(source), f"{name}_occupancy")
+        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = ctypes.c_int
+        for kernel, want in blocks.items():
+            vals = [ctypes.c_int() for _ in range(3)]
+            assert fn(kernel, *(ctypes.byref(v) for v in vals)) == 0
+            assert vals[2].value >= want, (name, kernel, [v.value for v in vals])
 
 
 def _offset_copy(x):
