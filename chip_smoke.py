@@ -68,10 +68,30 @@ Phases, each fatal on failure:
       layer, with the recompute) and K4-bwd/K3-bwd backward (once), zamba2's
       shared block K1 and K1-bwd at hd 112; the launch counts checked per step,
       and the kernel path against the plain one at ``SSM_CHECK_LAYERS`` layers;
+  (j) the mesh paths (``repro_torch.parallel``), on a world of one NCCL rank
+      joined through a rendezvous file and a 1 x 1 ("data", "model") mesh:
+      (j1) after (g), (g)'s minicpm-2b (full width, ``TRAINER_LAYERS`` layers,
+      bf16 params, fp32 master weights and moments, (f)'s batches) takes 3
+      steps of ``make_train_step`` on DTensor params and optimizer state
+      placed by ``param_shardings``/``opt_shardings``, then 3 steps without a
+      mesh from the same weights: the flash kernels' launches per step, every
+      leaf after 2 steps bit for bit by K2 digests (or within ``TRAIN_TOL``),
+      each path's step ms, and one more step of each under torch.profiler;
+      (j2) in (h), on its weights and after its checks, one prefill wave
+      through the expert-parallel ``moe_block_shard_map`` (8 experts a
+      rank) against the local dispatch in groups = dp = 1, on shared expert
+      choices (``SERVE_TOL``), with the tokens dropped by layer and both
+      waves' tok/s; (j3) in (f), after its
+      moments and master weights are freed, ``compress_tree`` twice (the
+      second carrying the first's residual) over the gradient tree of
+      full-width minicpm-2b, every leaf checked (int8 in [-127, 127], error
+      within 1.51 of its block's scale, residual = corrected - deq exactly,
+      packed under a 3.5th of the fp32 bytes) and one leaf's q and scales bit
+      for bit against the CPU's, with its ms beside its bytes bound;
   (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model
       (mixtral-8x22b's too), a ``training`` and a ``trainer`` JSON line, one
-      ``training`` line each for (i)'s models, the nvidia-smi line, and last the
-      ``{"ok": true, ...}`` line.
+      ``training`` line each for (i)'s models, a ``parallel`` line with (j)'s
+      numbers, the nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -89,8 +109,10 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.distributed.tensor import DTensor
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
@@ -103,8 +125,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.mamba2_ssd import ssd_bwd, ssd_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_bwd, wkv6_fwd  # noqa: E402
+from repro_torch.launch.mesh import init_process_group, make_host_mesh  # noqa: E402
 from repro_torch.launch.train import write_dataset  # noqa: E402
 from repro_torch.models import get_model, moe, transformer  # noqa: E402
+from repro_torch.parallel import compress, ctx  # noqa: E402
+from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.serve.server import BatchServer, Request  # noqa: E402
 from repro_torch.storage.datapipe import ShardReader  # noqa: E402
 from repro_torch.storage.volume import LocalMount  # noqa: E402
@@ -172,6 +197,12 @@ TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_LAYERS, DISK_MARGIN = 2, 3, 4, 1.1
 # (h): mixtral-8x22b keeps as many layers as fit the card beside this much
 # for the serving wave's activations, MoE buffers and checks
 MOE_ARCH, MOE_HEADROOM_BYTES = "mixtral-8x22b", 24e9
+# (j): the mesh train step's steps (params compared after the second); the
+# rendezvous's and every collective's time limit; the bytes a value that
+# compress_tree must move at least (read bf16 g and fp32 r, write bf16 deq
+# and fp32 r), and its rounding noise's read (4)
+MESH_TRAIN_STEPS, PG_TIMEOUT_S, COMPRESS_BYTES, NOISE_BYTES = 3, 60, 12, 4
+MESH_NAMED_OPS = ("nccl", "Memcpy", "copy", "fill", "zero")
 # (i): rwkv6-1.6b whole; zamba2-7b cut to SSM_TRAIN_LAYERS of its 81 layers (a multiple
 # of its attn_every, so every shared-block site is whole); kernel vs plain training at
 # SSM_CHECK_LAYERS layers
@@ -932,13 +963,14 @@ def _tree_map(fn, tree):
 
 @contextlib.contextmanager
 def moe_routing(forced=()):
-    """``moe._route`` patched for the block; yields (chosen, rerouted): each
-    call's top-k experts ([tokens, k], tokens in flat B*T order), and for each
-    forced call how many tokens chose otherwise.  ``forced[i]`` is (token
-    indices, experts [n, k]) that replace call i's own choices for those
-    tokens; their weights are renormalised from the call's own probabilities,
-    and the slots counted by ``moe._slots`` as the port counts them."""
-    chosen, rerouted = [], []
+    """``moe._route`` patched for the block; yields (chosen, rerouted, dropped):
+    each call's top-k experts ([tokens, k], tokens in flat B*T order), for each
+    forced call how many tokens chose otherwise, and each call's dropped
+    (token, choice) slots.  ``forced[i]`` is (token indices, experts [n, k])
+    that replace call i's own choices for those tokens; their weights are
+    renormalised from the call's own probabilities, and the slots counted by
+    ``moe._slots`` as the port counts them."""
+    chosen, rerouted, dropped = [], [], []
     saved = moe._route
 
     def route(cfg, router, xg, capacity):
@@ -954,11 +986,13 @@ def moe_routing(forced=()):
             w = probs.gather(-1, top_e)
             top_w = w / w.sum(-1, keepdim=True)
         chosen.append(flat)
-        return (*moe._slots(cfg, top_e, capacity), top_w)
+        slots = moe._slots(cfg, top_e, capacity)
+        dropped.append(int((~slots[2]).sum()))
+        return (*slots, top_w)
 
     moe._route = route
     try:
-        yield chosen, rerouted
+        yield chosen, rerouted, dropped
     finally:
         moe._route = saved
 
@@ -995,20 +1029,20 @@ def check_consistency(cfg, api, params, tol: float, t: int = 512):
     b = 2
     toks = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
     with torch.inference_mode():
-        with moe_routing() as (chosen_p, _):
+        with moe_routing() as (chosen_p, _, _):
             logits_p, cache = api.prefill(params, toks, t + 8)
         nxt = logits_p[:, -1, :cfg.vocab].argmax(-1)
-        with moe_routing() as (chosen_d, _):
+        with moe_routing() as (chosen_d, _, _):
             logits_d, _ = api.decode(params, nxt[:, None], cache, t)
         del cache
         shared = [(slice(None), torch.cat([p.reshape(b, t, -1), d.reshape(b, 1, -1)], 1)
                    .reshape(b * (t + 1), -1)) for p, d in zip(chosen_p, chosen_d)]
-        with moe_routing(shared) as (_, rerouted_full):
+        with moe_routing(shared) as (_, rerouted_full, _):
             full, _ = api.prefill(params, torch.cat([toks, nxt[:, None]], 1), t + 8)
         ok_d, err_d = rel_close(logits_d[:, 0], full[:, -1], tol)
 
         kernel_choices = [(slice(None), p) for p in chosen_p]
-        with plain_ops(), moe_routing(kernel_choices) as (_, rerouted_plain):
+        with plain_ops(), moe_routing(kernel_choices) as (_, rerouted_plain, _):
             plain_p, _ = api.prefill(params, toks, t + 8)
         ok_k, err_k = rel_close(logits_p, plain_p, tol)
     res = {"weights": str(next(_leaves(params)).dtype).split(".")[-1],
@@ -1205,7 +1239,13 @@ def phase_training(arch: str = TRAIN_ARCH, n_layers: int = 0, check_layers: int 
         training["profile"]["scan_fwd_ms"] = sum(r["ms"] for r in rows if "bwd" not in r["kernel"])
         training["profile"]["scan_bwd_ms"] = sum(r["ms"] for r in rows if "bwd" in r["kernel"])
     log(f"  profile: {json.dumps(training['profile'])}")
-    del params, state, metrics, step
+    if arch == TRAIN_ARCH:
+        del state               # (j3) needs the room of the moments and master weights
+        free_device_memory()
+        training["compression"] = phase_compress(cfg, api, params, batches[0])
+        del params, metrics, step
+    else:
+        del params, state, metrics, step
     free_device_memory()
     training["consistency"] = check_train_consistency(cfg, torch.float32, FP32_TOL, check_layers)
     free_device_memory()
@@ -1215,6 +1255,80 @@ def phase_training(arch: str = TRAIN_ARCH, n_layers: int = 0, check_layers: int 
     free_device_memory()
     training["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return training
+
+
+def phase_compress(cfg, api, params, batch):
+    """(j3): ``compress_tree`` twice over the gradient tree of ``params`` (the
+    second call carrying the first's residual), on explicit noise tensors so
+    that every leaf can be checked after each call, against the bytes bound."""
+    t_phase = time.perf_counter()
+    pairs = [(path, p.detach().requires_grad_()) for path, p in opt.flatten_with_paths(params)]
+    loss = api.loss(opt.unflatten(pairs), batch)
+    grads = opt.unflatten((path, g.detach()) for (path, _), g in
+                          zip(pairs, torch.autograd.grad(loss, [p for _, p in pairs])))
+    del pairs, loss
+    leaves = list(opt.flatten_with_paths(grads))
+    n = sum(g.numel() for _, g in leaves)
+    log(f"(j3) compress_tree over {cfg.name}'s {len(leaves)} gradient leaves, {n} values")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    res, calls, cpu = None, [], None
+    for call in range(2):
+        noise = [compress.noise_like(g.numel(), gen) for _, g in leaves]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, new_res = compress.compress_tree(grads, res, noise)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        worst = {"q_absmax": 0, "err_over_scale": 0.0, "packed_over_raw": 0.0}
+        res_of, out_of, new_res_of = (dict(opt.flatten_with_paths(t)) if t is not None else {}
+                                      for t in (res, out, new_res))
+        for i, (path, g) in enumerate(leaves):
+            corrected = g.float()
+            if path in res_of:
+                corrected += res_of[path]
+            q, scale = compress.quantize(corrected, noise[i])
+            deq = compress.dequantize(q, scale, g.shape, torch.float32)
+            err, _ = compress._pad_to_block(deq - corrected)
+            ratio = (err.reshape(-1, compress.BLOCK).abs().amax(1) / scale).max()
+            got_out, got_res = out_of[path], new_res_of[path]
+            name = ".".join(path)
+            if not (torch.equal(got_res, corrected - deq) and torch.equal(got_out, deq.to(g.dtype))):
+                raise AssertionError(f"compress_tree's {name}: residual or output is not "
+                                     "corrected - deq, deq")
+            worst["q_absmax"] = max(worst["q_absmax"], int(q.abs().max()))
+            worst["err_over_scale"] = max(worst["err_over_scale"], float(ratio))
+            worst["packed_over_raw"] = max(worst["packed_over_raw"],
+                                           (q.numel() + 4 * scale.numel()) / (4 * g.numel()))
+            if call == 0 and name == "layers.attn.wq":
+                # the same leaf and noise on the CPU: q and scales bit for bit
+                q_c, s_c = compress.quantize(corrected.cpu(), noise[i].cpu())
+                cpu = {"leaf": name, "values": g.numel(),
+                       "q_equal": torch.equal(q.cpu(), q_c),
+                       "scale_equal": torch.equal(scale.cpu().view(torch.int32),
+                                                  s_c.view(torch.int32))}
+            del corrected, q, scale, deq, err
+        if worst["q_absmax"] > 127 or worst["err_over_scale"] > 1.51 or \
+                worst["packed_over_raw"] >= 1 / 3.5:
+            raise AssertionError(f"compress_tree call {call + 1}: {worst}")
+        calls.append({"call": call + 1, "ms": ms,
+                      "gb_s": COMPRESS_BYTES * n / (ms / 1e3) / 1e9, **worst})
+        log(f"  call {json.dumps(calls[-1])}")
+        del out, noise, res_of, out_of, new_res_of
+        res = new_res
+        del new_res
+    if not (cpu and cpu["q_equal"] and cpu["scale_equal"]):
+        raise AssertionError(f"quantize on the card vs the CPU: {cpu}")
+    res_out = {"arch": cfg.name, "layers": cfg.n_layers, "leaves": len(leaves), "values": n,
+               "grad_dtype": str(leaves[0][1].dtype).split(".")[-1], "calls": calls,
+               "bytes_per_value": COMPRESS_BYTES, "bytes": COMPRESS_BYTES * n,
+               "bound_ms": COMPRESS_BYTES * n / HBM_BYTES_S * 1e3,
+               "bound_ms_with_noise_read": (COMPRESS_BYTES + NOISE_BYTES) * n / HBM_BYTES_S * 1e3,
+               "share_of_bound": COMPRESS_BYTES * n / HBM_BYTES_S * 1e3 / calls[1]["ms"],
+               "cpu_check": cpu, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "phase_s": time.perf_counter() - t_phase}
+    log(f"  compression: {json.dumps(res_out)}")
+    del grads, res, leaves
+    return res_out
 
 
 def _train_run(cfg, dtype, batches):
@@ -1416,6 +1530,109 @@ def phase_trainer():
     return trainer_res
 
 
+# ------------------------------------------------------------------ (j1) the mesh train step
+
+def _timed_step(step, params, state, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    return params, state, {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]),
+                           "grad_norm": float(m["grad_norm"])}
+
+
+def _profiled_step(step, params, state, batch):
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return params, state, _device_summary(prof, wall, named=MESH_NAMED_OPS)
+
+
+def _local_words(p):
+    return (p.to_local() if isinstance(p, DTensor) else p).reshape(-1).view(torch.int32)
+
+
+def phase_mesh_train(mesh):
+    """(j1): (g)'s minicpm-2b through ``make_train_step`` on DTensor params and
+    ZeRO-1 optimizer state on ``mesh``, against the mesh-free step from the
+    same weights: K2 digests of every leaf after 2 steps, and step ms."""
+    t_phase = time.perf_counter()
+    full = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAINER_LAYERS)
+    log(f"(j1) mesh train step: {TRAIN_ARCH} cut to {cfg.n_layers} of {full.n_layers} layers, "
+        f"full width, on a {tuple(mesh.shape)} {mesh.mesh_dim_names} mesh of one NCCL rank")
+    api = get_model(cfg)
+    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS + 1)
+    # the steps, then one more under the profiler
+    batches = [train_batch(cfg, TRAIN_B, TRAIN_T, 100 + i) for i in range(MESH_TRAIN_STEPS + 1)]
+    step = make_train_step(cfg, oc)
+    torch.cuda.reset_peak_memory_stats()
+
+    params = api.init(0, torch.bfloat16, "cuda")
+    state = opt.init_opt_state(oc, params)
+    plain_steps = []
+    for i, batch in enumerate(batches[:-1]):
+        params, state, m = _timed_step(step, params, state, batch)
+        plain_steps.append(m)
+        if i == 1:
+            want = {path: p.clone() for path, p in opt.flatten_with_paths(params)}
+            want_digests = {path: ops.tensor_checksum(_local_words(p)).tolist()
+                            for path, p in want.items()}
+    params, state, plain_profile = _profiled_step(step, params, state, batches[-1])
+    del params, state
+    free_device_memory()
+
+    whole = api.init(0, torch.bfloat16, "cuda")
+    params = shd.distribute_tree(whole, shd.param_shardings(cfg, whole, mesh), mesh)
+    state = opt.init_opt_state(oc, params, shd.opt_shardings(cfg, whole, mesh))
+    del whole
+    reset_launches()
+    mesh_steps = []
+    for i, batch in enumerate(batches[:-1]):
+        params, state, m = _timed_step(step, params, state, batch)
+        mesh_steps.append(m)
+        if i == 1:
+            digests = {path: ops.tensor_checksum(_local_words(p)).tolist()
+                       for path, p in opt.flatten_with_paths(params)}
+            differ = {".".join(path): rel_close(p.full_tensor(), want[path], TRAIN_TOL)[1]
+                      for path, p in opt.flatten_with_paths(params)
+                      if digests[path] != want_digests[path]}
+    counts = launches()
+    params, state, mesh_profile = _profiled_step(step, params, state, batches[-1])
+    per_step = train_launches(cfg)
+    expect = {name: n * MESH_TRAIN_STEPS for name, n in per_step.items()}
+    expect["checksum"] = len(digests)
+    if counts != expect:
+        raise AssertionError(f"kernel launches over the mesh train steps {counts}, "
+                             f"expected {expect}")
+    leaves = list(opt.flatten_with_paths(params))
+    placed = all(isinstance(p, DTensor) for _, p in leaves) and all(
+        isinstance(x, DTensor) for t in (state.mu, state.nu, state.master) if t is not None
+        for _, x in opt.flatten_with_paths(t))
+    res = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "mesh": list(mesh.shape),
+           "mesh_axes": list(mesh.mesh_dim_names), "backend": dist.get_backend(), "world": 1,
+           "batch": TRAIN_B, "seq": TRAIN_T, "steps": MESH_TRAIN_STEPS,
+           "mesh_steps": mesh_steps, "plain_steps": plain_steps,
+           "step_ms_mesh": mesh_steps[-1]["ms"], "step_ms_plain": plain_steps[-1]["ms"],
+           "mesh_host_ms_added": mesh_steps[-1]["ms"] - plain_steps[-1]["ms"],
+           "leaves": len(digests), "leaves_bit_identical_after_2_steps": len(digests) - len(differ),
+           "differing_leaves_err": differ, "tolerance": TRAIN_TOL, "placed_as_dtensors": placed,
+           "launches": counts, "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "profile_mesh": mesh_profile, "profile_plain": plain_profile,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  mesh train: {json.dumps(res)}")
+    if not placed or any(e > TRAIN_TOL for e in differ.values()) or not all(
+            torch.isfinite(torch.tensor([m["loss"], m["grad_norm"]])).all() for m in mesh_steps):
+        raise AssertionError(f"mesh train step against the mesh-free one: {res}")
+    del params, state, want, leaves
+    return res
+
+
 # ------------------------------------------------------------------ (h) MoE serving
 
 def _bf16_layer_bytes(cfg) -> tuple:
@@ -1434,8 +1651,73 @@ def _bf16_layer_bytes(cfg) -> tuple:
 MOE_NAMED_OPS = ("index", "gather", "scatter", "sort", "cumsum", "topk", "nvjet", "gemm")
 
 
-def phase_moe_serving():
-    """(h): mixtral-8x22b at full width, cut to the layers the card holds."""
+@contextlib.contextmanager
+def moe_groups(groups: int):
+    """The local dispatch routes in ``groups`` groups for the block."""
+    saved = moe.moe_block
+
+    def block(cfg, p, x, groups_=16, mlp=None):
+        return saved(cfg, p, x, groups=groups, mlp=mlp)
+
+    moe.moe_block = block
+    try:
+        yield
+    finally:
+        moe.moe_block = saved
+
+
+def ep_prefill(cfg, api, params, mesh, b: int, t: int, smax: int, tol: float):
+    """(j2): one prefill wave through the expert-parallel ``moe_block_shard_map``
+    on ``mesh`` (routing in one group a data rank), against the local
+    dispatch routed in dp groups on the same weights and the mesh wave's
+    expert choices; logits, dropped slots by layer, and each wave's tok/s."""
+    t_phase = time.perf_counter()
+    mp = mesh.size(mesh.mesh_dim_names.index("model"))
+    dp = mesh.size(mesh.mesh_dim_names.index("data"))
+    log(f"(j2) {cfg.name}: one prefill wave (B={b}, T={t}) through moe_block_shard_map, "
+        f"{cfg.n_experts // mp} experts a rank")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
+    with torch.inference_mode():
+        api.prefill(params, toks[:, :64], 64)      # warm-up
+        reset_launches()
+        with ctx.mesh_context(mesh), moe_routing() as (chosen, _, dropped_mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_m, cache = api.prefill(params, toks, smax)
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+        counts = launches()
+        del cache
+        shared = [(slice(None), c) for c in chosen]
+        with moe_groups(dp), moe_routing(shared) as (_, rerouted, dropped_local):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_l, cache = api.prefill(params, toks, smax)
+            torch.cuda.synchronize()
+            local_s = time.perf_counter() - t0
+        del cache
+    ok, err = rel_close(logits_m, logits_l, tol)
+    want = {name: (cfg.n_layers if name == "flash_attention_fwd" else 0) for name in KERNELS}
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": list(mesh.shape),
+           "experts_per_rank": cfg.n_experts // mp, "batch": b, "seq": t, "smax": smax,
+           "capacity_factor": cfg.capacity_factor, "tolerance": tol,
+           "mesh_vs_local_groups_dp_err": err, "dropped_by_layer_mesh": dropped_mesh,
+           "dropped_by_layer_local": dropped_local, "tokens_rerouted_by_layer": rerouted,
+           "prefill_s_mesh": mesh_s, "prefill_s_local": local_s,
+           "prefill_tok_s_mesh": b * t / mesh_s, "prefill_tok_s_local_groups_dp": b * t / local_s,
+           "launches": counts, "logit_absmax": float(logits_l.float().abs().max()),
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  ep prefill: {json.dumps(res)}")
+    if not (ok and counts == want and dropped_mesh == dropped_local
+            and torch.isfinite(logits_m).all()):
+        raise AssertionError(f"expert-parallel prefill against the local dispatch: {res}")
+    return res
+
+
+def phase_moe_serving(mesh):
+    """(h): mixtral-8x22b at full width, cut to the layers the card holds; and
+    (j2) on ``mesh``."""
     full = get_arch(MOE_ARCH)
     layer_bytes, emb_bytes = _bf16_layer_bytes(full)
     total = torch.cuda.get_device_properties(0).total_memory
@@ -1461,6 +1743,9 @@ def phase_moe_serving():
     t_long = cfg.swa_window + 300
     serving["consistency"] = check_consistency(no_drop, get_model(no_drop), params,
                                                SERVE_TOL[MOE_ARCH], t_long)
+    free_device_memory()
+    serving["ep_prefill"] = ep_prefill(cfg, api, params, mesh, 4, max(lengths[:4]), 8192,
+                                       SERVE_TOL[MOE_ARCH])
     free_device_memory()
     serving["profile"] = profile_wave(cfg, api, params, 4, max(lengths), 8192,
                                       named=MOE_NAMED_OPS)
@@ -1522,6 +1807,20 @@ def main() -> None:
     log(f"(b) built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s")
     tensor_cores = tensor_core_proof()
 
+    # (j): a world of one NCCL rank, through a rendezvous file; NCCL failing is fatal
+    with tempfile.TemporaryDirectory() as rendezvous:
+        init_process_group(str(Path(rendezvous) / "pg"), 0, 1, "nccl", PG_TIMEOUT_S)
+        try:
+            run_phases(smi, name, t_start, build_s, tensor_cores, make_host_mesh(1, 1, "cuda"))
+        finally:
+            dist.destroy_process_group()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
+def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
+    """Phases (c) to (j) and the JSON lines of (e), all but the last two."""
     flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases = phase_kernels()
     peaks = [torch.cuda.max_memory_allocated() / 1e9]
     free_device_memory()
@@ -1536,7 +1835,10 @@ def main() -> None:
     trainer = phase_trainer()
     peaks.append(trainer["peak_mem_gb"])
     free_device_memory()
-    servings[MOE_ARCH] = phase_moe_serving()
+    mesh_train = phase_mesh_train(mesh)
+    peaks.append(mesh_train["peak_mem_gb"])
+    free_device_memory()
+    servings[MOE_ARCH] = phase_moe_serving(mesh)
     peaks.append(servings[MOE_ARCH]["phase_peak_mem_gb"])
     free_device_memory()
     ssm_training = {}
@@ -1548,6 +1850,8 @@ def main() -> None:
     paths = {**{a: s["launches"] for a, s in servings.items()},
              f"{TRAIN_ARCH}-train": training["launches"],
              f"{TRAIN_ARCH}-trainer": trainer["launches"],
+             f"{TRAIN_ARCH}-mesh-train": mesh_train["launches"],
+             f"{MOE_ARCH}-ep-prefill": servings[MOE_ARCH]["ep_prefill"]["launches"],
              **{f"{a}-train": t["launches"] for a, t in ssm_training.items()}}
 
     def by_path(kernel):
@@ -1624,9 +1928,10 @@ def main() -> None:
     print(json.dumps({"trainer": trainer, "device": name, "nvidia_smi": smi}))
     for t in ssm_training.values():
         print(json.dumps({"training": t, "device": name, "nvidia_smi": smi}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps({"parallel": {"mesh_train": mesh_train,
+                                   "ep_prefill": servings[MOE_ARCH]["ep_prefill"],
+                                   "compression": training["compression"]},
+                      "device": name, "nvidia_smi": smi}))
 
 
 if __name__ == "__main__":

@@ -29,6 +29,16 @@ build_logs: Dict[str, str] = {}   # nvcc's output (ptxas register/spill report) 
                                   # kept beside the library as lib<name>-<hash>.log
 
 
+def refuse_dtensor(name: str, *tensors) -> None:
+    """A kernel launches on plain tensors: a rank's own shard (a DTensor's
+    ``to_local()``), never a DTensor, which would hand it a whole tensor
+    gathered behind its back or a shard taken for the whole."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes plain tensors, not DTensors: launch it on each "
+                        "rank's shard (DTensor.to_local())")
+
+
 def _tool(name: str) -> str:
     for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and Path(cand).exists():

@@ -37,6 +37,7 @@ def checksum(data: torch.Tensor, block: int = 4096) -> torch.Tensor:
     unsigned 32-bit words.  Returns int64 [2] = (weighted, plain), each in
     [0, 2^32): the bits of the reference's uint32 [2].  ``block`` is
     checked and otherwise does not change the result."""
+    _build.refuse_dtensor("checksum", data)
     if not data.is_cuda:
         raise ValueError(f"checksum takes a CUDA tensor; got one on {data.device}")
     if data.dtype not in (torch.int32, torch.uint32):

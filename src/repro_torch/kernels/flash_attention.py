@@ -43,6 +43,7 @@ def _fwd_kernel():
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
            q_offset: int, name: str = "flash_attention_fwd") -> None:
+    _build.refuse_dtensor(name, q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name} takes q, k, v on one CUDA device; got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -120,6 +121,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtypes."""
     name = "flash_attention_bwd"
     _check(q, k, v, window, q_offset, name)
+    _build.refuse_dtensor(name, out, lse, do)
     b, tq, kvh, g, hd = q.shape
     for t, what in ((out, "out"), (do, "do")):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:

@@ -65,6 +65,7 @@ def _check(x, dt, A, B, C, state, chunk: int, name: str = "ssd_fwd", dy=None,
     forward's chunk states [Bt, ceil(T / STATE_ROWS), H, P, N] and ``ds_out``
     may be None."""
     ts = tuple(a for a in (x, dt, A, B, C, state, dy, ds_out) if a is not None)
+    _build.refuse_dtensor(name, *ts)
     if not (x.is_cuda and all(t.device == x.device for t in ts)):
         raise ValueError(f"{name} takes x, dt, A, B, C, state on one CUDA device; got "
                          f"{[str(t.device) for t in ts]}")

@@ -62,6 +62,7 @@ def _check(r, k, v, w, u, state, chunk: int, name: str = "wkv6_fwd", dy=None,
     """The forward's inputs, or with ``dy`` the backward's: then ``state`` is the
     forward's chunk states [B, n_chunks, H, K, V] and ``ds_out`` may be None."""
     ts = tuple(x for x in (r, k, v, w, u, state, dy, ds_out) if x is not None)
+    _build.refuse_dtensor(name, *ts)
     if not (r.is_cuda and all(t.device == r.device for t in ts)):
         raise ValueError(f"{name} takes r, k, v, w, u, state on one CUDA device; got "
                          f"{[str(t.device) for t in ts]}")

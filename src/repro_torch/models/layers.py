@@ -10,8 +10,13 @@ Two differences from JAX shape the code:
     JAX would compute in (``torch.promote_types``);
   * ``lax.dynamic_update_slice`` clamps an out-of-range write; the port
     writes the cache by slice, in place, and raises on overflow instead.
-The tensor-parallel head padding (``pad_tp``) is an exact zero-pad that
-does nothing on one device, so it is not carried over.
+Under a mesh with a "model" axis (``parallel.ctx``) the projections and
+attention run tensor-parallel, SPMD on each rank's own tensors: ``_qkv``
+with ``pad_tp`` returns this rank's share of the heads, zero-padded up to a
+multiple of the axis when they do not divide it (the reference's
+``pad_tp``), and ``swiglu_tp`` splits the hidden dim.  The gradients of the
+weights and of the region's input are summed over the axis
+(``parallel.spmd``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..parallel import ctx, spmd
 
 Params = Dict[str, Any]
 
@@ -147,21 +153,98 @@ def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return _mm(gate * _mm(x, p["w3"]), p["w2"])
 
 
+def tp_mesh():
+    """The ambient mesh when it has a "model" axis, else None."""
+    mesh = ctx.get_mesh()
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh
+
+
+def _tp_size() -> int:
+    mesh = tp_mesh()
+    return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index("model"))
+
+
+def swiglu_tp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``swiglu``; under a mesh with a "model" axis, its hidden dim split over
+    the axis (each rank's share of w1, w3 columns and w2 rows, the partial
+    outputs summed), or the whole product on every rank when the dim does
+    not divide the axis, as the sharding rules then replicate it."""
+    mesh, tp = tp_mesh(), _tp_size()
+    f = p["w1"].shape[-1]
+    if mesh is None or f % tp:
+        return swiglu(p, x)
+    x = spmd.enter_model(x, mesh)
+    w1, w3, w2 = (spmd.model_slice(p[n], mesh, dim, f // tp)
+                  for n, dim in (("w1", 1), ("w3", 1), ("w2", 0)))
+    out = _mm(torch.nn.functional.silu(_mm(x, w1)) * _mm(x, w3), w2)
+    return spmd.reduce_model(out, mesh)
+
+
 # ------------------------------------------------------------------- attention
 
-def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
-    """QKV projections (+bias, qk-norm, RoPE) -> q [B,T,H,hd], k/v [B,T,KV,hd]."""
+def _pad_last(w: torch.Tensor, target: int) -> torch.Tensor:
+    if target == w.shape[-1]:
+        return w
+    return torch.nn.functional.pad(w, (0, target - w.shape[-1]))
+
+
+def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
+         pad_tp: bool = False):
+    """QKV projections (+bias, qk-norm, RoPE) -> q [B,T,H,hd], k/v [B,T,KV,hd].
+
+    ``pad_tp`` under a mesh with a "model" axis of size tp: TP head padding.
+    When the heads do not divide tp, the projection weights are padded with
+    zero columns up to Hp, the next multiple of tp (exact: the phantom
+    heads meet zero rows of wo), and GQA with kv heads that do not divide
+    tp expands k/v per padded q head.  Each rank computes and returns its
+    Hp / tp heads only (rank r: heads [r Hp/tp, (r+1) Hp/tp)), and k/v the
+    kv heads those read."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     b, t, _ = x.shape
-    q, k, v = _mm(x, p["wq"]), _mm(x, p["wk"]), _mm(x, p["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, t, H, hd)
-    k = k.reshape(b, t, KV, hd)
-    v = v.reshape(b, t, KV, hd)
+    mesh = tp_mesh() if pad_tp else None
+    if mesh is None:
+        q, k, v = _mm(x, p["wq"]), _mm(x, p["wk"]), _mm(x, p["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        hq, nk = H, KV
+    else:
+        tp = _tp_size()
+        need = tp > 1 and (H % tp != 0 or KV % tp != 0)
+        hp = -(-H // tp) * tp if need else H
+        mha = KV == H
+        hq = hp // tp
+        x = spmd.enter_model(x, mesh)
+
+        def q_cols(w):          # padded to hp heads, this rank's hq of them
+            return spmd.model_slice(_pad_last(w, hp * hd), mesh, w.dim() - 1, hq * hd)
+
+        if need and not mha:    # GQA-uneven: k/v whole here, expanded below
+            kv_cols, nk = (lambda w: spmd.enter_model(w, mesh)), KV
+        elif need:              # MHA: padded like q
+            kv_cols, nk = q_cols, hq
+        else:
+            nk = KV // tp
+            kv_cols = lambda w: spmd.model_slice(w, mesh, w.dim() - 1, nk * hd)  # noqa: E731
+        q = _mm(x, q_cols(p["wq"]))
+        k, v = _mm(x, kv_cols(p["wk"])), _mm(x, kv_cols(p["wv"]))
+        if cfg.qkv_bias:
+            q, k, v = q + q_cols(p["bq"]), k + kv_cols(p["bk"]), v + kv_cols(p["bv"])
+    q = q.reshape(b, t, hq, hd)
+    k = k.reshape(b, t, nk, hd)
+    v = v.reshape(b, t, nk, hd)
+    if mesh is not None and need and not mha:
+        # each of this rank's padded q heads reads kv head min(h // (H/KV), KV-1)
+        lo = spmd.model_rank(mesh) * hq
+        qmap = torch.clamp(torch.arange(lo, lo + hq, device=x.device) // max(H // KV, 1),
+                           max=KV - 1)
+        k, v = k[:, :, qmap], v[:, :, qmap]
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        norms = ((p["q_norm"], p["k_norm"]) if mesh is None else
+                 (spmd.enter_model(p["q_norm"], mesh), spmd.enter_model(p["k_norm"], mesh)))
+        q = rms_norm(q, norms[0])
+        k = rms_norm(k, norms[1])
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 

@@ -16,8 +16,14 @@ Capacity and drops are computed per group exactly as in the reference
 on them.  A dropped slot points at (E-1, C-1) and contributes zero.  The
 buffer is laid out expert-major, [E, G, C, d] where the reference has
 [G, E, C, d], so that each expert's rows are one operand of a batched
-matrix product; the values are the same.  The reference's expert-parallel
-``moe_block_shard_map`` and its sharding hints have no counterpart here.
+matrix product; the values are the same.
+
+Under a mesh with a "model" axis, ``moe_block`` takes
+``moe_block_shard_map``, the reference's expert-parallel path: each data
+rank routes its own group of tokens, each model rank runs its share of the
+experts (or of every expert's hidden dim) and one all-reduce over "model"
+completes the block.  The reference's sharding hints (``_maybe_constrain``)
+are no-ops without GSPMD and have no counterpart.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..parallel import ctx, spmd
 from . import layers
 from .layers import Params
 
@@ -82,38 +89,125 @@ def n_groups(n: int, groups: int = 16) -> int:
     return g
 
 
+def _dispatch(x: torch.Tensor, keep: torch.Tensor, scatter_e, scatter_p, k: int,
+              n_experts: int, capacity: int):
+    """Scatter each kept (token, choice) row of x [G, ng, d] into an
+    [n_experts, G, C, d] buffer at (scatter_e, group, scatter_p); kept slots
+    are distinct.  Returns (buffer, the group index of each row)."""
+    G, _, d = x.shape
+    src = x.repeat_interleave(k, dim=1)                      # [G, ng*k, d]
+    contrib = torch.where(keep[..., None], src, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+    gidx = torch.arange(G, device=x.device)[:, None].expand_as(scatter_e)
+    buf = x.new_zeros((n_experts, G, capacity, d)).index_put(
+        (scatter_e, gidx, scatter_p), contrib, accumulate=True)
+    return buf, gidx
+
+
+def _experts(buf: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+    """Batched expert SwiGLU: expert e's G*C rows of buf [E, G, C, d] against
+    its weights."""
+    E, G, C, d = buf.shape
+    rows = buf.reshape(E, G * C, d)
+    gate = F.silu(layers._mm(rows, w1))
+    return layers._mm(gate * layers._mm(rows, w3), w2).reshape(E, G, C, -1)
+
+
+def _combine(out_buf, scatter_e, gidx, scatter_p, keep, top_w, dtype) -> torch.Tensor:
+    """Gather each kept (token, choice)'s expert output and sum a token's k
+    choices with its routing weights -> [G, ng, d]."""
+    G, ng, k = top_w.shape
+    gathered = out_buf[scatter_e, gidx, scatter_p]           # [G, ng*k, d]
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros((), dtype=gathered.dtype, device=gathered.device))
+    w = top_w.reshape(G, ng * k, 1).to(dtype)
+    return (gathered * w).reshape(G, ng, k, -1).sum(2)
+
+
+def moe_block_shard_map(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh,
+                        mlp: Params = None) -> torch.Tensor:
+    """Expert-parallel MoE, SPMD over the mesh (the reference's ``shard_map``).
+
+    Tokens are routed in G = dp groups, one a data rank (with
+    ``ctx.batch_sharded()`` a rank's x is its group; otherwise every rank
+    holds all B*T tokens and takes group number ``data index``).  Every
+    model rank routes its group alike, then:
+      * E % model == 0 (arctic): rank r keeps the slots of its experts
+        [r E/model, (r+1) E/model) and runs only those;
+      * otherwise (mixtral): every rank runs every expert on its share of
+        the hidden dim.
+    Each rank combines its partial outputs, arctic's dense residual MLP
+    (hidden dim split likewise) is added to them, and one all-reduce over
+    "model" completes the block.  The group's rows are then gathered over
+    the data axes when x held the whole batch."""
+    b, t, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    data_idx, dp = spmd.data_index(mesh)
+    mp = mesh.size(mesh.mesh_dim_names.index("model"))
+    ep = E % mp == 0          # expert-parallel (arctic) vs TP-in-expert (mixtral)
+    e_loc = E // mp if ep else E
+    if ctx.batch_sharded():
+        xg = x.reshape(1, b * t, d)
+    else:
+        xg = x.reshape(dp, b * t // dp, d)[data_idx:data_idx + 1]
+    ng = xg.shape[1]
+    capacity = int(ng * k / E * cfg.capacity_factor) + 1
+    xg = spmd.enter_model(xg, mesh)
+    scatter_e, scatter_p, keep, top_w = _route(
+        cfg, spmd.enter_model(p["router"], mesh), xg, capacity)
+    if ep:
+        lo = spmd.model_rank(mesh) * e_loc
+        mine = keep & (scatter_e >= lo) & (scatter_e < lo + e_loc)
+        slot_e = torch.clamp(scatter_e - lo, 0, e_loc - 1)
+        w1, w3, w2 = (spmd.model_slice(p[n], mesh, 0, e_loc) for n in ("w1", "w3", "w2"))
+    else:
+        fe = p["w1"].shape[-1]
+        mine, slot_e = keep, scatter_e
+        w1, w3, w2 = (spmd.model_slice(p[n], mesh, dim, fe // mp)
+                      for n, dim in (("w1", 2), ("w3", 2), ("w2", 1)))
+    buf, gidx = _dispatch(xg, mine, slot_e, scatter_p, k, e_loc, capacity)
+    out = _combine(_experts(buf, w1, w3, w2), slot_e, gidx, scatter_p, mine, top_w,
+                   x.dtype)
+    if mlp is not None:
+        # arctic's dense residual MLP, hidden dim split over "model", folded
+        # into the same all-reduce as the expert combine
+        f = mlp["w1"].shape[-1] // mp
+        m1, m3, m2 = (spmd.model_slice(mlp[n], mesh, dim, f)
+                      for n, dim in (("w1", 1), ("w3", 1), ("w2", 0)))
+        out = out + layers._mm(F.silu(layers._mm(xg, m1)) * layers._mm(xg, m3), m2)
+    out = spmd.reduce_model(out, mesh)
+    if not ctx.batch_sharded():
+        out = spmd.gather_data(out, mesh)
+    return out.reshape(b, t, d)
+
+
 def moe_block(cfg: ArchConfig, p: Params, x: torch.Tensor, groups: int = 16,
               mlp: Params = None) -> torch.Tensor:
-    """x [B, T, d] -> [B, T, d]; ``mlp``: arctic's dense residual branch."""
+    """x [B, T, d] -> [B, T, d]; ``mlp``: arctic's dense residual branch.
+
+    Under a mesh with a "model" axis, the expert-parallel
+    ``moe_block_shard_map`` when the tokens form one group a data rank (B*T
+    a multiple of the data ranks, or ``ctx.batch_sharded()``); otherwise,
+    and with no mesh, group-local dispatch in ``groups`` groups here."""
     b, t, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = b * t
+    mesh = layers.tp_mesh()
+    if mesh is not None:
+        dp = spmd.data_index(mesh)[1]
+        if ctx.batch_sharded() or (n % dp == 0 and n >= dp):
+            return moe_block_shard_map(cfg, p, x, mesh, mlp=mlp)
+        # tiny token counts (batch-1 decode) can't form a group a data rank:
+        # the local dispatch below
     G = n_groups(n, groups)
     ng = n // G
     xg = x.reshape(G, ng, d)
     capacity = int(ng * k / E * cfg.capacity_factor) + 1
     scatter_e, scatter_p, keep, top_w = _route(cfg, p["router"], xg, capacity)
-
-    # scatter (token, choice) rows into [E, G, C, d]; kept slots are distinct
-    src = xg.repeat_interleave(k, dim=1)                     # [G, ng*k, d]
-    contrib = torch.where(keep[..., None], src, torch.zeros((), dtype=x.dtype,
-                                                            device=x.device))
-    gidx = torch.arange(G, device=x.device)[:, None].expand_as(scatter_e)
-    buf = x.new_zeros((E, G, capacity, d)).index_put(
-        (scatter_e, gidx, scatter_p), contrib, accumulate=True)
-
-    # batched expert SwiGLU: expert e's G*C rows against its weights
-    rows = buf.reshape(E, G * capacity, d)
-    gate = F.silu(layers._mm(rows, p["w1"]))
-    out_buf = layers._mm(gate * layers._mm(rows, p["w3"]), p["w2"])
-    out_buf = out_buf.reshape(E, G, capacity, d)
-
-    # gather back and combine
-    gathered = out_buf[scatter_e, gidx, scatter_p]           # [G, ng*k, d]
-    gathered = torch.where(keep[..., None], gathered,
-                           torch.zeros((), dtype=gathered.dtype, device=x.device))
-    w = top_w.reshape(G, ng * k, 1).to(x.dtype)
-    out = (gathered * w).reshape(G, ng, k, d).sum(2).reshape(b, t, d)
+    buf, gidx = _dispatch(xg, keep, scatter_e, scatter_p, k, E, capacity)
+    out_buf = _experts(buf, p["w1"], p["w3"], p["w2"])
+    out = _combine(out_buf, scatter_e, gidx, scatter_p, keep, top_w,
+                   x.dtype).reshape(b, t, d)
     if mlp is not None:
         out = out + layers.swiglu(mlp, x)
     return out

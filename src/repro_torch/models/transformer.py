@@ -11,6 +11,14 @@ Attention in the forward and in prefill goes through
 ``ops.flash_attention``, so on the card it runs the hand-written flash
 kernels, forward and backward.
 
+Under a mesh with a "model" axis (``parallel.ctx``) the forward, and so
+the loss, runs tensor-parallel as the reference's does under GSPMD: each
+rank attends over its share of the heads, zero-padded to a multiple of the
+axis (``layers._qkv``'s ``pad_tp``, with zero rows of ``wo`` for the
+phantom heads), runs its share of the MLP's hidden dim, and the partial
+outputs are summed.  Prefill pads no heads, as the reference's does not,
+so its K/V cache holds the model's KV heads.
+
 One difference: with a sliding window, prefill stores position j of the
 prompt in cache slot j mod W, where decode writes it.  The reference
 stores the last W positions in slots 0..W-1, so for a prompt longer than
@@ -29,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..parallel import spmd
 from . import layers, moe
 from .layers import Params
 
@@ -73,25 +82,37 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
 # ------------------------------------------------------------------ forward
 
 def _mix(cfg: ArchConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
-    """The feed-forward (MLP or MoE) half of a block."""
+    """The feed-forward (MLP or MoE) half of a block; under a mesh, split over
+    its "model" axis."""
     hin = layers.rms_norm(h, lp["ln2"])
     if cfg.family == "moe":
         return moe.moe_block(cfg, lp["moe"], hin,
                              mlp=lp.get("mlp") if cfg.dense_residual else None)
-    return layers.swiglu(lp["mlp"], hin)
+    return layers.swiglu_tp(lp["mlp"], hin)
 
 
 def _attn_full(cfg: ArchConfig, lp: Params, h: torch.Tensor,
-               positions: torch.Tensor):
-    """Self-attention over h; returns (branch output, k, v)."""
+               positions: torch.Tensor, pad_tp: bool = False):
+    """Self-attention over h; returns (branch output, k, v).  ``pad_tp``: TP
+    head padding under a mesh (``layers._qkv``); k and v are then this
+    rank's padded heads, so prefill, which caches them, does not pad."""
     b, t, _ = h.shape
     q, k, v = layers._qkv(cfg, lp["attn"], layers.rms_norm(h, lp["ln1"]),
-                          positions)
-    kvh = cfg.n_kv_heads
-    out = ops.flash_attention(q.reshape(b, t, kvh, cfg.n_heads // kvh, cfg.hd),
+                          positions, pad_tp=pad_tp)
+    hq, kvh = q.shape[2], k.shape[2]
+    out = ops.flash_attention(q.reshape(b, t, kvh, hq // kvh, cfg.hd),
                               k, v, window=cfg.swa_window)
-    out = out.reshape(b, t, cfg.n_heads * cfg.hd)
-    return layers._mm(out, lp["attn"]["wo"]), k, v
+    out = out.reshape(b, t, hq * cfg.hd)
+    mesh = layers.tp_mesh() if pad_tp else None
+    if mesh is None:
+        return layers._mm(out, lp["attn"]["wo"]), k, v
+    # zero rows for the phantom heads (exact), this rank's rows of them
+    wo = lp["attn"]["wo"]
+    hp = hq * layers._tp_size()
+    if hp != cfg.n_heads:
+        wo = F.pad(wo, (0, 0, 0, (hp - cfg.n_heads) * cfg.hd))
+    wo = spmd.model_slice(wo, mesh, 0, hq * cfg.hd)
+    return spmd.reduce_model(layers._mm(out, wo), mesh), k, v
 
 
 def _positions(b: int, t: int, device) -> torch.Tensor:
@@ -110,7 +131,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tens
     rs = _residual_scale(cfg)
 
     def block(h, lp):
-        h = h + rs * _attn_full(cfg, lp, h, positions)[0]
+        h = h + rs * _attn_full(cfg, lp, h, positions, pad_tp=True)[0]
         return h + rs * _mix(cfg, lp, h)
 
     for lp in layers.unstack(params["layers"]):

@@ -11,6 +11,13 @@ flattens them.  One difference: the updates are made in place (grads in
 ``adamw_update``), and the same trees are returned.  At full width the
 optimizer state is tens of GB, and a second copy of it would not fit the
 card.
+
+Under a mesh the parameters are DTensors placed by
+``sharding.param_shardings``, and the moments and master weights DTensors
+placed by ``sharding.opt_shardings`` (ZeRO-1: sharded over the data axes
+too).  ``adamw_update`` then takes whole gradients, the same on every rank:
+each rank updates its block of the moments and master weights, and the
+updated blocks are gathered back to the parameters' placement.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import math
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 
@@ -102,12 +110,29 @@ def schedule(oc: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return oc.lr * warm * (0.1 + 0.45 * (1 + torch.cos(math.pi * frac)))
 
 
-def init_opt_state(oc: OptConfig, params: Tree) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=oc.moment_dtype, device=p.device)
+def init_opt_state(oc: OptConfig, params: Tree, shardings: Optional[Tree] = None) -> OptState:
+    """Zero moments (and fp32 master weights) like ``params``.  For DTensor
+    params, ``shardings`` (``sharding.opt_shardings``) places each moment and
+    master leaf, and each rank allocates only its block."""
     pairs = list(flatten_with_paths(params))
-    mu = unflatten((path, zeros(p)) for path, p in pairs)
-    nu = unflatten((path, zeros(p)) for path, p in pairs)
-    master = (unflatten((path, p.detach().to(torch.float32, copy=True)) for path, p in pairs)
+    if shardings is None:
+        place = lambda path, full: full.contiguous()  # noqa: E731
+        whole = lambda p: p.detach()  # noqa: E731
+    else:
+        from ..parallel import sharding as shd
+        specs = dict(flatten_with_paths(shardings))
+        mesh = pairs[0][1].device_mesh
+        place = lambda path, full: shd.distribute(full, specs[path], mesh)  # noqa: E731
+        whole = lambda p: p.detach().full_tensor()  # noqa: E731
+
+    def zeros(path, p):
+        return place(path, torch.zeros((), dtype=oc.moment_dtype,
+                                       device=p.device).expand(p.shape))
+
+    mu = unflatten((path, zeros(path, p)) for path, p in pairs)
+    nu = unflatten((path, zeros(path, p)) for path, p in pairs)
+    master = (unflatten((path, place(path, whole(p).to(torch.float32, copy=True)))
+                        for path, p in pairs)
               if oc.master_weights else None)
     step = torch.zeros((), dtype=torch.int32, device=pairs[0][1].device)
     return OptState(step, mu, nu, master)
@@ -168,6 +193,23 @@ def adamw_update(oc: OptConfig, params: Tree, grads: Tree, state: OptState
     nu_of = dict(flatten_with_paths(state.nu))
     ms_of = dict(flatten_with_paths(state.master)) if state.master is not None else {}
     for path, p in flatten_with_paths(params):
-        _update_leaf(oc, _decay_mask(path), p, g_of[path], mu_of[path], nu_of[path],
-                     ms_of.get(path), lr, c1, c2)
+        update = _update_sharded if isinstance(p, DTensor) else _update_leaf
+        update(oc, _decay_mask(path), p, g_of[path], mu_of[path], nu_of[path],
+               ms_of.get(path), lr, c1, c2)
     return params, OptState(step, state.mu, state.nu, state.master)
+
+
+@torch.no_grad()
+def _update_sharded(oc: OptConfig, decay: bool, p, g, mu, nu, master, lr, c1, c2) -> None:
+    """ZeRO-1 update of a DTensor param from its whole gradient ``g``: this
+    rank's block (the moments' placement) of p and g is updated against its
+    moments and master block, then the updated blocks are gathered to the
+    param's placement."""
+    from ..parallel import sharding as shd
+    mesh, pl = mu.device_mesh, mu.placements
+    p_blk = shd.local_block(p.full_tensor(), pl, mesh)
+    _update_leaf(oc, decay, p_blk, shd.local_block(g, pl, mesh), mu.to_local(),
+                 nu.to_local(), None if master is None else master.to_local(), lr, c1, c2)
+    new = DTensor.from_local(p_blk, mesh, pl, run_check=False, shape=p.shape,
+                             stride=p.stride())
+    p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())

@@ -732,3 +732,117 @@ def test_reduced_mixtral_serves_on_cuda(cuda, monkeypatch):
                        for n, w in v.items()}) for k, v in params.items()}
     want, _ = get_model(dataclasses.replace(cfg)).prefill(cpu_params, toks.cpu(), 128)
     _close(got.cpu(), want, TOL[torch.float32])
+
+
+# ------------------------------------------------------- the mesh paths on one NCCL rank
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world of one NCCL rank (rendezvous file, no network) and its 1 x 1
+    ("data", "model") mesh, for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    init_process_group(str(tmp_path_factory.mktemp("pg") / "pg"), 0, 1, "nccl")
+    yield make_host_mesh(1, 1, "cuda")
+    dist.destroy_process_group()
+
+
+def _mesh_train(cfg, params, oc, batches, mesh=None):
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    if mesh is None:
+        state = opt.init_opt_state(oc, params)
+    else:
+        whole = params
+        params = shd.distribute_tree(whole, shd.param_shardings(cfg, whole, mesh), mesh)
+        state = opt.init_opt_state(oc, params, shd.opt_shardings(cfg, whole, mesh))
+    step = make_train_step(cfg, oc)
+    for b in batches:
+        params, state, _ = step(params, state, b)
+    return {path: (p.full_tensor() if mesh is not None else p)
+            for path, p in opt.flatten_with_paths(params)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mesh_train_step_on_one_nccl_rank_equals_mesh_free(cuda, nccl_mesh, dtype, monkeypatch):
+    """Reduced minicpm-2b, 2 steps on DTensor params and ZeRO-1 state against 2
+    mesh-free steps from the same weights: every leaf bit for bit, and the
+    flash kernels launched on the mesh path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt
+    cfg = get_arch("minicpm-2b").reduced()
+    api = get_model(cfg)
+    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=1)
+    batches = [{"tokens": t, "labels": t.roll(-1, 1)} for t in
+               (torch.randint(0, cfg.vocab, (2, 64), generator=torch.Generator().manual_seed(s))
+                .to(cuda) for s in (1, 2))]
+    want = _mesh_train(cfg, api.init(0, dtype, cuda), oc, batches)
+    monkeypatch.setattr(flash_attention_fwd, "launches", 0)
+    monkeypatch.setattr(flash_attention_bwd, "launches", 0)
+    got = _mesh_train(cfg, api.init(0, dtype, cuda), oc, batches, nccl_mesh)
+    assert flash_attention_fwd.launches == 2 * 2 * cfg.n_layers
+    assert flash_attention_bwd.launches == 2 * cfg.n_layers
+    for path, w in want.items():
+        assert torch.equal(got[path], w), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "arctic-480b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ep_moe_on_one_nccl_rank_equals_local(cuda, nccl_mesh, arch, dtype):
+    """moe_block under a 1 x 1 mesh takes moe_block_shard_map (all experts on
+    the rank), against the local dispatch in groups = dp = 1, with arctic's
+    dense residual: tokens drop at the default capacity factor."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers, moe
+    from repro_torch.parallel import ctx
+    cfg = get_arch(arch).reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.init_moe_block(cfg, gen, dtype)
+    mlp = layers.init_mlp(cfg.d_model, cfg.d_ff, gen, dtype) if cfg.dense_residual else None
+    x = (torch.randn((2, 48, cfg.d_model), generator=gen, device=cuda)
+         + torch.randn(cfg.d_model, generator=gen, device=cuda)).to(dtype)
+    want = moe.moe_block(cfg, p, x, groups=1, mlp=mlp)
+    with ctx.mesh_context(nccl_mesh):
+        got = moe.moe_block(cfg, p, x, mlp=mlp)
+    _close(got, want, TOL[dtype] if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_compress_on_cuda_matches_cpu_bit_for_bit(cuda):
+    from repro_torch.parallel import compress
+    gen = torch.Generator().manual_seed(4)
+    grads = {"a": torch.randn((3, 1000), generator=gen).to(torch.bfloat16),
+             "b": torch.randn(70_001, generator=gen)}
+    noise = [compress.noise_like(g.numel(), gen) for g in (grads["a"], grads["b"])]
+    res_c = res_g = None
+    for _ in range(2):
+        out_c, res_c = compress.compress_tree(grads, res_c, noise)
+        out_g, res_g = compress.compress_tree({k: v.to(cuda) for k, v in grads.items()}, res_g,
+                                              [n.to(cuda) for n in noise])
+        for k in grads:
+            assert torch.equal(out_g[k].cpu(), out_c[k]) and torch.equal(res_g[k].cpu(), res_c[k])
+    q_c, s_c = compress.quantize(grads["b"], noise[1])
+    q_g, s_g = compress.quantize(grads["b"].to(cuda), noise[1].to(cuda))
+    assert torch.equal(q_g.cpu(), q_c) and torch.equal(s_g.cpu(), s_c)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_dtensors_on_cuda(cuda, nccl_mesh):
+    from repro_torch.parallel import sharding as shd
+    q = shd.distribute(torch.zeros((1, 64, 2, 1, 64), device=cuda), (), nccl_mesh)
+    kv = shd.distribute(torch.zeros((1, 64, 2, 64), device=cuda), (), nccl_mesh)
+    words = shd.distribute(torch.zeros(64, dtype=torch.int32, device=cuda), (), nccl_mesh)
+    with pytest.raises(TypeError, match="DTensor"):
+        flash_attention_fwd(q, kv, kv)
+    with pytest.raises(TypeError, match="DTensor"):
+        ops.flash_attention(q, kv, kv)
+    with pytest.raises(TypeError, match="DTensor"):
+        checksum_kernel(words)
+    with pytest.raises(TypeError, match="DTensor"):
+        ops.tensor_checksum(words)

@@ -1,0 +1,409 @@
+"""The port's mesh paths against its mesh-free paths, on 8 gloo ranks.
+
+As ``tests/test_sharding_multidev.py`` holds the reference's distribution
+machinery to its mesh-free paths on 8 fake devices, this holds the port's
+on a (2, 4) ("data", "model") mesh of 8 CPU processes joined by gloo
+through a rendezvous file:
+
+  * the MoE block's expert-parallel path (E=4 over model 4) and its
+    TP-in-expert path (E=3), and arctic's dense residual folded into the
+    same all-reduce, against the local dispatch: in the reference's no-drop
+    case (capacity factor 4), and at the default 1.25, where tokens drop,
+    against the local path routed in groups=dp groups (the mesh path's);
+  * TP head padding (H=6 over model 4: 8 padded heads) and the GQA-uneven
+    k/v expansion (H=6, KV=2) against the mesh-free loss;
+  * two sharded train steps against two mesh-free ones, and each rank's
+    local shapes of params and moments against the rules' shares;
+  * prefill under the mesh caching the model's KV heads, not the padded
+    ones; DTensor layouts; the kernel wrappers refusing a DTensor.
+
+The ranks are spawned once for the module (``torch.set_num_threads(1)``
+each), run every case and write one result a case; each case reports as
+its own test.  The spawn has a time limit of its own, and so has every
+collective (the process group's timeout).  Values are fp32 on both sides
+and differ only in the order of summation: 1e-5.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.parallel import sharding as shd  # noqa: E402
+
+WORLD, MESH = 8, (2, 4)
+SPAWN_TIMEOUT_S = 300        # all ranks, every case
+PG_TIMEOUT_S = 60            # each collective
+TOL = 1e-5
+
+
+# ------------------------------------------------------------------ the cases (in a rank)
+
+def _moe_inputs(arch, seed, **kw):
+    """An MoE block's weights and x [4, 16, d]; the tokens share a direction,
+    so that the router favours some experts and, below capacity factor
+    E / k, tokens drop."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_arch(arch).reduced(), top_k=2, **kw)
+    gen = torch.Generator().manual_seed(seed)
+    p = moe.init_moe_block(cfg, gen, torch.float32)
+    x = torch.randn((4, 16, cfg.d_model), generator=gen)
+    return cfg, p, x + torch.randn(cfg.d_model, generator=gen)
+
+
+def _close(got, want, what=""):
+    err = float((got - want).abs().max())
+    assert err <= TOL * (1 + float(want.abs().max())), f"{what}: max |diff| {err}"
+    return err
+
+
+def _drops(cfg, p, x, groups):
+    from repro_torch.models import moe
+    n = x.shape[0] * x.shape[1]
+    g = moe.n_groups(n, groups)
+    capacity = int(n // g * cfg.top_k / cfg.n_experts * cfg.capacity_factor) + 1
+    keep = moe._route(cfg, p["router"], x.reshape(g, n // g, -1), capacity)[2]
+    return int((~keep).sum())
+
+
+def _moe_case(mesh, arch, n_experts, capacity_factor, seed, mlp=False):
+    """moe_block under the mesh against the local dispatch: at capacity factor
+    4 (no drops) with the default groups, else with groups = dp, the mesh
+    path's own groups."""
+    from repro_torch.models import layers, moe
+    from repro_torch.parallel import ctx
+    cfg, p, x = _moe_inputs(arch, seed, n_experts=n_experts,
+                            capacity_factor=capacity_factor)
+    m = (layers.init_mlp(cfg.d_model, cfg.d_ff, torch.Generator().manual_seed(seed + 7),
+                         torch.float32) if mlp else None)
+    dp = MESH[0]
+    no_drop = capacity_factor >= n_experts / cfg.top_k
+    want = moe.moe_block(cfg, p, x, mlp=m) if no_drop else moe.moe_block(cfg, p, x, groups=dp,
+                                                                          mlp=m)
+    with ctx.mesh_context(mesh):
+        got = moe.moe_block(cfg, p, x, mlp=m)
+    res = {"err": _close(got, want, "mesh vs local"), "drops_groups_dp": _drops(cfg, p, x, dp)}
+    if not no_drop:
+        # the local path's default 16 groups make other capacities, so other
+        # tokens drop and the output moves: the mesh path matches only groups = dp
+        res["drops_groups_16"] = _drops(cfg, p, x, 16)
+        res["err_vs_groups_16"] = float((got - moe.moe_block(cfg, p, x, mlp=m)).abs().max())
+        assert res["drops_groups_dp"] > 0 and res["err_vs_groups_16"] > 1e-2, res
+    return res
+
+
+def case_moe_ep_no_drop(mesh):
+    return _moe_case(mesh, "arctic-480b", 4, 4.0, 0)
+
+
+def case_moe_ep_drops(mesh):
+    return _moe_case(mesh, "arctic-480b", 4, 1.25, 1)
+
+
+def case_moe_tp_no_drop(mesh):
+    return _moe_case(mesh, "arctic-480b", 3, 4.0, 2)
+
+
+def case_moe_tp_drops(mesh):
+    return _moe_case(mesh, "arctic-480b", 3, 1.25, 2)
+
+
+def case_arctic_dense_residual(mesh):
+    return _moe_case(mesh, "arctic-480b", 4, 1.25, 3, mlp=True)
+
+
+def case_arctic_model_loss(mesh):
+    """Arctic's whole forward (E=4 experts over model 4, its dense residual
+    MLP) under the mesh against the mesh-free one at groups = dp."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model, moe
+    from repro_torch.parallel import ctx
+    cfg = dataclasses.replace(get_arch("arctic-480b").reduced(), n_layers=2)
+    api = get_model(cfg)
+    params = api.init(4, torch.float32, "cpu")
+    batch = _batch(cfg, 14)
+    local = moe.moe_block
+    moe.moe_block = lambda *a, **kw: local(*a, groups=MESH[0], **kw)     # groups = dp
+    try:
+        want = api.loss(params, batch)
+    finally:
+        moe.moe_block = local
+    with ctx.mesh_context(mesh):
+        got = api.loss(params, batch)
+    return {"err": _close(got, want, "loss"), "loss": float(want)}
+
+
+def _batch(cfg, seed, b=2, t=16):
+    toks = torch.randint(0, cfg.vocab, (b, t), generator=torch.Generator().manual_seed(seed))
+    return {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+
+def _attn_cfg(arch, heads, kv):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch).reduced(), n_heads=heads, n_kv_heads=kv,
+                               head_dim=16, n_layers=1)
+
+
+def _loss_and_grads(api, params, batch):
+    from repro_torch.train import optimizer as opt
+    pairs = [(path, p.detach().requires_grad_()) for path, p in opt.flatten_with_paths(params)]
+    loss = api.loss(opt.unflatten(pairs), batch)
+    return loss, dict(zip((path for path, _ in pairs),
+                          torch.autograd.grad(loss, [p for _, p in pairs])))
+
+
+def _loss_case(mesh, cfg, seed):
+    """The loss and every gradient under the mesh (each rank its padded
+    heads, the partial gradients summed over "model") against mesh-free;
+    gradients against the largest of any leaf."""
+    from repro_torch.models import get_model, layers
+    from repro_torch.parallel import ctx
+    api = get_model(cfg)
+    params = api.init(seed, torch.float32, "cpu")
+    batch = _batch(cfg, seed + 1)
+    want, g_want = _loss_and_grads(api, params, batch)
+    with ctx.mesh_context(mesh):
+        got, g_got = _loss_and_grads(api, params, batch)
+        lp0 = {n: w[0] for n, w in params["layers"]["attn"].items()}
+        q, k, _ = layers._qkv(cfg, lp0, torch.zeros(2, 16, cfg.d_model),
+                              torch.zeros(2, 16, dtype=torch.int32), pad_tp=True)
+    scale = max(float(g.abs().max()) for g in g_want.values())
+    grad_err = max(float((g_got[p] - g).abs().max()) for p, g in g_want.items())
+    assert grad_err <= TOL * scale, (grad_err, scale)
+    return {"err": _close(got, want, "loss"), "loss": float(want), "grad_err": grad_err,
+            "grad_scale": scale, "local_heads": [q.shape[2], k.shape[2]]}
+
+
+def case_head_padding(mesh):
+    res = _loss_case(mesh, _attn_cfg("qwen1.5-32b", 6, 6), 3)
+    assert res["local_heads"] == [2, 2], res        # 8 padded heads over 4 ranks
+    return res
+
+
+def case_gqa_uneven_expansion(mesh):
+    res = _loss_case(mesh, _attn_cfg("phi3-medium-14b", 6, 2), 5)
+    assert res["local_heads"] == [2, 2], res        # k/v expanded per padded q head
+    return res
+
+
+def case_sharded_train_step(mesh):
+    """Two steps of make_train_step on DTensor params and ZeRO-1 state against
+    two mesh-free steps; every rank's local shapes against the rules."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    cfg = _attn_cfg("minicpm-2b", 6, 6)
+    api = get_model(cfg)
+    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=1)
+    batches = [_batch(cfg, 30 + i) for i in range(2)]
+
+    params = api.init(3, torch.float32, "cpu")
+    state = opt.init_opt_state(oc, params)
+    step = make_train_step(cfg, oc)
+    for b in batches:
+        params, state, m_ref = step(params, state, b)
+
+    full = api.init(3, torch.float32, "cpu")
+    p_specs = shd.param_shardings(cfg, full, mesh)
+    o_specs = shd.opt_shardings(cfg, full, mesh)
+    params_sh = shd.distribute_tree(full, p_specs, mesh)
+    state_sh = opt.init_opt_state(oc, params_sh, o_specs)
+    in_specs = shd.input_shardings(mesh, batches[1])
+    batches_sh = [batches[0], {k: shd.distribute(v, in_specs[k], mesh)
+                               for k, v in batches[1].items()}]
+    for b in batches_sh:
+        params_sh, state_sh, m = step(params_sh, state_sh, b)
+
+    res = {"loss_err": abs(float(m["loss"]) - float(m_ref["loss"])),
+           "grad_norm_err": abs(float(m["grad_norm"]) - float(m_ref["grad_norm"]))}
+    assert res["loss_err"] <= TOL * (1 + abs(float(m_ref["loss"]))), res
+    sizes = shd.axis_sizes(mesh)
+
+    def share(shape, spec):
+        out = list(shape)
+        for d, e in enumerate(spec):
+            for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                out[d] //= sizes[a]
+        return out
+
+    trees = {kind: dict(opt.flatten_with_paths(t)) for kind, t in
+             (("param", params_sh), ("mu", state_sh.mu), ("nu", state_sh.nu),
+              ("master", state_sh.master), ("mu_ref", state.mu), ("nu_ref", state.nu),
+              ("master_ref", state.master))}
+    errs, shapes = {}, {}
+    for (path, p), (_, want) in zip(opt.flatten_with_paths(params_sh),
+                                    opt.flatten_with_paths(params)):
+        name = shd.path_str(path)
+        assert isinstance(p, DTensor), name
+        errs[name] = _close(p.full_tensor(), want, name)
+        p_spec = shd.param_pspec(name, tuple(want.shape), cfg, mesh)
+        o_spec = shd.zero1_pspec(p_spec, tuple(want.shape), mesh)
+        tree_specs = {"param": p_spec, "moment": o_spec}
+        for kind in ("param", "mu", "nu", "master"):
+            x = trees[kind][path]
+            spec = tree_specs["param" if kind == "param" else "moment"]
+            got_shape = list(x.to_local().shape)
+            assert got_shape == share(want.shape, spec), (name, kind, got_shape, spec)
+            assert x.placements == shd.placements(spec, mesh), (name, kind, x.placements)
+            if kind != "param":
+                _close(x.full_tensor(), trees[kind + "_ref"][path], f"{name}.{kind}")
+        shapes[name] = {"param": list(p.to_local().shape),
+                        "moment": list(trees["mu"][path].to_local().shape)}
+    # the qkv projection is split over model, its moments over data as well
+    assert shapes["layers/attn/wq"] == {"param": [1, 128, 24], "moment": [1, 64, 24]}, shapes
+    res.update(param_err_max=max(errs.values()), local_shapes=shapes)
+    return res
+
+
+def case_prefill_caches_kv_heads(mesh):
+    """Prefill under the mesh pads nothing: the cache holds the KV heads."""
+    from repro_torch.models import get_model
+    from repro_torch.parallel import ctx
+    cfg = _attn_cfg("qwen1.5-32b", 6, 6)
+    api = get_model(cfg)
+    params = api.init(3, torch.float32, "cpu")
+    toks = _batch(cfg, 40)["tokens"]
+    want, cache_want = api.prefill(params, toks, 24)
+    with ctx.mesh_context(mesh):
+        got, cache = api.prefill(params, toks, 24)
+    assert cache["k"].shape == (1, 2, 24, 6, 16), cache["k"].shape
+    return {"err": max(_close(got, want, "logits"), _close(cache["k"], cache_want["k"], "k"),
+                       _close(cache["v"], cache_want["v"], "v"))}
+
+
+def case_dtensor_layouts(mesh):
+    """A spec's DTensor holds, on each rank, the block the reference's layout
+    gives it (a dim split over ("data", "model") is data-major), and gathers
+    back to the whole."""
+    coord = mesh.get_coordinate()
+    full = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+    cases = {(("data", "model"), None): full[coord[0] * 4 + coord[1]][None],
+             ("data", "model"): full.reshape(2, 4, 4, 3)[coord[0], :, coord[1]],
+             (None, "model"): full[:, coord[1] * 3:(coord[1] + 1) * 3],
+             (): full}
+    for spec, want in cases.items():
+        dt = shd.distribute(full, spec, mesh)
+        assert torch.equal(dt.to_local(), want), spec
+        assert torch.equal(dt.full_tensor(), full), spec
+    return {}
+
+
+def case_kernel_wrappers_refuse_dtensors(mesh):
+    from repro_torch.kernels.checksum import checksum
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.mamba2_ssd import ssd_fwd
+    from repro_torch.kernels.rwkv6_scan import wkv6_fwd
+    q = shd.distribute(torch.zeros(2, 8, 4, 1, 64), (None, None, "model"), mesh)
+    kv = shd.distribute(torch.zeros(2, 8, 4, 64), (None, None, "model"), mesh)
+    words = shd.distribute(torch.zeros(64, dtype=torch.int32), ("model",), mesh)
+    x = shd.distribute(torch.zeros(2, 8, 4, 64), (None, None, "model"), mesh)
+    calls = {"flash_attention_fwd": lambda: flash_attention_fwd(q, kv, kv),
+             "checksum": lambda: checksum(words),
+             "wkv6_fwd": lambda: wkv6_fwd(x, x, x, x, torch.zeros(4, 64),
+                                          torch.zeros(2, 4, 64, 64)),
+             "ssd_fwd": lambda: ssd_fwd(x, torch.zeros(2, 8, 4), torch.zeros(4),
+                                        torch.zeros(2, 8, 64), torch.zeros(2, 8, 64),
+                                        torch.zeros(2, 4, 64, 64))}
+    for name, call in calls.items():
+        with pytest.raises(TypeError, match="DTensor"):
+            call()
+    return {}
+
+
+def case_host_mesh_falls_back_to_the_world(mesh):
+    from repro_torch.launch.mesh import make_host_mesh
+    m = make_host_mesh(4, 4, device_type="cpu")      # 16 ranks asked of 8: (8, 1)
+    assert (tuple(m.shape), m.mesh_dim_names) == ((8, 1), ("data", "model"))
+    return {}
+
+
+CASES = {name[len("case_"):]: fn for name, fn in globals().items()
+         if name.startswith("case_")}
+
+
+def _rank_main(rank: int, world: int, init_file: str, out: str) -> None:
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    init_process_group(init_file, rank, world, backend="gloo", timeout_s=PG_TIMEOUT_S)
+    mesh = make_host_mesh(*MESH, device_type="cpu")
+    results = {}
+    for name, fn in CASES.items():
+        t0 = time.perf_counter()
+        try:
+            results[name] = {"ok": True, **fn(mesh)}
+        except Exception:
+            results[name] = {"ok": False, "error": traceback.format_exc()}
+        results[name]["s"] = time.perf_counter() - t0
+    Path(out).write_text(json.dumps(results))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ the tests
+
+@pytest.fixture(scope="module")
+def rank_results():
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+        procs = [subprocess.Popen([sys.executable, __file__, str(r), str(WORLD),
+                                   os.path.join(tmp, "pg"), os.path.join(tmp, f"{r}.json")],
+                                  env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(WORLD)]
+        deadline = time.monotonic() + SPAWN_TIMEOUT_S
+        logs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                logs.append(out)
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        missing = [r for r in range(WORLD) if not os.path.exists(os.path.join(tmp, f"{r}.json"))]
+        assert not missing, f"ranks {missing} wrote no results:\n" + "\n".join(
+            log[-3000:] for log in logs)
+        return [json.loads(Path(tmp, f"{r}.json").read_text()) for r in range(WORLD)]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_mesh_case_on_8_gloo_ranks(rank_results, case):
+    for rank, res in enumerate(rank_results):
+        assert res[case]["ok"], f"rank {rank}:\n{res[case]['error']}"
+
+
+def test_production_mesh_under_the_fake_process_group():
+    """make_production_mesh over worlds of 256 and 512 fake ranks: the
+    reference's shapes and axis names (src/repro/launch/mesh.py:14-19)."""
+    script = (
+        "import json, torch.distributed as dist\n"
+        "from torch.testing._internal.distributed.fake_pg import FakeStore\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "for multi_pod, world in ((False, 256), (True, 512)):\n"
+        "    dist.init_process_group('fake', store=FakeStore(), rank=3, world_size=world)\n"
+        "    m = make_production_mesh(multi_pod=multi_pod, device_type='cpu')\n"
+        "    print(json.dumps([list(m.shape), list(m.mesh_dim_names)]))\n"
+        "    dist.destroy_process_group()\n")
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=120, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = [json.loads(line) for line in res.stdout.splitlines()]
+    assert got == [[[16, 16], ["data", "model"]], [[2, 16, 16], ["pod", "data", "model"]]]
+
+
+if __name__ == "__main__":
+    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
