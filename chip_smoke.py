@@ -88,10 +88,28 @@ Phases, each fatal on failure:
       within 1.51 of its block's scale, residual = corrected - deq exactly,
       packed under a 3.5th of the fp32 bytes) and one leaf's q and scales bit
       for bit against the CPU's, with its ms beside its bytes bound;
+  (k) counts against the card (``repro_torch.launch.roofline``): in (d), one
+      prefill wave (B=4, the longest of the 8 prompts) of each served model on
+      its weights, and in (f) and (i), one more train step of each trained
+      model, each counted twice by ``roofline.Count``: on the card (the
+      kernels launch, their counters checked) and on fake CPU twins through
+      the kernels' operators (``ops.kernel_path``, the dry run's lowering);
+      fatal if the lowering's flops or bytes differ from the card's count at
+      all, if its peak of live bytes differs from the card's count by more
+      than 1%, or if it launches a kernel.  Beside the call's measured ms (the
+      median of 5 timed waves; of (f)'s and (i)'s steps after the first): its
+      bound on the H100's published peaks and the term that sets it,
+      ``roofline_share`` (bound / measured), ``mfu`` (6 or 2 x params x
+      tokens / (measured s x 989e12)), and the dry run's peak of live device
+      bytes against max_memory_allocated(); then the host time a kernel's
+      operator adds to a call, and, after every timed phase,
+      ``python -m repro_torch.launch.dryrun`` on two production cells
+      (``DRYRUN_CELLS``, 256 fake ranks) in subprocesses that see no card;
   (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model
       (mixtral-8x22b's too), a ``training`` and a ``trainer`` JSON line, one
-      ``training`` line each for (i)'s models, a ``parallel`` line with (j)'s
-      numbers, the nvidia-smi line, and last the ``{"ok": true, ...}`` line.
+      ``training`` line each for (i)'s models, a ``roofline`` line with (k)'s
+      numbers, a ``parallel`` line with (j)'s, the nvidia-smi line, and last
+      the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -101,7 +119,9 @@ import ctypes
 import dataclasses
 import gc
 import json
+import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -111,6 +131,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.autograd import DeviceType
 from torch.distributed.tensor import DTensor
 from torch.profiler import ProfilerActivity, profile
@@ -118,13 +139,17 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_arch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.checksum import checksum as checksum_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.mamba2_ssd import ssd_bwd, ssd_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_bwd, wkv6_fwd  # noqa: E402
+from repro_torch.kernels.work import (  # noqa: E402
+    checksum_work, flash_bwd_work, flash_fwd_work, ssd_bwd_work, ssd_work, wkv6_bwd_work,
+    wkv6_work)
+from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import init_process_group, make_host_mesh  # noqa: E402
 from repro_torch.launch.train import write_dataset  # noqa: E402
 from repro_torch.models import get_model, moe, transformer  # noqa: E402
@@ -137,13 +162,13 @@ from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
-# H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W power limit: bf16 on the
-# tensor cores, fp32 on the CUDA cores, and TF32 on the tensor cores, the rate that bounds
-# the fp32 scans, whose products run there (3xTF32: three passes a product; the bound
-# counts the function's flops once)
-TF32_PEAK_FLOPS = 494.7e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": TF32_PEAK_FLOPS}
-HBM_BYTES_S = 3.35e12
+# H100 SXM published dense peaks (NVIDIA data sheet, roofline.PEAK_FLOPS), at a 700 W
+# power limit: bf16 on the tensor cores, fp32 on the CUDA cores, and TF32 on the tensor
+# cores, the rate that bounds the fp32 scans, whose products run there (3xTF32: three
+# passes a product; the bound counts the function's flops once)
+PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_FLOPS["bf16"],
+              torch.float32: roofline.PEAK_FLOPS["fp32"], "tf32": roofline.PEAK_FLOPS["tf32"]}
+HBM_BYTES_S = roofline.HBM_BW
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}   # tests/test_kernels_pallas.py
 SCAN_TOL = 3e-3     # fp32 WKV6 / SSD scans, tests/test_kernels_pallas.py:57,76-77
 # Full-width serving vs itself (decode vs prefill) and vs the plain path,
@@ -381,14 +406,6 @@ def bound(flops: int, nbytes: int, dtype) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def visible_pairs(tq: int, tk: int, q_offset: int, window: int) -> int:
-    """(query, key) pairs the causal/window mask lets through: the work this input needs."""
-    pos = q_offset + torch.arange(tq)
-    hi = torch.clamp(pos + 1, max=tk)
-    lo = torch.clamp(pos - window + 1, min=0) if window else torch.zeros_like(pos)
-    return int(torch.clamp(hi - lo, min=0).sum())
-
-
 def flash_case(b, tq, tk, kv, g, hd, window, q_offset, dtype, seed, timed=False):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, tq, kv, g, hd), generator=gen, device="cuda").to(dtype)
@@ -411,10 +428,8 @@ def flash_case(b, tq, tk, kv, g, hd, window, q_offset, dtype, seed, timed=False)
     if not ok:
         raise AssertionError(f"flash kernel disagrees with its plain version: {case}")
     if timed:
-        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() \
-            + lse.numel() * 4
-        case.update(bound(4 * hd * b * kv * g * visible_pairs(tq, tk, q_offset, window),
-                          nbytes, dtype))
+        case.update(bound(*flash_fwd_work(b, tq, tk, kv, g, hd, window, q_offset,
+                                          q.element_size()), dtype))
         case["ms"] = cuda_ms(lambda: flash_attention_fwd(q, k, v, window, q_offset), 20)
         case["plain_ms"] = cuda_ms(
             lambda: ref._flash_fwd_impl(q, k, v, q_offset, window, 512, 1024), 5)
@@ -426,45 +441,6 @@ def flash_case(b, tq, tk, kv, g, hd, window, q_offset, dtype, seed, timed=False)
             lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True), 20)
         log(f"  flash timed {json.dumps(case)}")
     return case
-
-
-def _chunk_rows(t: int, chunk: int):
-    return [min(chunk, t - t0) for t0 in range(0, t, chunk)]
-
-
-def wkv6_work(b, t, h, d, chunk):
-    """Flops (exponentials and logarithms apart) and bytes of ref.rwkv6_chunked
-    on real rows; K = V = d."""
-    flops = trans = 0
-    for c in _chunk_rows(t, chunk):
-        pairs = c * (c - 1) // 2
-        flops += (2 * c * d                       # log-decay cumsum, r * e^cl_prev
-                  + 2 * c * d * d                 # (r e^cl_prev) S
-                  + 4 * pairs * d                 # att: cl_prev_i - cl_j, r*k*e, sum
-                  + 3 * c * d                     # u-bonus diagonal
-                  + 2 * (pairs + c) * d + 2 * c * d   # att v, diag v, the sum of terms
-                  + 2 * c * d + 2 * c * d * d + 2 * d * d)   # state update
-        trans += 3 * c * d + pairs * d + d        # log w, e^cl_prev, carry, pairs, e^cl_last
-    heads = b * h
-    nbytes = 4 * (5 * b * t * h * d + h * d + 2 * b * h * d * d)
-    return flops * heads, trans * heads, nbytes
-
-
-def ssd_work(b, t, h, p, n, chunk):
-    """Flops (exponentials apart) and bytes of ref.mamba2_ssd on real rows; C B^T
-    is counted once per batch, as the function needs it."""
-    flops = trans = shared = 0
-    for c in _chunk_rows(t, chunk):
-        pairs = c * (c + 1) // 2
-        shared += 2 * pairs * n                   # C B^T, causal half
-        flops += (2 * c                           # A dt, cumsum
-                  + 3 * pairs                     # cl_i - cl_j, G*L, *dt_j
-                  + 2 * c * p * n + c * p         # e^cl (C S^T)
-                  + 2 * pairs * p + c * p         # M x, the sum of terms
-                  + 2 * c + c * p + 2 * c * p * n + 2 * p * n)   # state update
-        trans += pairs + 2 * c + 1
-    nbytes = 4 * (2 * b * t * h * p + b * t * h + h + 2 * b * t * n + 2 * b * h * p * n)
-    return flops * b * h + shared * b, trans * b * h, nbytes
 
 
 def _scan_errors(got, want):
@@ -520,47 +496,6 @@ def ssd_inputs(seed, b, t, h, p=64, n=64, strong=False):
     x, dt, A = r(b, t, h, p) * 0.5, F.softplus(r(b, t, h) - 1.0), -r(h).abs()
     return (x, dt, A * 50.0 if strong else A, r(b, t, n) * 0.5, r(b, t, n) * 0.5,
             r(b, h, p, n) * 0.2)
-
-
-def wkv6_bwd_work(b, t, h, d, chunk):
-    """Flops (exponentials and logarithms apart) and bytes of the WKV6 backward on real
-    rows, K = V = d: its inputs r, k, v, w, u, the initial state, dy and the final
-    state's cotangent read once, dr, dk, dv, dw, du and ds0 written once."""
-    flops = trans = 0
-    for c in _chunk_rows(t, chunk):
-        pairs = c * (c - 1) // 2
-        flops += (2 * c * d * d + 2 * d * d     # the state pass: (r e^clp)^T dy, the decay
-                  + 2 * c * d                    # log-decay cumsum, r e^clp
-                  + 2 * (pairs + c) * d          # datt = dy v^T (j <= i)
-                  + 4 * pairs * d + 3 * c * d    # att and the u bonus
-                  + 2 * (pairs + c) * d + 2 * c * d * d + c * d   # dv
-                  + 2 * c * d * d + 2 * c * d * d + 2 * c * d     # dy S^T, v dS^T, scaled
-                  + 2 * 5 * pairs * d            # datt's terms of dr and dk
-                  + 8 * c * d                    # dr, dk, dclp, dcl, du
-                  + 2 * d * d + 4 * c * d)       # the last row's term, dlog w, dw
-        trans += 2 * c * d + 3 * pairs * d + 2 * d
-    nbytes = 4 * (9 * b * t * h * d + 2 * h * d + 3 * b * h * d * d)
-    return flops * b * h, trans * b * h, nbytes
-
-
-def ssd_bwd_work(b, t, h, p, n, chunk):
-    """Flops (exponentials apart) and bytes of the SSD backward on real rows; C B^T is
-    counted once per batch.  Inputs x, dt, A, B, C, the initial state, dy and the final
-    state's cotangent read once; dx, ddt, dA, dB, dC and ds0 written once."""
-    flops = trans = shared = 0
-    for c in _chunk_rows(t, chunk):
-        pairs = c * (c + 1) // 2
-        shared += 2 * pairs * n                  # C B^T, causal half
-        flops += (2 * c * p * n + 2 * p * n + 2 * c   # the state pass, cumsum
-                  + 2 * pairs * p + c * p        # dy xs^T, xs
-                  + 4 * pairs                    # L, M, dG
-                  + 2 * pairs * p + 2 * c * n * p + 2 * c * p   # dxs, dx
-                  + 2 * c * p * n + c * n + 2 * pairs * n       # dC
-                  + 2 * pairs * n + 2 * c * p * n + c * n       # dB
-                  + 4 * pairs + 6 * c * p + 2 * p * n + 6 * c)  # dcl, da, ddt, dA
-        trans += pairs + 3 * c
-    nbytes = 4 * (3 * b * t * h * p + 2 * b * t * h + 2 * h + 4 * b * t * n + 3 * b * h * p * n)
-    return flops * b * h + shared * b, trans * b * h, nbytes
 
 
 # the scans' backward: each wrapper's source and its CUDA kernels, in the order of the
@@ -696,10 +631,8 @@ def flash_bwd_case(b, t, kv, g, hd, window, q_offset, dtype, seed, tk=None, time
     if not ok:
         raise AssertionError(f"flash backward kernel disagrees with its plain version: {case}")
     if timed:
-        nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + 2 * lse.numel() * 4
-        # 5 products of 2*hd flops per visible pair: q.k and do.v recomputed, dv, dk, dq
-        case.update(bound(10 * hd * b * kv * g * visible_pairs(t, tk, q_offset, window),
-                          nbytes, dtype))
+        case.update(bound(*flash_bwd_work(b, t, tk, kv, g, hd, window, q_offset,
+                                          q.element_size()), dtype))
         case["ms"] = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, window,
                                                          q_offset), 10)
         case["plain_ms"] = cuda_ms(
@@ -742,7 +675,7 @@ def checksum_case(n, block, seed, timed=False):
     if timed:
         # each word read once; its two integer multiply-adds are not bound by an
         # operation rate (the table of peaks gives none for 32-bit integers)
-        case.update(bound(0, 4 * n + 8, torch.float32), int_ops=4 * n)
+        case.update(bound(*checksum_work(n), torch.float32), int_ops=4 * n)
         case["ms"] = cuda_ms(lambda: checksum_kernel(words, block), 20)
         case["plain_ms"] = cuda_ms(lambda: ref.checksum(words, block), 3, warmup=1)
         case["library_ms"] = None     # no single PyTorch call computes the digest
@@ -903,7 +836,9 @@ def phase_serving(arch: str):
     del params32
     free_device_memory()
     serving["profile"] = profile_wave(cfg, api, params, 4, max(lengths), 4096)
-    serving["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    serving["counts"] = prefill_counts(cfg, api, params, lengths, 4096)
+    serving["phase_peak_mem_gb"] = max(torch.cuda.max_memory_allocated() / 1e9,
+                                       serving["counts"]["peak_before_gb"])
     return serving
 
 
@@ -1239,6 +1174,8 @@ def phase_training(arch: str = TRAIN_ARCH, n_layers: int = 0, check_layers: int 
         training["profile"]["scan_fwd_ms"] = sum(r["ms"] for r in rows if "bwd" not in r["kernel"])
         training["profile"]["scan_bwd_ms"] = sum(r["ms"] for r in rows if "bwd" in r["kernel"])
     log(f"  profile: {json.dumps(training['profile'])}")
+    training["counts"] = train_counts(cfg, oc, step, params, state, batches[0],
+                                      [s["ms"] for s in steps[1:]])
     if arch == TRAIN_ARCH:
         del state               # (j3) needs the room of the moments and master weights
         free_device_memory()
@@ -1253,7 +1190,9 @@ def phase_training(arch: str = TRAIN_ARCH, n_layers: int = 0, check_layers: int 
         cfg, torch.bfloat16, TRAIN_TOL, check_layers,
         SSM_BF16_GRAD_TOL if cfg.family in ("ssm", "hybrid") else None)
     free_device_memory()
-    training["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    training["phase_peak_mem_gb"] = max(torch.cuda.max_memory_allocated() / 1e9,
+                                        training["counts"]["peak_before_gb"],
+                                        training["counts"]["measured_peak_gb"])
     return training
 
 
@@ -1766,6 +1705,205 @@ def phase_moe_serving(mesh):
     return serving
 
 
+
+# ------------------------------------------------------------------ (k) counts against the card
+
+BF16_PEAK = roofline.PEAK_FLOPS["bf16"]
+# the dry run's peak of live bytes against the card's count of the same call: a copy
+# that one makes and the other does not (strides; see roofline.Count) may be live at
+# the peak
+PEAK_COUNT_TOL = 0.01
+PREFILL_WAVES = 5           # timed waves of each (k) prefill; the shares read their median
+# the dry run's production cells run in a subprocess (which imports no JAX), each one
+DRYRUN_CELLS = (("minicpm-2b", "train_4k"), ("mixtral-8x22b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 300
+
+
+def _work(count) -> dict:
+    """What the counts compare: flops by rate, bytes, collectives (copies apart)."""
+    return {k: v for k, v in count.totals().items() if k != "copy_bytes"}
+
+
+def _counted(fn, args, tracks, device: str, grad: bool):
+    count = roofline.Count(device)
+    for i, category in tracks:
+        count.track(args[i], category)
+    with torch.set_grad_enabled(grad), count:
+        fn(*args)
+    return count
+
+
+def count_against_card(label, fn, args, tracks, grad, timing, model_flops, want_launches):
+    """(k): ``fn(*args)``, a call of the main path, counted twice by ``roofline.Count``:
+    on the card with real tensors (the kernels launch, and their counters rise by
+    ``want_launches``), and as the dry run lowers it, on fake CPU twins of ``args``
+    through the kernels' operators (``ops.kernel_path``).  Fatal if the lowering's
+    flops or bytes differ from the card's count at all, if its peak of live bytes (the
+    dry run's memory column) differs from the card's count by more than
+    ``PEAK_COUNT_TOL``, or if it moved a launch counter.  Beside the call's measured ms
+    (``timing``: the median and spread of several timed calls): the roofline bound on
+    the H100's published peaks, ``roofline_share`` (bound / measured), ``mfu`` (model
+    flops / (measured s x the bf16 peak)), and the dry run's peak against
+    max_memory_allocated()."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    free_device_memory()
+    allocated_before = torch.cuda.memory_allocated()
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    real = _counted(fn, args, tracks, "cuda", grad)
+    torch.cuda.synchronize()
+    measured_peak = torch.cuda.max_memory_allocated()
+    real_launches = launches()
+    with FakeTensorMode(), ops.kernel_path():
+        lowered = _counted(fn, dryrun.fake_twin(args, "cpu"), tracks, "cpu", grad)
+    FakeTensorMode.cache_clear()    # its class-wide cache would stay in the heap
+    moved = launches() != real_launches
+    want = {name: want_launches.get(name, 0) for name in KERNELS}
+    terms = roofline.roofline_terms(lowered.totals())
+    measured_ms = timing["ms"]
+    predicted, counted_peak = lowered.memory()["peak_bytes"], real.memory()["peak_bytes"]
+    res = {"call": label, "measured_ms": measured_ms, "timing": timing,
+           "bound_ms": terms["bound_s"] * 1e3, "dominant": terms["dominant"],
+           "terms_ms": {k: terms[f"{k}_s"] * 1e3 for k in ("compute", "memory", "collective")},
+           "roofline_share": terms["bound_s"] * 1e3 / measured_ms,
+           "model_flops": model_flops, "mfu": model_flops / (measured_ms / 1e3 * BF16_PEAK),
+           "totals": lowered.totals(), "dryrun_lowering_equal": _work(lowered) == _work(real),
+           "copy_bytes": {"card": real.copy_bytes, "dryrun_lowering": lowered.copy_bytes},
+           "kernel_calls": dict(real.kernel_calls), "launches": real_launches,
+           "fake_lowering_moved_launches": moved,
+           "predicted_peak_gb": predicted / 1e9,
+           "predicted_peak_by_category_gb": {k: v / 1e9 for k, v in
+                                             lowered.memory()["peak_by_category"].items()},
+           "card_count_peak_gb": counted_peak / 1e9,
+           "predicted_over_card_count": predicted / counted_peak,
+           "measured_peak_gb": measured_peak / 1e9,
+           "allocated_before_gb": allocated_before / 1e9, "peak_before_gb": peak_before / 1e9,
+           "predicted_over_measured": predicted / measured_peak,
+           "memory_gap_over_15pct": abs(predicted / measured_peak - 1) > 0.15,
+           "phase_s": time.perf_counter() - t0}
+    log(f"(k) {label}: {json.dumps(res)}")
+    if not res["dryrun_lowering_equal"] or moved or real_launches != want \
+            or dict(lowered.kernel_calls) != res["kernel_calls"] \
+            or abs(predicted / counted_peak - 1) > PEAK_COUNT_TOL:
+        raise AssertionError(f"(k) {label}: the lowering's and the card's counts differ, the "
+                             f"lowering launched, or the launches {real_launches} are not "
+                             f"{want}: card {_work(real)} peak {counted_peak}, lowered "
+                             f"{_work(lowered)} peak {predicted}")
+    return res
+
+
+def _timing(runs_ms) -> dict:
+    """The median of several timed calls (ms), which the shares read, and their spread."""
+    return {"ms": statistics.median(runs_ms), "runs_ms": runs_ms,
+            "min_ms": min(runs_ms), "max_ms": max(runs_ms)}
+
+
+def prefill_counts(cfg, api, params, lengths, smax):
+    """(k) for a serving model: one prefill wave of (d)'s longest prompts (B=4), timed
+    PREFILL_WAVES times uncounted after a warm call, then counted."""
+    b, t = 4, max(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
+    call = lambda p, x: api.prefill(p, x, smax)  # noqa: E731
+    runs = []
+    with torch.inference_mode():
+        call(params, toks)
+        for _ in range(PREFILL_WAVES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(params, toks)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+    flops = roofline.model_flops_per_device(cfg, _shape("prefill", b, t), 1)
+    return count_against_card(f"{cfg.name} prefill B={b} T={t}", call, (params, toks),
+                              ((0, "params"), (1, "other")), False, _timing(runs), flops,
+                              expected_launches(cfg))
+
+
+def train_counts(cfg, oc, step, params, state, batch, step_ms):
+    """(k) for a training model: one more ``make_train_step`` step, counted; the
+    measured ms is the median of (f)'s or (i)'s steps after the first."""
+    b, t = batch["tokens"].shape
+    flops = roofline.model_flops_per_device(cfg, _shape("train", b, t), 1)
+    return count_against_card(
+        f"{cfg.name} train step ({cfg.n_layers} layers) B={b} T={t}", step,
+        (params, state, batch), ((0, "params"), (1, "opt_state"), (2, "other")), True,
+        _timing(step_ms), flops, train_launches(cfg))
+
+
+def _shape(kind: str, batch: int, seq: int) -> ShapeConfig:
+    return ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+
+
+def dispatch_overhead(iters: int = 2000) -> dict:
+    """Host microseconds a call that a kernel's operator adds to its wrapper: K1 at
+    B=1, T=64, 2 heads of 64 (a few microseconds of device time, so the loop waits on
+    the host), timed over ``iters`` calls each way after a warm-up.  These launches
+    are outside every main path's count."""
+    q, k, v = _inputs_small()
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e6
+    rounds = [(per_call(lambda: flash_attention_fwd(q, k, v)),
+               per_call(lambda: torch.ops.repro_torch.flash_attention_fwd(q, k, v, 0, 0)))
+              for _ in range(2)]
+    wrapper, op = min(r[0] for r in rounds), min(r[1] for r in rounds)
+    res = {"kernel": "flash_attention_fwd", "shape": list(q.shape), "iters": iters,
+           "wrapper_us": wrapper, "operator_us": op, "added_us": op - wrapper}
+    log(f"(k) operator dispatch: {json.dumps(res)}")
+    return res
+
+
+def _inputs_small():
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn((1, 64, 2, 1, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((1, 64, 2, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    return q, k, k.clone()
+
+
+def dryrun_cells() -> dict:
+    """The dry run's production cells, each in a subprocess (the command a user runs;
+    it imports no JAX and touches no card: CUDA_VISIBLE_DEVICES is empty), both at
+    once after the last timed phase, so that they share the host with no timing;
+    returns their records' lower_s and bound_s.  The processes are killed on the way
+    out."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", "single", "--out", out], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for arch, shape in DRYRUN_CELLS]
+        try:
+            outputs = [p.communicate(timeout=DRYRUN_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        cells = []
+        for (arch, shape), p, text in zip(DRYRUN_CELLS, procs, outputs):
+            path = Path(out) / f"{arch}__{shape}__pod16x16.json"
+            if p.returncode != 0 or not path.exists():
+                raise AssertionError(f"dry run of {arch} {shape} failed "
+                                     f"({p.returncode}):\n{text[-3000:]}")
+            rec = json.loads(path.read_text())
+            cells.append({k: rec[k] for k in (
+                "arch", "shape", "mesh", "ok", "lower_s", "total_s", "roofline", "memory",
+                "cost", "collective_bytes", "flops_over_model_flops")})
+    res = {"cells": cells, "waited_s": time.perf_counter() - t0}
+    log(f"(k) dry run: {json.dumps(res)}")
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 def kernel_line(name, source, replaces, case, launches_by_path, **extra):
@@ -1811,7 +1949,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as rendezvous:
         init_process_group(str(Path(rendezvous) / "pg"), 0, 1, "nccl", PG_TIMEOUT_S)
         try:
-            run_phases(smi, name, t_start, build_s, tensor_cores, make_host_mesh(1, 1, "cuda"))
+            run_phases(smi, name, t_start, build_s, tensor_cores,
+                       make_host_mesh(1, 1, "cuda"))
         finally:
             dist.destroy_process_group()
     print(smi)
@@ -1847,7 +1986,12 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                                             SSM_CHECK_LAYERS[arch])
         peaks.append(ssm_training[arch]["phase_peak_mem_gb"])
         free_device_memory()
+    counted = [servings[a]["counts"] for a in ("codeqwen1.5-7b", "zamba2-7b", "rwkv6-1.6b")] \
+        + [training["counts"]] + [t["counts"] for t in ssm_training.values()]
+    dispatch = dispatch_overhead()
+    cells = dryrun_cells()
     paths = {**{a: s["launches"] for a, s in servings.items()},
+             **{c["call"]: c["launches"] for c in counted},
              f"{TRAIN_ARCH}-train": training["launches"],
              f"{TRAIN_ARCH}-trainer": trainer["launches"],
              f"{TRAIN_ARCH}-mesh-train": mesh_train["launches"],
@@ -1928,6 +2072,9 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
     print(json.dumps({"trainer": trainer, "device": name, "nvidia_smi": smi}))
     for t in ssm_training.values():
         print(json.dumps({"training": t, "device": name, "nvidia_smi": smi}))
+    print(json.dumps({"roofline": {"targets": roofline.TARGETS, "calls": counted,
+                                   "dryrun": cells, "operator_dispatch": dispatch},
+                      "device": name, "nvidia_smi": smi}))
     print(json.dumps({"parallel": {"mesh_train": mesh_train,
                                    "ep_prefill": servings[MOE_ARCH]["ep_prefill"],
                                    "compression": training["compression"]},

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` at the repository
 root, then loaded with ``ctypes``.  The hash covers the source, every shared
 header ``csrc/*.cuh`` and the flags, so an edited source or header is rebuilt
-and an unchanged one is reused.
+and an unchanged one is reused.  ``define_op`` binds a kernel's wrapper to
+PyTorch as an operator.
 """
 
 from __future__ import annotations
@@ -17,13 +18,16 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")     # the kernels' operators
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}   # nvcc's output (ptxas register/spill report) per source,
                                   # kept beside the library as lib<name>-<hash>.log
@@ -37,6 +41,21 @@ def refuse_dtensor(name: str, *tensors) -> None:
     if any(isinstance(t, DTensor) for t in tensors):
         raise TypeError(f"{name} takes plain tensors, not DTensors: launch it on each "
                         "rank's shard (DTensor.to_local())")
+
+
+def define_op(schema: str, impl: Callable, fake: Callable) -> None:
+    """Define ``torch.ops.repro_torch.<name>`` by ``schema``: its real
+    implementation, for CUDA and CPU tensors alike, is ``impl`` (a kernel's
+    wrapper, which refuses a CPU tensor), and ``fake`` gives the outputs'
+    shapes, dtypes and strides, so that fake tensors pass through it and
+    nothing launches.  A plain ``torch.library.Library`` registration: the
+    dispatcher calls ``impl`` directly, where ``torch.library.custom_op``
+    adds Python layers of its own (autograd, alias checks) to every call."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    for key in ("CUDA", "CPU"):
+        _LIB.impl(name, impl, key)
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
 
 
 def _tool(name: str) -> str:

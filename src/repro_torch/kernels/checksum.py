@@ -6,7 +6,9 @@ the same for every block size.  The library is built by ``nvcc`` at the
 first launch (see ``_build``); this wrapper checks its input, zeroes the
 output, launches on PyTorch's current stream and counts its launches in
 ``checksum.launches``.  It takes CUDA tensors only: the plain version is
-``ref.checksum``.
+``ref.checksum``.  ``ops.tensor_checksum`` calls it through its operator,
+``torch.ops.repro_torch.checksum``, whose fake implementation gives the
+digest's shape, with its work (``work.checksum_work``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, work
 
 _MASK32 = 0xFFFFFFFF
 
@@ -61,3 +63,10 @@ def checksum(data: torch.Tensor, block: int = 4096) -> torch.Tensor:
 
 
 checksum.launches = 0
+
+
+_build.define_op("checksum(Tensor data, int block) -> Tensor", checksum,
+                 lambda data, block: data.new_empty(2, dtype=torch.int64))
+
+work.register(torch.ops.repro_torch.checksum,
+              lambda data, block: work.checksum_work(data.numel()), peak=None)

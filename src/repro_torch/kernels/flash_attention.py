@@ -11,7 +11,12 @@ split is made by dtype inside each library.  Each library is built by ``nvcc`` a
 wrapper checks its inputs, allocates the outputs, launches on PyTorch's
 current stream and counts its launches in ``<wrapper>.launches``.  They take
 CUDA tensors only: the plain versions are ``ref._flash_fwd_impl`` and
-``ref._flash_bwd_impl``.  ``FlashAttention`` joins the two kernels as an
+``ref._flash_bwd_impl``.  Each wrapper is also an operator
+(``torch.ops.repro_torch.flash_attention_fwd``/``_bwd``) whose real
+implementation is the wrapper and whose fake one gives the outputs' shapes,
+so that fake tensors pass through it and a launch is counted only where a
+kernel runs; its work (``work.flash_fwd_work``, ``work.flash_bwd_work``)
+is registered with it.  ``FlashAttention`` joins the two operators as an
 autograd function, the counterpart of the reference's custom VJP on the card
 (``ref.flash_attention`` is the one of the plain versions).
 """
@@ -23,7 +28,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, work
 
 HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -154,15 +159,53 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bwd.launches = 0
 
 
+def _fwd_fake(q, k, v, window, q_offset):
+    b, tq, kvh, g, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, kvh, g, tq), dtype=torch.float32)
+
+
+def _bwd_fake(q, k, v, out, lse, do, window, q_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_build.define_op("flash_attention_fwd(Tensor q, Tensor k, Tensor v, int window, "
+                 "int q_offset) -> (Tensor, Tensor)", flash_attention_fwd, _fwd_fake)
+_build.define_op("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+                 "Tensor do, int window, int q_offset) -> (Tensor, Tensor, Tensor)",
+                 flash_attention_bwd, _bwd_fake)
+
+
+def _peak(q, *_):
+    return "bf16" if q.dtype == torch.bfloat16 else "fp32"     # fp32: the SIMT kernels
+
+
+def _fwd_count(q, k, v, window, q_offset):
+    b, tq, kvh, g, hd = q.shape
+    return work.flash_fwd_work(b, tq, k.shape[1], kvh, g, hd, window, q_offset,
+                               q.element_size())
+
+
+def _bwd_count(q, k, v, out, lse, do, window, q_offset):
+    b, tq, kvh, g, hd = q.shape
+    return work.flash_bwd_work(b, tq, k.shape[1], kvh, g, hd, window, q_offset,
+                               q.element_size())
+
+
+work.register(torch.ops.repro_torch.flash_attention_fwd, _fwd_count, _peak)
+work.register(torch.ops.repro_torch.flash_attention_bwd, _bwd_count, _peak)
+
+
 class FlashAttention(torch.autograd.Function):
     """Causal GQA attention on the card with a flash backward: the forward
-    is ``flash_attention_fwd``, the backward ``flash_attention_bwd``, the
-    counterpart of the reference's custom VJP (``repro.kernels.ref._flash``).
-    The forward saves q, k, v, out and lse; the backward recomputes the rest."""
+    is ``flash_attention_fwd``, the backward ``flash_attention_bwd`` (each
+    through its operator), the counterpart of the reference's custom VJP
+    (``repro.kernels.ref._flash``).  The forward saves q, k, v, out and lse;
+    the backward recomputes the rest."""
 
     @staticmethod
     def forward(ctx, q, k, v, window: int = 0, q_offset: int = 0):
-        out, lse = flash_attention_fwd(q, k, v, window=window, q_offset=q_offset)
+        _build.refuse_dtensor("flash_attention_fwd", q, k, v)
+        out, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, window, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.window, ctx.q_offset = window, q_offset
         return out
@@ -170,6 +213,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        grads = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), ctx.window,
-                                    ctx.q_offset)
+        grads = torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                                          ctx.window, ctx.q_offset)
         return (*grads, None, None)

@@ -14,7 +14,10 @@ version is ``ref.mamba2_ssd``.
 ``ssd_bwd`` is the backward (its plain version ``ref.mamba2_ssd_bwd``), which
 reads the state at every 64 rows that the forward writes when asked, and
 ``SSD`` the autograd function that joins the two; ``ssd_bwd.launches``
-counts its calls.
+counts its calls.  Each wrapper is also an operator
+(``torch.ops.repro_torch.ssd_fwd``/``ssd_bwd``) whose real implementation is
+the wrapper and whose fake one gives the outputs' shapes, with its work
+(``work.ssd_work``, ``work.ssd_bwd_work``); ``SSD`` calls the operators.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, work
 from .rwkv6_scan import aligned
 
 SHAPES = ((64, 64),)  # (P, N), the compiled head and state sizes
@@ -168,19 +171,58 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 ssd_bwd.launches = 0
 
 
+def _fwd_op(x, dt, A, B, C, state, chunk, chunk_states):
+    return list(ssd_fwd(x, dt, A, B, C, state, chunk, chunk_states=chunk_states))
+
+
+def _fwd_fake(x, dt, A, B, C, state, chunk, chunk_states):
+    bt, t = x.shape[:2]
+    states = ([x.new_empty((bt, -(-t // STATE_ROWS), *state.shape[1:]))]
+              if chunk_states else [])
+    return [torch.empty_like(x), torch.empty_like(state), *states]
+
+
+def _bwd_fake(x, dt, A, B, C, states, dy, ds_out, chunk):
+    bt, _, h, p = x.shape
+    return (*(torch.empty_like(a) for a in (x, dt, A, B, C)),
+            x.new_empty((bt, h, p, B.shape[-1])))
+
+
+_build.define_op("ssd_fwd(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor state, "
+                 "int chunk, bool chunk_states) -> Tensor[]", _fwd_op, _fwd_fake)
+_build.define_op("ssd_bwd(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor states, "
+                 "Tensor dy, Tensor? ds_out, int chunk) -> (Tensor, Tensor, Tensor, Tensor, "
+                 "Tensor, Tensor)", ssd_bwd, _bwd_fake)
+
+
+def _fwd_count(x, dt, A, B, C, state, chunk, chunk_states):
+    flops, _, nbytes = work.ssd_work(*x.shape, B.shape[-1], chunk)
+    return flops, nbytes
+
+
+def _bwd_count(x, dt, A, B, C, states, dy, ds_out, chunk):
+    flops, _, nbytes = work.ssd_bwd_work(*x.shape, B.shape[-1], chunk)
+    return flops, nbytes
+
+
+work.register(torch.ops.repro_torch.ssd_fwd, _fwd_count, lambda *_: "tf32")
+work.register(torch.ops.repro_torch.ssd_bwd, _bwd_count, lambda *_: "tf32")
+
+
 class SSD(torch.autograd.Function):
     """The chunked Mamba2 SSD scan on the card, differentiable: the forward is
     ``ssd_fwd`` (keeping its chunk states when a gradient is wanted), the
-    backward ``ssd_bwd``.  The gradient of the final state may be absent (a
+    backward ``ssd_bwd``, each through its operator.  The gradient of the final state may be absent (a
     loss never reads it); it is then not materialised."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, state, chunk: int = 128):
+        _build.refuse_dtensor("ssd_fwd", x, dt, A, B, C, state)
         ctx.set_materialize_grads(False)
         ctx.chunk = chunk
         if not any(ctx.needs_input_grad):
-            return ssd_fwd(x, dt, A, B, C, state, chunk)
-        y, s_out, states = ssd_fwd(x, dt, A, B, C, state, chunk, chunk_states=True)
+            return tuple(torch.ops.repro_torch.ssd_fwd(x, dt, A, B, C, state, chunk, False))
+        y, s_out, states = torch.ops.repro_torch.ssd_fwd(x, dt, A, B, C, state, chunk, True)
         ctx.save_for_backward(x, dt, A, B, C, states)
         return y, s_out
 
@@ -188,6 +230,7 @@ class SSD(torch.autograd.Function):
     def backward(ctx, dy, ds_out):
         x, dt, A, B, C, states = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else aligned(dy)
-        grads = ssd_bwd(x, dt, A, B, C, states, dy,
-                        None if ds_out is None else aligned(ds_out), ctx.chunk)
+        grads = torch.ops.repro_torch.ssd_bwd(x, dt, A, B, C, states, dy,
+                                              None if ds_out is None else aligned(ds_out),
+                                              ctx.chunk)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)

@@ -1,20 +1,41 @@
 """Public entry points for the port's kernels.
 
 Dispatch by where the tensors lie: a CUDA tensor launches the hand-written
-kernel (which raises on what it does not take), a CPU tensor takes the
-plain PyTorch version in ``ref``.  There is no fallback from the one to
-the other.
+kernel (which raises on what it does not take) through its operator
+(``torch.ops.repro_torch.*``, which fake tensors pass through without a
+launch), a CPU tensor takes the plain PyTorch version in ``ref``.  There
+is no fallback from the one to the other.  Inside ``kernel_path()`` every
+tensor takes the card's path: the dry run lowers a step so on fake CPU
+tensors, which stand for the card's.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from . import ref
-from .checksum import checksum as checksum_kernel
+from . import _build, ref
+from . import checksum as _checksum  # noqa: F401  (registers the operator)
 from .flash_attention import FlashAttention
 from .mamba2_ssd import SSD
 from .rwkv6_scan import WKV6
+
+_card_path = False
+
+
+@contextlib.contextmanager
+def kernel_path():
+    """For the block, every call takes the card's path whatever its tensors'
+    device: the kernels' autograd functions and operators.  On fake tensors
+    the operators' fake implementations give the outputs and nothing
+    launches; a real CPU tensor is refused by the kernel's wrapper."""
+    global _card_path
+    saved, _card_path = _card_path, True
+    try:
+        yield
+    finally:
+        _card_path = saved
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -22,7 +43,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal (optionally sliding-window) attention, differentiable: its
     backward is the flash backward kernel on the card, the plain recompute
     backward on the CPU.  q [B,Tq,KV,G,hd]; k/v [B,Tk,KV,hd] -> [B,Tq,KV,G,hd]."""
-    if q.is_cuda:
+    if q.is_cuda or _card_path:
         return FlashAttention.apply(q, k, v, window, q_offset)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, q_offset=q_offset, window=window)
@@ -35,7 +56,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     backward is the WKV6 backward kernel on the card, autograd through the
     plain form on the CPU.
     r,k,w [B,T,H,K]; v [B,T,H,V]; u [H,K]; state [B,H,K,V] -> (y, state)."""
-    if r.is_cuda:
+    if r.is_cuda or _card_path:
         return WKV6.apply(r, k, v, w, u, state, chunk)
     if r.device.type == "cpu":
         return ref.rwkv6_chunked(r, k, v, w, u, state, chunk)
@@ -48,7 +69,7 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
     backward is the SSD backward kernel on the card, autograd through the plain
     form on the CPU.
     x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B,C [Bt,T,N]; state [Bt,H,P,N] -> (y, state)."""
-    if x.is_cuda:
+    if x.is_cuda or _card_path:
         return SSD.apply(x, dt, A, B, C, state, chunk)
     if x.device.type == "cpu":
         return ref.mamba2_ssd(x, dt, A, B, C, state, chunk)
@@ -58,8 +79,9 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
 def tensor_checksum(data: torch.Tensor, block: int = 4096) -> torch.Tensor:
     """Integrity digest of a 1-D int32/uint32 tensor of 32-bit words:
     int64 [2] = (sum (i+1) x_i, sum x_i) mod 2^32, for any ``block``."""
-    if data.is_cuda:
-        return checksum_kernel(data, block)
+    if data.is_cuda or _card_path:
+        _build.refuse_dtensor("checksum", data)
+        return torch.ops.repro_torch.checksum(data, block)
     if data.device.type == "cpu":
         return ref.checksum(data, block=block)
     raise ValueError(f"tensor_checksum: no kernel for device {data.device}")

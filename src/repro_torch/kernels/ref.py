@@ -33,9 +33,16 @@ def _mask_for(q_pos, k_pos, tk, window):
     return mask
 
 
+def _k_start(q_start, j, tk, window, span, block_k):
+    """The first key position of block j (with a window: of the q block's span)."""
+    if window:
+        return min(max(q_start - window + 1, 0), max(tk - span, 0))
+    return j * block_k
+
+
 def _kv_slice(kp, vp, q_start, j, tk, window, span, block_k):
     if window:
-        k_start = min(max(q_start - window + 1, 0), max(tk - span, 0))
+        k_start = _k_start(q_start, j, tk, window, span, block_k)
         k_j = kp[:, k_start:k_start + span]
         v_j = vp[:, k_start:k_start + span]
         k_pos = k_start + torch.arange(span, device=kp.device)
@@ -141,13 +148,13 @@ def _flash_bwd_impl(q, k, v, lse, do, q_offset, window, block_q, block_k):
             # where(), not the reference's exp(.) * mask: the same values, and
             # no inf * 0 where a masked logit lies far above the row's lse
             p = torch.where(mask[None, None, None], torch.exp(s - lse_i[..., None]), 0.0)
-            tiles.append((k_j, v_j, k_pos, p))
+            tiles.append((k_j, v_j, _k_start(q_start, j, tk, window, span, block_k), p))
         # D_i = rowsum(do * o), with o recomputed from p
         o_i = sum(torch.einsum("bkgqs,bskh->bqkgh", p.to(v_j.dtype).float(), v_j.float())
                   for _, v_j, _, p in tiles)
         d_i = (do_i.float() * o_i).sum(-1).permute(0, 2, 3, 1)      # [b,kv,g,bq]
         dq_i = torch.zeros((b, block_q, kvh, g, hd), dtype=torch.float32, device=dev)
-        for k_j, v_j, k_pos, p in tiles:
+        for k_j, v_j, k0, p in tiles:
             dv_j = torch.einsum("bkgqs,bqkgh->bskh", p.to(do_i.dtype).float(),
                                 do_i.float())
             dp = torch.einsum("bqkgh,bskh->bkgqs", do_i.float(), v_j.float())
@@ -156,7 +163,6 @@ def _flash_bwd_impl(q, k, v, lse, do, q_offset, window, block_q, block_k):
                                        ds.to(k_j.dtype).float(), k_j.float())
             dk_j = torch.einsum("bkgqs,bqkgh->bskh", ds.to(q_i.dtype).float(),
                                 q_i.float())
-            k0 = int(k_pos[0])
             dk_acc[:, k0:k0 + dk_j.shape[1]] += dk_j
             dv_acc[:, k0:k0 + dv_j.shape[1]] += dv_j
         dqs.append(dq_i.to(q.dtype))

@@ -14,7 +14,11 @@ is ``ref.rwkv6_chunked``.
 
 ``wkv6_bwd`` is the backward (its plain version ``ref.rwkv6_chunked_bwd``),
 which reads the forward's chunk states, and ``WKV6`` the autograd function
-that joins the two; ``wkv6_bwd.launches`` counts its calls.
+that joins the two; ``wkv6_bwd.launches`` counts its calls.  Each wrapper is
+also an operator (``torch.ops.repro_torch.wkv6_fwd``/``wkv6_bwd``) whose
+real implementation is the wrapper and whose fake one gives the outputs'
+shapes, with its work (``work.wkv6_work``, ``work.wkv6_bwd_work``); ``WKV6``
+calls the operators.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ import functools
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-from . import _build
+from . import _build, work
 
 HEAD_DIMS = (64,)     # K = V, the compiled head size
 CHUNKS = (64,)
@@ -161,21 +166,62 @@ wkv6_bwd.launches = 0
 
 def aligned(x: torch.Tensor) -> torch.Tensor:
     """x itself if it is contiguous and 16-byte-aligned, else an aligned copy (an
-    incoming gradient may be a strided view)."""
-    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+    incoming gradient may be a strided view).  A fake tensor has no address: its
+    storage offset stands for it (the allocator aligns every storage)."""
+    offset = x.storage_offset() * x.element_size() if is_fake(x) else x.data_ptr()
+    if x.is_contiguous() and offset % 16 == 0:
         return x
     return x.clone(memory_format=torch.contiguous_format)
 
 
+def _fwd_op(r, k, v, w, u, state, chunk, chunk_states):
+    return list(wkv6_fwd(r, k, v, w, u, state, chunk, chunk_states=chunk_states))
+
+
+def _fwd_fake(r, k, v, w, u, state, chunk, chunk_states):
+    b, t, h, kd = r.shape
+    states = [r.new_empty((b, -(-t // chunk), h, kd, kd))] if chunk_states else []
+    return [torch.empty_like(v), torch.empty_like(state), *states]
+
+
+def _bwd_fake(r, k, v, w, u, states, dy, ds_out, chunk):
+    b, _, h, kd = r.shape
+    return (*(torch.empty_like(x) for x in (r, k, v, w, u)),
+            r.new_empty((b, h, kd, kd)))
+
+
+_build.define_op("wkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor state, "
+                 "int chunk, bool chunk_states) -> Tensor[]", _fwd_op, _fwd_fake)
+_build.define_op("wkv6_bwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor states, "
+                 "Tensor dy, Tensor? ds_out, int chunk) -> (Tensor, Tensor, Tensor, Tensor, "
+                 "Tensor, Tensor)", wkv6_bwd, _bwd_fake)
+
+
+def _fwd_count(r, k, v, w, u, state, chunk, chunk_states):
+    flops, _, nbytes = work.wkv6_work(*r.shape, chunk)
+    return flops, nbytes
+
+
+def _bwd_count(r, k, v, w, u, states, dy, ds_out, chunk):
+    flops, _, nbytes = work.wkv6_bwd_work(*r.shape, chunk)
+    return flops, nbytes
+
+
+work.register(torch.ops.repro_torch.wkv6_fwd, _fwd_count, lambda *_: "tf32")
+work.register(torch.ops.repro_torch.wkv6_bwd, _bwd_count, lambda *_: "tf32")
+
+
 class WKV6(torch.autograd.Function):
     """The chunked WKV6 recurrence on the card, differentiable: the forward is
-    ``wkv6_fwd`` (saving its chunk states), the backward ``wkv6_bwd``.  The
+    ``wkv6_fwd`` (saving its chunk states), the backward ``wkv6_bwd``, each
+    through its operator.  The
     gradient of the final state may be absent (a loss never reads it); it is
     then not materialised."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state, chunk: int = 64):
-        y, s_out, states = wkv6_fwd(r, k, v, w, u, state, chunk, chunk_states=True)
+        _build.refuse_dtensor("wkv6_fwd", r, k, v, w, u, state)
+        y, s_out, states = torch.ops.repro_torch.wkv6_fwd(r, k, v, w, u, state, chunk, True)
         ctx.save_for_backward(r, k, v, w, u, states)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
@@ -185,6 +231,7 @@ class WKV6(torch.autograd.Function):
     def backward(ctx, dy, ds_out):
         r, k, v, w, u, states = ctx.saved_tensors
         dy = torch.zeros_like(v) if dy is None else aligned(dy)
-        grads = wkv6_bwd(r, k, v, w, u, states, dy,
-                         None if ds_out is None else aligned(ds_out), ctx.chunk)
+        grads = torch.ops.repro_torch.wkv6_bwd(r, k, v, w, u, states, dy,
+                                               None if ds_out is None else aligned(ds_out),
+                                               ctx.chunk)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)

@@ -1,3 +1,3 @@
-from .model import ModelApi, get_model
+from .model import ModelApi, get_model, input_specs, kv_dtype_for_cell
 
-__all__ = ["ModelApi", "get_model"]
+__all__ = ["ModelApi", "get_model", "input_specs", "kv_dtype_for_cell"]

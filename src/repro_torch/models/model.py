@@ -7,6 +7,7 @@
     logits, cache = api.prefill(params, tokens, smax, kv_dtype)
     logits, cache = api.decode(params, token, cache, cache_len)
     cache_spec    = api.cache_spec(batch, smax, kv_dtype)  # {name: (shape, dtype)}
+    specs         = input_specs(cfg, shape)                # {name: (shape, dtype)}
 
 musicgen-large and chameleon-34b reuse the dense backbone; their modality
 frontends are stubs, as in the reference: the inputs are token ids.
@@ -21,7 +22,7 @@ unread.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -81,3 +82,29 @@ def get_model(cfg: ArchConfig) -> ModelApi:
         cache_spec=lambda batch, smax, kv="bfloat16":
             transformer.kv_cache_spec(cfg, batch, smax, kv),
     )
+
+
+def input_specs(cfg: ArchConfig, shape, mode: Optional[str] = None
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of every model input of one dry-run cell, as
+    ``cache_spec`` gives the cache's.
+
+    For the audio and vlm archs the frontend is a stub: the specs are the
+    precomputed token stream the frontend would produce."""
+    mode = mode or shape.kind
+    b, t = shape.global_batch, shape.seq_len
+    if mode == "train":
+        return {"tokens": ((b, t), torch.int32), "labels": ((b, t), torch.int32)}
+    if mode == "prefill":
+        return {"tokens": ((b, t), torch.int32)}
+    if mode == "decode":
+        return {"token": ((b, 1), torch.int32)}
+    raise ValueError(mode)
+
+
+def kv_dtype_for_cell(cfg: ArchConfig, shape_name: str) -> str:
+    """The KV cache's dtype name for a cell: the decode_32k override where the
+    config has one."""
+    if shape_name == "decode_32k" and cfg.kv_cache_dtype_decode_32k:
+        return cfg.kv_cache_dtype_decode_32k
+    return cfg.kv_cache_dtype

@@ -65,7 +65,8 @@ def _slots(cfg: ArchConfig, top_e: torch.Tensor, capacity: int):
     E = cfg.n_experts
     G, ng, k = top_e.shape
     flat_e = top_e.reshape(G, ng * k)
-    onehot = F.one_hot(flat_e, E)
+    # F.one_hot, written out: its range check reads the indices back to the host
+    onehot = (flat_e[..., None] == torch.arange(E, device=flat_e.device)).long()
     pos_in_e = torch.cumsum(onehot, dim=1) - onehot
     flat_pos = (pos_in_e * onehot).sum(-1)
     keep = flat_pos < capacity

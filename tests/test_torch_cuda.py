@@ -846,3 +846,112 @@ def test_kernel_wrappers_refuse_dtensors_on_cuda(cuda, nccl_mesh):
         checksum_kernel(words)
     with pytest.raises(TypeError, match="DTensor"):
         ops.tensor_checksum(words)
+
+
+# ------------------------------------------------------------------ the kernels' operators
+
+def _op_calls(cuda):
+    """(operator, wrapper, arguments) for each of the seven kernel operators, at small
+    shapes the kernels take."""
+    from repro_torch.kernels import mamba2_ssd, rwkv6_scan
+    gen = torch.Generator().manual_seed(9)
+    n = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(cuda)  # noqa: E731
+    q, k, v = _inputs(9, 2, 100, 100, 2, 2, 64, torch.bfloat16, cuda)
+    out, lse = flash_attention_fwd(q, k, v)
+    r, v6, st, u = n(2, 100, 4, 64), n(2, 100, 4, 64), n(2, 4, 64, 64), n(4, 64)
+    w = torch.sigmoid(n(2, 100, 4, 64))
+    _, _, w_states = wkv6_fwd(r, r, v6, w, u, st, 64, chunk_states=True)
+    x, dt, A, Bm = n(2, 150, 4, 64), torch.nn.functional.softplus(n(2, 150, 4)), -n(4).abs(), n(2, 150, 64)
+    _, _, s_states = ssd_fwd(x, dt, A, Bm, Bm, st, 128, chunk_states=True)
+    o = torch.ops.repro_torch
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (1000,), generator=gen, dtype=torch.int32).to(cuda)
+    return [
+        (o.flash_attention_fwd, flash_attention_fwd, (q, k, v, 0, 0), {}),
+        (o.flash_attention_bwd, flash_attention_bwd, (q, k, v, out, lse, q, 0, 0), {}),
+        (o.wkv6_fwd, rwkv6_scan.wkv6_fwd, (r, r, v6, w, u, st, 64, True), {}),
+        (o.wkv6_bwd, wkv6_bwd, (r, r, v6, w, u, w_states, v6, st, 64), {}),
+        (o.ssd_fwd, mamba2_ssd.ssd_fwd, (x, dt, A, Bm, Bm, st, 128, False), {}),
+        (o.ssd_bwd, ssd_bwd, (x, dt, A, Bm, Bm, s_states, x, st, 128), {}),
+        (o.checksum, checksum_kernel, (words, 4096), {}),
+    ]
+
+
+def _outs(x):
+    return [x] if isinstance(x, torch.Tensor) else list(x)
+
+
+@pytest.mark.cuda
+def test_kernel_operators_launch_count_and_match_the_wrappers(cuda):
+    """Each operator's real implementation is its wrapper: the same outputs, bit for
+    bit, and one launch a call; its fake implementation gives the same shapes,
+    dtypes and strides, and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    for op, wrapper, args, _ in _op_calls(cuda):
+        chunk_states = {torch.ops.repro_torch.wkv6_fwd: True,
+                        torch.ops.repro_torch.ssd_fwd: False}
+        if op in chunk_states:
+            want = wrapper(*args[:-1], chunk_states=args[-1])
+        else:
+            want = wrapper(*args)
+        before = wrapper.launches
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, op
+        assert all(torch.equal(a, b) for a, b in zip(_outs(got), _outs(want))), op
+        with FakeTensorMode() as mode:
+            fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                        for a in args))
+        assert wrapper.launches == before + 1, op
+        assert [(x.shape, x.dtype, x.stride(), x.device) for x in _outs(fake)] == \
+            [(x.shape, x.dtype, x.stride(), x.device) for x in _outs(got)], op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "rwkv6-1.6b", "zamba2-7b"])
+def test_counts_on_the_card_equal_fake_counts(cuda, arch, kind):
+    """A reduced model's train step or prefill counted on the card (the kernels
+    launch), on fake CUDA twins and on fake CPU twins through the kernels'
+    operators (the dry run's lowering): the same flops and bytes, exactly, the
+    lowering's peak of live bytes within 1%, and the fake lowerings launch nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    cfg = reduced_config(arch, "cuda")
+    api = get_model(cfg)
+    params = api.init(0, torch.bfloat16, "cuda")
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (2, 96), generator=gen).to(cuda)
+    if kind == "train":
+        oc = opt.opt_config_for(cfg, warmup_steps=2, total_steps=4)
+        fn, args = make_train_step(cfg, oc), (params, opt.init_opt_state(oc, params),
+                                              {"tokens": toks, "labels": toks.roll(-1, 1)})
+    else:
+        fn, args = (lambda p, x: api.prefill(p, x, 128)), (params, toks)
+
+    def counted(a, device):
+        count = roofline.Count(device)
+        with torch.set_grad_enabled(kind == "train"), count:
+            fn(*a)
+        return count
+    real = counted(args, "cuda")
+    launched = [w.launches for w in (flash_attention_fwd, flash_attention_bwd, wkv6_fwd,
+                                     wkv6_bwd, ssd_fwd, ssd_bwd)]
+    with FakeTensorMode():
+        fake = counted(dryrun.fake_twin(args, "cuda"), "cuda")
+    with FakeTensorMode(), ops.kernel_path():
+        lowered = counted(dryrun.fake_twin(args, "cpu"), "cpu")
+    assert launched == [w.launches for w in (flash_attention_fwd, flash_attention_bwd,
+                                             wkv6_fwd, wkv6_bwd, ssd_fwd, ssd_bwd)]
+    work = lambda c: {k: v for k, v in c.totals().items() if k != "copy_bytes"}  # noqa: E731
+    assert real.kernel_calls and dict(fake.kernel_calls) == dict(real.kernel_calls) \
+        == dict(lowered.kernel_calls)
+    assert work(fake) == work(real) and work(lowered) == work(real)
+    # the dry run's memory column: its peak of live bytes within 1% of the card's
+    # count (a copy that one run makes and the other does not may be live at the peak)
+    peak = real.memory()["peak_bytes"]
+    assert peak > 0 and abs(lowered.memory()["peak_bytes"] / peak - 1) <= 0.01
