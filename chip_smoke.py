@@ -72,11 +72,14 @@ Phases, each fatal on failure:
       joined through a rendezvous file and a 1 x 1 ("data", "model") mesh:
       (j1) after (g), (g)'s minicpm-2b (full width, ``TRAINER_LAYERS`` layers,
       bf16 params, fp32 master weights and moments, (f)'s batches) takes 3
-      steps of ``make_train_step`` on DTensor params and optimizer state
-      placed by ``param_shardings``/``opt_shardings``, then 3 steps without a
-      mesh from the same weights: the flash kernels' launches per step, every
-      leaf after 2 steps bit for bit by K2 digests (or within ``TRAIN_TOL``),
-      each path's step ms, and one more step of each under torch.profiler;
+      steps without a mesh, then 3 steps of ``make_train_step`` from the same
+      weights on DTensor params and optimizer state placed by
+      ``param_shardings``/``opt_shardings``, and 3 more with FSDP forced (the
+      params split over "data", so each layer's gather and its backward's
+      reduce-scatter run on the group of one): the flash kernels' launches per
+      step, every leaf after 2 steps bit for bit by K2 digests, the parameter
+      gathers and gradient reduce-scatters a step, each run's step ms and
+      peak GB, and one more step of each under torch.profiler;
       (j2) in (h), on its weights and after its checks, one prefill wave
       through the expert-parallel ``moe_block_shard_map`` (8 experts a
       rank) against the local dispatch in groups = dp = 1, on shared expert
@@ -153,7 +156,7 @@ from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import init_process_group, make_host_mesh  # noqa: E402
 from repro_torch.launch.train import write_dataset  # noqa: E402
 from repro_torch.models import get_model, moe, transformer  # noqa: E402
-from repro_torch.parallel import compress, ctx  # noqa: E402
+from repro_torch.parallel import compress, ctx, spmd  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.serve.server import BatchServer, Request  # noqa: E402
 from repro_torch.storage.datapipe import ShardReader  # noqa: E402
@@ -1495,10 +1498,66 @@ def _local_words(p):
     return (p.to_local() if isinstance(p, DTensor) else p).reshape(-1).view(torch.int32)
 
 
+def _mesh_steps(step, cfg, api, oc, mesh, batches, want, want_digests, fsdp: bool):
+    """(j1)'s steps on DTensor params and ZeRO-1 state placed by the rules (with
+    ``fsdp``: as FSDP places them, split over "data" too, so that each layer's
+    gather and its backward's reduce-scatter run NCCL collectives on the group
+    of one) from seed 0's weights: step ms, the K2 digests after 2 steps, the
+    kernels' launches, the parameter gathers and reduce-scatters a step, the
+    steps' own peak of device memory, and one more step under the profiler."""
+    needs_fsdp = shd.needs_fsdp
+    whole = api.init(0, torch.bfloat16, "cuda")
+    if fsdp:
+        shd.needs_fsdp = lambda cfg: True
+    try:
+        params = shd.distribute_tree(whole, shd.param_shardings(cfg, whole, mesh), mesh)
+        state = opt.init_opt_state(oc, params, shd.opt_shardings(cfg, whole, mesh))
+    finally:
+        shd.needs_fsdp = needs_fsdp
+    del whole
+    split = sorted(".".join(path) for path, p in opt.flatten_with_paths(params)
+                   if any(pl.is_shard() for pl, a in zip(p.placements, mesh.mesh_dim_names)
+                          if a == "data"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    spmd.GATHERS.clear()
+    steps = []
+    for i, batch in enumerate(batches[:-1]):
+        params, state, m = _timed_step(step, params, state, batch)
+        steps.append(m)
+        if i == 1:
+            leaves = dict(opt.flatten_with_paths(params))
+            digests = {path: ops.tensor_checksum(_local_words(p)).tolist()
+                       for path, p in leaves.items()}
+            differ = {".".join(path): rel_close(leaves[path].full_tensor(), want[path],
+                                                TRAIN_TOL)[1]
+                      for path in digests if digests[path] != want_digests[path]}
+            del leaves
+    counts = launches()
+    gathers = {k: v / len(steps) for k, v in spmd.GATHERS.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params, state, profile_ = _profiled_step(step, params, state, batches[-1])
+    placed = all(isinstance(p, DTensor) for _, p in opt.flatten_with_paths(params)) and all(
+        isinstance(x, DTensor) for t in (state.mu, state.nu, state.master) if t is not None
+        for _, x in opt.flatten_with_paths(t))
+    res = {"fsdp_forced": fsdp, "leaves_split_over_data": split, "steps": steps,
+           "step_ms": steps[-1]["ms"], "peak_mem_gb": peak, "launches": counts,
+           "param_gathers_per_step": gathers.get("gather", 0.0),
+           "grad_reduce_scatters_per_step": gathers.get("reduce_scatter", 0.0),
+           "leaves": len(digests), "leaves_bit_identical_after_2_steps": len(digests) - len(differ),
+           "differing_leaves_err": differ, "placed_as_dtensors": placed, "profile": profile_}
+    del params, state
+    free_device_memory()
+    return res, counts
+
+
 def phase_mesh_train(mesh):
     """(j1): (g)'s minicpm-2b through ``make_train_step`` on DTensor params and
     ZeRO-1 optimizer state on ``mesh``, against the mesh-free step from the
-    same weights: K2 digests of every leaf after 2 steps, and step ms."""
+    same weights: K2 digests of every leaf after 2 steps, bit for bit, the
+    kernels' launches, and each path's step ms; twice, as the rules place the
+    params and with FSDP forced."""
     t_phase = time.perf_counter()
     full = get_arch(TRAIN_ARCH)
     cfg = dataclasses.replace(full, n_layers=TRAINER_LAYERS)
@@ -1509,6 +1568,7 @@ def phase_mesh_train(mesh):
     # the steps, then one more under the profiler
     batches = [train_batch(cfg, TRAIN_B, TRAIN_T, 100 + i) for i in range(MESH_TRAIN_STEPS + 1)]
     step = make_train_step(cfg, oc)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     params = api.init(0, torch.bfloat16, "cuda")
@@ -1521,54 +1581,51 @@ def phase_mesh_train(mesh):
             want = {path: p.clone() for path, p in opt.flatten_with_paths(params)}
             want_digests = {path: ops.tensor_checksum(_local_words(p)).tolist()
                             for path, p in want.items()}
+    plain_peak = torch.cuda.max_memory_allocated() / 1e9
     params, state, plain_profile = _profiled_step(step, params, state, batches[-1])
     del params, state
     free_device_memory()
 
-    whole = api.init(0, torch.bfloat16, "cuda")
-    params = shd.distribute_tree(whole, shd.param_shardings(cfg, whole, mesh), mesh)
-    state = opt.init_opt_state(oc, params, shd.opt_shardings(cfg, whole, mesh))
-    del whole
-    reset_launches()
-    mesh_steps = []
-    for i, batch in enumerate(batches[:-1]):
-        params, state, m = _timed_step(step, params, state, batch)
-        mesh_steps.append(m)
-        if i == 1:
-            digests = {path: ops.tensor_checksum(_local_words(p)).tolist()
-                       for path, p in opt.flatten_with_paths(params)}
-            differ = {".".join(path): rel_close(p.full_tensor(), want[path], TRAIN_TOL)[1]
-                      for path, p in opt.flatten_with_paths(params)
-                      if digests[path] != want_digests[path]}
-    counts = launches()
-    params, state, mesh_profile = _profiled_step(step, params, state, batches[-1])
     per_step = train_launches(cfg)
     expect = {name: n * MESH_TRAIN_STEPS for name, n in per_step.items()}
-    expect["checksum"] = len(digests)
-    if counts != expect:
-        raise AssertionError(f"kernel launches over the mesh train steps {counts}, "
-                             f"expected {expect}")
-    leaves = list(opt.flatten_with_paths(params))
-    placed = all(isinstance(p, DTensor) for _, p in leaves) and all(
-        isinstance(x, DTensor) for t in (state.mu, state.nu, state.master) if t is not None
-        for _, x in opt.flatten_with_paths(t))
+    expect["checksum"] = len(want_digests)
+    # a gather a layer in the forward and one in its recompute, and the tied
+    # embedding's for the lookup and for the head; a reduce-scatter each
+    want_gathers = (2 * cfg.n_layers + 2, cfg.n_layers + 2)
+    runs = {}
+    for name, fsdp in (("rules", False), ("fsdp", True)):
+        res, counts = _mesh_steps(step, cfg, api, oc, mesh, batches, want, want_digests, fsdp)
+        runs[name] = res
+        if counts != expect:
+            raise AssertionError(f"kernel launches over the mesh train steps ({name}) {counts}, "
+                                 f"expected {expect}")
     res = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "mesh": list(mesh.shape),
            "mesh_axes": list(mesh.mesh_dim_names), "backend": dist.get_backend(), "world": 1,
            "batch": TRAIN_B, "seq": TRAIN_T, "steps": MESH_TRAIN_STEPS,
-           "mesh_steps": mesh_steps, "plain_steps": plain_steps,
-           "step_ms_mesh": mesh_steps[-1]["ms"], "step_ms_plain": plain_steps[-1]["ms"],
-           "mesh_host_ms_added": mesh_steps[-1]["ms"] - plain_steps[-1]["ms"],
-           "leaves": len(digests), "leaves_bit_identical_after_2_steps": len(digests) - len(differ),
-           "differing_leaves_err": differ, "tolerance": TRAIN_TOL, "placed_as_dtensors": placed,
-           "launches": counts, "launches_per_step": {k: v for k, v in per_step.items() if v},
-           "profile_mesh": mesh_profile, "profile_plain": plain_profile,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "phase_s": time.perf_counter() - t_phase}
+           "plain_steps": plain_steps, "step_ms_plain": plain_steps[-1]["ms"],
+           "peak_mem_gb_plain": plain_peak, "profile_plain": plain_profile,
+           "step_ms_mesh": runs["rules"]["step_ms"], "step_ms_mesh_fsdp": runs["fsdp"]["step_ms"],
+           "mesh_host_ms_added": runs["rules"]["step_ms"] - plain_steps[-1]["ms"],
+           "want_gathers_per_step": list(want_gathers), "expected_launches": expect,
+           "launches": runs["rules"]["launches"],
+           "peak_mem_gb": max(plain_peak, *(r["peak_mem_gb"] for r in runs.values())),
+           "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "runs": runs, "phase_s": time.perf_counter() - t_phase}
     log(f"  mesh train: {json.dumps(res)}")
-    if not placed or any(e > TRAIN_TOL for e in differ.values()) or not all(
-            torch.isfinite(torch.tensor([m["loss"], m["grad_norm"]])).all() for m in mesh_steps):
-        raise AssertionError(f"mesh train step against the mesh-free one: {res}")
-    del params, state, want, leaves
+    # bit for bit as the rules place the params; with FSDP forced, a gathered
+    # weight split along a dim other than its first is a strided view of the
+    # gathered buffer (wo, w2, emb/tok), and cuBLAS may take another kernel for
+    # it than for the contiguous weight: within TRAIN_TOL there
+    for name, run in runs.items():
+        finite = all(torch.isfinite(torch.tensor([m["loss"], m["grad_norm"]])).all()
+                     for m in run["steps"])
+        got_gathers = (run["param_gathers_per_step"], run["grad_reduce_scatters_per_step"])
+        differ = run["differing_leaves_err"]
+        if not run["placed_as_dtensors"] or not finite or got_gathers != want_gathers or \
+                (name == "fsdp") != bool(run["leaves_split_over_data"]) or \
+                (differ if name == "rules" else any(e > TRAIN_TOL for e in differ.values())):
+            raise AssertionError(f"mesh train step ({name}) against the mesh-free one: {res}")
+    del want
     return res
 
 
@@ -1995,6 +2052,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
              f"{TRAIN_ARCH}-train": training["launches"],
              f"{TRAIN_ARCH}-trainer": trainer["launches"],
              f"{TRAIN_ARCH}-mesh-train": mesh_train["launches"],
+             f"{TRAIN_ARCH}-mesh-train-fsdp": mesh_train["runs"]["fsdp"]["launches"],
              f"{MOE_ARCH}-ep-prefill": servings[MOE_ARCH]["ep_prefill"]["launches"],
              **{f"{a}-train": t["launches"] for a, t in ssm_training.items()}}
 

@@ -24,12 +24,13 @@ implementation gives its outputs, counted by its work formula.  No kernel
 is launched and no card is touched; the same command runs with and without
 one.
 
-Where the port's path differs from the reference's placements, the record
-says what the port did (``placement``): a train step gathers every
-parameter whole on each rank (``train_step.py``'s ``full_tensor``), and
-serving runs on whole parameters, caches and batches on every rank (the
-MLP and the MoE block take their "model" share), where the reference
-shards caches and logits.
+The record says how the port placed the call (``placement``).  A train
+step stores parameters and gradients as the reference's placements say:
+each layer gathers its blocks over the data axes inside its checkpointed
+block (``param_gathers``: gathers and their backward's reduce-scatters),
+and the loss is vocab-parallel.  Serving runs on whole parameters, caches
+and batches on every rank (the MLP and the MoE block take their "model"
+share), where the reference shards caches and logits.
 
 Importing this module has no side effects: the process group is joined by
 ``lower_cell``.
@@ -50,7 +51,7 @@ import torch.distributed as dist
 from ..configs import all_cells, get_arch, get_shape
 from ..kernels import ops
 from ..models import get_model, input_specs, kv_dtype_for_cell
-from ..parallel import ctx
+from ..parallel import ctx, spmd
 from ..parallel import sharding as shd
 from ..train import optimizer as opt
 from ..train.train_step import make_train_step
@@ -61,10 +62,20 @@ RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 DEVICE = "cpu"           # where the fake tensors lie (they stand for the card's)
 CARD_BYTES = 80e9        # one H100's device memory
 PLACEMENT = {
-    "train": {"params": "DTensors placed by sharding.param_shardings; the step gathers "
-                        "each whole on every rank (full_tensor) and all-reduces whole "
-                        "gradients over the data axes",
-              "opt_state": "DTensors placed by sharding.opt_shardings (ZeRO-1)",
+    "train": {"params": "DTensors placed by sharding.param_shardings; the model takes each "
+                        "rank's blocks, a checkpointed layer gathers its blocks over the data "
+                        "axes where they are split (FSDP) inside, and again in the recompute; "
+                        "weights split over 'model' stay this rank's block where that is its "
+                        "part (attention under TP head padding, and rwkv6's and Mamba2's "
+                        "layers, gather over 'model' too)",
+              "grads": "at each param's placement: an FSDP leaf's reduce-scattered over the "
+                       "data axes by its gather's backward, the rest reduce-scattered onto "
+                       "their ZeRO-1 blocks after the backward",
+              "loss": "vocab-parallel: the embedding, head and cross-entropy on each rank's "
+                      "slice of the vocab ([B, T, V / model] logits)",
+              "opt_state": "DTensors placed by sharding.opt_shardings (ZeRO-1); each rank "
+                           "updates its block and gathers it over the data axes where the "
+                           "param is not split",
               "batch": "rows over the data axes (sharding.input_shardings)"},
     "prefill": {"params": "whole on every rank (the serving path takes plain tensors)",
                 "tokens": "the whole batch on every rank",
@@ -106,8 +117,8 @@ def _empty(spec):
 
 
 def lower_cell(arch_name: str, shape_name: str, multi_pod: bool):
-    """One cell's call on fake tensors, counted; returns (cfg, shape, count,
-    seconds of the counted call)."""
+    """One cell's call on fake tensors, counted; returns (cfg, shape, mesh,
+    count, seconds of the counted call, a train step's ``spmd.GATHERS``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg, shape = get_arch(arch_name), get_shape(shape_name)
@@ -116,6 +127,7 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool):
     mesh = make_production_mesh(multi_pod=multi_pod, device_type=DEVICE)
     kv = kv_dtype_for_cell(cfg, shape_name)
     count = roofline.Count(DEVICE)
+    spmd.GATHERS.clear()
     with FakeTensorMode(), ops.kernel_path():
         whole = api.init(0, torch.bfloat16, DEVICE)
         ins = _empty(input_specs(cfg, shape))
@@ -146,7 +158,7 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool):
             with torch.no_grad(), ctx.mesh_context(mesh), count:
                 api.decode(whole, ins["token"], cache, shape.seq_len - 1)
         lower_s = time.perf_counter() - t0
-    return cfg, shape, mesh, count, lower_s
+    return cfg, shape, mesh, count, lower_s, dict(spmd.GATHERS)
 
 
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
@@ -157,7 +169,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
     result = {"arch": arch_name, "shape": shape_name, "mesh": mesh_name, "ok": False}
     t0 = time.perf_counter()
     try:
-        cfg, shape, mesh, count, lower_s = lower_cell(arch_name, shape_name, multi_pod)
+        cfg, shape, mesh, count, lower_s, gathers = lower_cell(arch_name, shape_name, multi_pod)
         n_dev = mesh.size()
         totals = count.totals()
         mem = count.memory()
@@ -168,6 +180,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
             fake_device=f"{DEVICE} (standing for cuda: the kernels' operators, fake)",
             kv_dtype=kv_dtype_for_cell(cfg, shape_name), placement=PLACEMENT[shape.kind],
             lower_s=lower_s, kernel_calls=dict(count.kernel_calls),
+            param_gathers=gathers,
             memory={**mem, "fits_80gb": mem["peak_bytes"] <= CARD_BYTES},
             cost={"flops": totals["dot_flops"], "bytes accessed": totals["traffic_bytes"]},
             collective_bytes=coll_bytes, collective_count=coll_count, totals=totals,

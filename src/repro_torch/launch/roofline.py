@@ -27,7 +27,9 @@ up, for the rank it runs on:
     that span nodes;
   * the peak of live device bytes (storages that operators made, plus
     those registered before the call), split into params, optimizer state,
-    gradients (made by the backward with grad mode off) and the rest.
+    gradients (made by the backward with grad mode off), all-gathers'
+    results (``gathered``: in a train step, the parameters a layer gathers)
+    and the rest; and each category's own peak.
 
 What of the reference has no counterpart, and why: ``fold_totals`` and the
 trip counts (nothing is folded: every layer runs in Python, and each of its
@@ -165,7 +167,7 @@ class Count(TorchDispatchMode):
     ``track(tree, category)`` registers tensors that exist before the call
     (params, optimizer state, inputs) as live device bytes."""
 
-    CATEGORIES = ("params", "opt_state", "grads", "other")
+    CATEGORIES = ("params", "opt_state", "grads", "gathered", "other")
 
     def __init__(self, device_type: str = "cuda"):
         super().__init__()
@@ -182,6 +184,7 @@ class Count(TorchDispatchMode):
         self.live_by_cat: Dict[str, int] = dict.fromkeys(self.CATEGORIES, 0)
         self.peak = 0
         self.peak_by_cat: Dict[str, int] = dict(self.live_by_cat)
+        self.peak_of_cat: Dict[str, int] = dict(self.live_by_cat)
 
     # ---------------------------------------------------------------- memory
     def track(self, tree, category: str) -> None:
@@ -204,10 +207,20 @@ class Count(TorchDispatchMode):
         n, category, _ = self._live.pop(key)
         self.live_by_cat[category] -= n
 
+    def _retag(self, t: torch.Tensor, category: str) -> None:
+        key = t.untyped_storage()._cdata
+        if key in self._live:
+            n, old, ref = self._live[key]
+            self.live_by_cat[old] -= n
+            self.live_by_cat[category] += n
+            self._live[key] = (n, category, ref)
+
     def _note_peak(self) -> None:
         total = sum(self.live_by_cat.values())
         if total > self.peak:
             self.peak, self.peak_by_cat = total, dict(self.live_by_cat)
+        for c, n in self.live_by_cat.items():
+            self.peak_of_cat[c] = max(self.peak_of_cat[c], n)
 
     # ------------------------------------------------------------ operators
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -254,6 +267,10 @@ class Count(TorchDispatchMode):
         wire = _wire_bytes(kind, payload, pg.size())
         self.wire["in_node" if len(nodes) == 1 else "across_nodes"] += wire
         self.wire_by_kind[kind] += wire
+        if kind == "all-gather":
+            for t in outs:
+                if t.device.type == self.device_type:
+                    self._retag(t, "gathered")
 
     # --------------------------------------------------------------- results
     def totals(self) -> Dict[str, float]:
@@ -268,7 +285,8 @@ class Count(TorchDispatchMode):
                 **{f"coll_{k}": v for k, v in sorted(self.coll_payload.items())}}
 
     def memory(self) -> Dict[str, object]:
-        return {"peak_bytes": self.peak, "peak_by_category": dict(self.peak_by_cat)}
+        return {"peak_bytes": self.peak, "peak_by_category": dict(self.peak_by_cat),
+                "peak_of_category": dict(self.peak_of_cat)}
 
     def collectives(self):
         return dict(sorted(self.coll_payload.items())), dict(sorted(self.coll_count.items()))

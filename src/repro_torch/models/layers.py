@@ -16,7 +16,12 @@ with ``pad_tp`` returns this rank's share of the heads, zero-padded up to a
 multiple of the axis when they do not divide it (the reference's
 ``pad_tp``), and ``swiglu_tp`` splits the hidden dim.  The gradients of the
 weights and of the region's input are summed over the axis
-(``parallel.spmd``).
+(``parallel.spmd``).  Under placed parameters (``ctx.param_placements``,
+a train step's) the model is given each rank's blocks: a weight split
+over "model" arrives as this rank's block, taken as it is where it is the
+rank's part (``spmd.model_part``); the embedding looks up its rank's
+slice of the vocab and ``lm_loss`` runs the head and the cross-entropy
+vocab-parallel.
 """
 
 from __future__ import annotations
@@ -166,29 +171,36 @@ def _tp_size() -> int:
     return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index("model"))
 
 
+def gatherer(name: str, stacked: bool = False, whole: bool = False):
+    """The function that turns this rank's blocks of ``params[name]`` (one
+    layer's, for an [L]-stacked tree) into what the model computes with:
+    ``spmd.gather`` under placed parameters, else the identity.  A block
+    calls it inside its checkpointed function, on the blocks it was given."""
+    pl = ctx.param_placements()
+    if pl is None:
+        return lambda tree: tree
+    pl = spmd.layer_placements(pl[name]) if stacked else pl[name]
+    mesh = ctx.get_mesh()
+    return lambda tree: spmd.gather(tree, pl, mesh, whole)
+
+
 def swiglu_tp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """``swiglu``; under a mesh with a "model" axis, its hidden dim split over
     the axis (each rank's share of w1, w3 columns and w2 rows, the partial
     outputs summed), or the whole product on every rank when the dim does
     not divide the axis, as the sharding rules then replicate it."""
     mesh, tp = tp_mesh(), _tp_size()
-    f = p["w1"].shape[-1]
+    f = spmd.whole_size(p["w1"], 1, mesh)
     if mesh is None or f % tp:
         return swiglu(p, x)
     x = spmd.enter_model(x, mesh)
-    w1, w3, w2 = (spmd.model_slice(p[n], mesh, dim, f // tp)
+    w1, w3, w2 = (spmd.model_part(p[n], mesh, dim, f // tp)
                   for n, dim in (("w1", 1), ("w3", 1), ("w2", 0)))
     out = _mm(torch.nn.functional.silu(_mm(x, w1)) * _mm(x, w3), w2)
     return spmd.reduce_model(out, mesh)
 
 
 # ------------------------------------------------------------------- attention
-
-def _pad_last(w: torch.Tensor, target: int) -> torch.Tensor:
-    if target == w.shape[-1]:
-        return w
-    return torch.nn.functional.pad(w, (0, target - w.shape[-1]))
-
 
 def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
          pad_tp: bool = False):
@@ -218,15 +230,15 @@ def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
         x = spmd.enter_model(x, mesh)
 
         def q_cols(w):          # padded to hp heads, this rank's hq of them
-            return spmd.model_slice(_pad_last(w, hp * hd), mesh, w.dim() - 1, hq * hd)
+            return spmd.model_part(w, mesh, -1, hq * hd, padded=hp * hd)
 
         if need and not mha:    # GQA-uneven: k/v whole here, expanded below
-            kv_cols, nk = (lambda w: spmd.enter_model(w, mesh)), KV
+            kv_cols, nk = (lambda w: spmd.model_whole(w, mesh)), KV
         elif need:              # MHA: padded like q
             kv_cols, nk = q_cols, hq
         else:
             nk = KV // tp
-            kv_cols = lambda w: spmd.model_slice(w, mesh, w.dim() - 1, nk * hd)  # noqa: E731
+            kv_cols = lambda w: spmd.model_part(w, mesh, -1, nk * hd)  # noqa: E731
         q = _mm(x, q_cols(p["wq"]))
         k, v = _mm(x, kv_cols(p["wk"])), _mm(x, kv_cols(p["wv"]))
         if cfg.qkv_bias:
@@ -242,7 +254,7 @@ def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
         k, v = k[:, :, qmap], v[:, :, qmap]
     if cfg.qk_norm:
         norms = ((p["q_norm"], p["k_norm"]) if mesh is None else
-                 (spmd.enter_model(p["q_norm"], mesh), spmd.enter_model(p["k_norm"], mesh)))
+                 (spmd.model_whole(p["q_norm"], mesh), spmd.model_whole(p["k_norm"], mesh)))
         q = rms_norm(q, norms[0])
         k = rms_norm(k, norms[1])
     return (rope(q, positions, cfg.rope_theta),
@@ -353,7 +365,17 @@ def padded_vocab(cfg: ArchConfig) -> int:
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """The rows of ``tokens``; with ``emb/tok`` split over "model" (placed
+    parameters), each rank looks up the tokens in its slice of the vocab and
+    the rows are summed over the axis."""
+    tok = gatherer("emb")({"tok": p["tok"]})["tok"]
+    if spmd.model_dim(tok) != 0:
+        return tok[tokens]
+    mesh, n = tp_mesh(), tok.shape[0]
+    lo = spmd.model_rank(mesh) * n
+    mine = (tokens >= lo) & (tokens < lo + n)
+    rows = tok[torch.where(mine, tokens - lo, 0)]
+    return spmd.reduce_model(torch.where(mine[..., None], rows, 0), mesh)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -361,6 +383,44 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "out" in p:
         return _mm(x, p["out"])
     return _mm(x, p["tok"].t())
+
+
+def lm_loss(p: Params, h: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``cross_entropy(unembed(p, h), labels, vocab)``.  With the head
+    (``emb/out``, or a tied ``emb/tok``) split over "model" by the vocab
+    (placed parameters), vocab-parallel: each rank's logits are its slice
+    of the vocab, [B, T, V / tp], and the cross-entropy's max, exp-sum and
+    gold logit are reduced over "model" (``_cross_entropy_vocab_parallel``)."""
+    tied = "out" not in p
+    head = gatherer("emb")({k: p[k] for k in ("ln_f", "tok" if tied else "out")})
+    w = head["tok" if tied else "out"]
+    mesh = tp_mesh()
+    if spmd.model_dim(w) != (0 if tied else 1):
+        return cross_entropy(unembed(head, h), labels, vocab)
+    x = spmd.enter_model(rms_norm(h, head["ln_f"]), mesh)
+    logits = _mm(x, w.t() if tied else w)
+    return _cross_entropy_vocab_parallel(logits, labels, vocab,
+                                         spmd.model_rank(mesh) * logits.shape[-1], mesh)
+
+
+def _cross_entropy_vocab_parallel(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
+                                  lo: int, mesh) -> torch.Tensor:
+    """``cross_entropy`` of logits whose last dim holds vocab entries
+    [lo, lo + n) on each "model" rank.  The row max is the largest over the
+    axis and keeps its gradient (the reference's max term, on the rank that
+    holds the argmax); the exp-sum and the gold logit are summed over it."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    if lo + n > vocab:          # the padded entries, on whichever rank holds them
+        cols = lo + torch.arange(n, device=logits.device)
+        logits = logits.masked_fill(cols >= vocab, -1e30)
+    m = spmd.max_model(logits, mesh)
+    s = spmd.reduce_model(torch.exp(logits - m.detach()[..., None]).sum(-1), mesh)
+    logz = torch.log(s) + m
+    mine = (labels >= lo) & (labels < lo + n)
+    gold = torch.gather(logits, -1, torch.where(mine, labels - lo, 0)[..., None].long())[..., 0]
+    gold = spmd.reduce_model(torch.where(mine, gold, 0.0), mesh)
+    return (logz - gold).mean()
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -140,7 +140,9 @@ def moe_block_shard_map(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh,
     Each rank combines its partial outputs, arctic's dense residual MLP
     (hidden dim split likewise) is added to them, and one all-reduce over
     "model" completes the block.  The group's rows are then gathered over
-    the data axes when x held the whole batch."""
+    the data axes when x held the whole batch.  Under placed parameters a
+    rank's expert weights arrive as its blocks, its own experts or its
+    share of every expert's hidden dim, and are used as they are."""
     b, t, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     data_idx, dp = spmd.data_index(mesh)
@@ -155,16 +157,16 @@ def moe_block_shard_map(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh,
     capacity = int(ng * k / E * cfg.capacity_factor) + 1
     xg = spmd.enter_model(xg, mesh)
     scatter_e, scatter_p, keep, top_w = _route(
-        cfg, spmd.enter_model(p["router"], mesh), xg, capacity)
+        cfg, spmd.model_whole(p["router"], mesh), xg, capacity)
     if ep:
         lo = spmd.model_rank(mesh) * e_loc
         mine = keep & (scatter_e >= lo) & (scatter_e < lo + e_loc)
         slot_e = torch.clamp(scatter_e - lo, 0, e_loc - 1)
-        w1, w3, w2 = (spmd.model_slice(p[n], mesh, 0, e_loc) for n in ("w1", "w3", "w2"))
+        w1, w3, w2 = (spmd.model_part(p[n], mesh, 0, e_loc) for n in ("w1", "w3", "w2"))
     else:
-        fe = p["w1"].shape[-1]
+        fe = spmd.whole_size(p["w1"], 2, mesh)
         mine, slot_e = keep, scatter_e
-        w1, w3, w2 = (spmd.model_slice(p[n], mesh, dim, fe // mp)
+        w1, w3, w2 = (spmd.model_part(p[n], mesh, dim, fe // mp)
                       for n, dim in (("w1", 2), ("w3", 2), ("w2", 1)))
     buf, gidx = _dispatch(xg, mine, slot_e, scatter_p, k, e_loc, capacity)
     out = _combine(_experts(buf, w1, w3, w2), slot_e, gidx, scatter_p, mine, top_w,
@@ -172,8 +174,8 @@ def moe_block_shard_map(cfg: ArchConfig, p: Params, x: torch.Tensor, mesh,
     if mlp is not None:
         # arctic's dense residual MLP, hidden dim split over "model", folded
         # into the same all-reduce as the expert combine
-        f = mlp["w1"].shape[-1] // mp
-        m1, m3, m2 = (spmd.model_slice(mlp[n], mesh, dim, f)
+        f = spmd.whole_size(mlp["w1"], 1, mesh) // mp
+        m1, m3, m2 = (spmd.model_part(mlp[n], mesh, dim, f)
                       for n, dim in (("w1", 1), ("w3", 1), ("w2", 0)))
         out = out + layers._mm(F.silu(layers._mm(xg, m1)) * layers._mm(xg, m3), m2)
     out = spmd.reduce_model(out, mesh)

@@ -188,7 +188,9 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> 
     """Mean next-token cross-entropy of ``batch["tokens"]`` against
     ``batch["labels"]``, from the zero state.  Differentiable in every parameter
     leaf; each layer keeps only its input for the backward and runs again
-    inside it."""
+    inside it.  Under placed parameters each layer gathers its blocks whole
+    inside (the block runs whole on every "model" rank), and the embedding
+    and head are vocab-parallel (``layers.embed``, ``layers.lm_loss``)."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
     h = layers.embed(params["emb"], tokens)
@@ -197,12 +199,14 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> 
     wkv = torch.zeros((b, H, cfg.ssm_head_dim, cfg.ssm_head_dim), dtype=torch.float32,
                       device=tokens.device)
 
+    gather = layers.gatherer("layers", stacked=True, whole=True)
+
     def block(h, lp):
-        return _block(cfg, lp, h, shift, shift, wkv)[0]
+        return _block(cfg, gather(lp), h, shift, shift, wkv)[0]
 
     for lp in layers.unstack(params["layers"]):
         h = checkpoint(block, h, lp, use_reentrant=False)
-    return layers.cross_entropy(layers.unembed(params["emb"], h), batch["labels"], cfg.vocab)
+    return layers.lm_loss(params["emb"], h, batch["labels"], cfg.vocab)
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,

@@ -107,11 +107,8 @@ def _attn_full(cfg: ArchConfig, lp: Params, h: torch.Tensor,
     if mesh is None:
         return layers._mm(out, lp["attn"]["wo"]), k, v
     # zero rows for the phantom heads (exact), this rank's rows of them
-    wo = lp["attn"]["wo"]
-    hp = hq * layers._tp_size()
-    if hp != cfg.n_heads:
-        wo = F.pad(wo, (0, 0, 0, (hp - cfg.n_heads) * cfg.hd))
-    wo = spmd.model_slice(wo, mesh, 0, hq * cfg.hd)
+    wo = spmd.model_part(lp["attn"]["wo"], mesh, 0, hq * cfg.hd,
+                         padded=hq * layers._tp_size() * cfg.hd)
     return spmd.reduce_model(layers._mm(out, wo), mesh), k, v
 
 
@@ -119,31 +116,40 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, dtype=torch.int32, device=device)[None].expand(b, t)
 
 
-def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, T] -> logits [B, T, V].
+def _hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, T] -> the last layer's output [B, T, d].
 
     Differentiable in every parameter leaf.  Each layer is checkpointed, as
     the reference's default ``remat=True`` does: it keeps only its input for
-    the backward and runs again inside it."""
+    the backward and runs again inside it.  Under placed parameters it is
+    given the layer's blocks and gathers them inside, so the recompute
+    gathers them again and one layer at a time is held gathered."""
     b, t = tokens.shape
     positions = _positions(b, t, tokens.device)
     h = layers.embed(params["emb"], tokens)
     rs = _residual_scale(cfg)
+    gather = layers.gatherer("layers", stacked=True)
 
     def block(h, lp):
+        lp = gather(lp)
         h = h + rs * _attn_full(cfg, lp, h, positions, pad_tp=True)[0]
         return h + rs * _mix(cfg, lp, h)
 
     for lp in layers.unstack(params["layers"]):
         h = checkpoint(block, h, lp, use_reentrant=False)
-    return layers.unembed(params["emb"], h)
+    return h
+
+
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, V]."""
+    return layers.unembed(params["emb"], _hidden(cfg, params, tokens))
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
             ) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` against ``batch["labels"]``."""
-    logits = forward(cfg, params, batch["tokens"])
-    return layers.cross_entropy(logits, batch["labels"], cfg.vocab)
+    return layers.lm_loss(params["emb"], _hidden(cfg, params, batch["tokens"]),
+                          batch["labels"], cfg.vocab)
 
 
 # ------------------------------------------------------------------ serving

@@ -211,7 +211,10 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> 
     """Mean next-token cross-entropy of ``batch["tokens"]`` against
     ``batch["labels"]``, from the zero state.  Differentiable in every parameter
     leaf; each mamba layer and each shared-block site keeps only its input for
-    the backward and runs again inside it.  No K/V cache is written."""
+    the backward and runs again inside it.  No K/V cache is written.  Under
+    placed parameters each of them gathers its blocks whole inside (the
+    blocks run whole on every "model" rank; the shared block at each of its
+    sites), and the embedding and head are vocab-parallel."""
     tokens = batch["tokens"]
     b, t = tokens.shape
     positions = transformer._positions(b, t, tokens.device)
@@ -219,17 +222,20 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> 
     conv = h.new_zeros((b, _din(cfg) + 2 * cfg.ssm_state, CONV_K - 1))
     ssd = torch.zeros(ssd_state_spec(cfg, b)[1:], dtype=torch.float32, device=tokens.device)
 
+    gather_mamba = layers.gatherer("mamba", stacked=True, whole=True)
+    gather_shared = layers.gatherer("shared", whole=True)
+
     def mamba_block(h, lp):
-        return h + mamba_layer(cfg, lp, h, conv, ssd)[0]
+        return h + mamba_layer(cfg, gather_mamba(lp), h, conv, ssd)[0]
 
     def shared_block(h, sp):
-        return _shared_block(cfg, sp, h, positions)[0]
+        return _shared_block(cfg, gather_shared(sp), h, positions)[0]
 
     for i, lp in enumerate(layers.unstack(params["mamba"])):
         h = checkpoint(mamba_block, h, lp, use_reentrant=False)
         if (i + 1) % cfg.attn_every == 0:
             h = checkpoint(shared_block, h, params["shared"], use_reentrant=False)
-    return layers.cross_entropy(layers.unembed(params["emb"], h), batch["labels"], cfg.vocab)
+    return layers.lm_loss(params["emb"], h, batch["labels"], cfg.vocab)
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,

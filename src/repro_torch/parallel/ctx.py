@@ -10,6 +10,11 @@ named ``("data", "model")`` or ``("pod", "data", "model")``.  Model code
 under a mesh runs SPMD on each rank's own tensors; ``batch_sharded`` says
 whether a rank's activations are its share of the batch's rows (as a train
 step places them) or the whole batch, the same on every rank (the default).
+``param_placements`` says whether the parameters the model is given are
+whole (None, the default) or each rank's blocks of DTensors, and then
+holds each leaf's placements, a tree like the parameters: the model
+gathers a layer's blocks inside its block (``spmd.gather``), as a train
+step on placed parameters hands them over.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from contextlib import contextmanager
 
 _MESH = None
 _BATCH_SHARDED = False
+_PLACEMENTS = None
 
 
 def set_mesh(mesh) -> None:
@@ -55,3 +61,22 @@ def sharded_batch():
         yield
     finally:
         _BATCH_SHARDED = prev
+
+
+def param_placements():
+    """The tree of the parameters' DTensor placements when the model is given
+    each rank's blocks, else None."""
+    return _PLACEMENTS
+
+
+@contextmanager
+def placed_params(placements):
+    """For the block, the model's parameters are this rank's blocks of
+    DTensors placed as ``placements`` (a tree like theirs) says."""
+    global _PLACEMENTS
+    prev = _PLACEMENTS
+    _PLACEMENTS = placements
+    try:
+        yield
+    finally:
+        _PLACEMENTS = prev

@@ -276,6 +276,30 @@ def local_block(full: torch.Tensor, pls, mesh) -> torch.Tensor:
     return t.contiguous()
 
 
+def sub_block(local: torch.Tensor, pls, block_pls, mesh) -> torch.Tensor:
+    """This rank's block under ``block_pls`` of a tensor whose block under
+    ``pls`` is ``local``, where ``block_pls`` only splits it further (ZeRO-1
+    over the param's placement): a view of ``local``, split along each mesh
+    dim that ``block_pls`` shards and ``pls`` does not."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    t = local
+    for i, (pl, bpl) in enumerate(zip(pls, block_pls)):
+        if isinstance(bpl, Shard) and not isinstance(pl, Shard):
+            t = t.chunk(mesh.size(i), bpl.dim)[coord[i]]
+        elif bpl != pl:
+            raise ValueError(f"{block_pls} does not split {pls} further")
+    return t
+
+
+def from_block(block: torch.Tensor, pls, mesh, like):
+    """``block`` as this rank's block of a DTensor placed by ``pls`` with the
+    global shape of ``like`` (a DTensor)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(block, mesh, pls, run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
 def distribute(full: torch.Tensor, spec: Spec, mesh):
     """``full`` (the same on every rank) as a DTensor placed by ``spec``; each
     rank keeps its block, with no communication."""

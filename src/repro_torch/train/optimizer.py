@@ -15,9 +15,12 @@ card.
 Under a mesh the parameters are DTensors placed by
 ``sharding.param_shardings``, and the moments and master weights DTensors
 placed by ``sharding.opt_shardings`` (ZeRO-1: sharded over the data axes
-too).  ``adamw_update`` then takes whole gradients, the same on every rank:
-each rank updates its block of the moments and master weights, and the
-updated blocks are gathered back to the parameters' placement.
+too).  The gradients are then DTensors at the moments' placement (the
+train step's): ``clip_by_global_norm`` sums their blocks over the mesh,
+each element once, and in ``adamw_update`` each rank updates its block of
+the parameter, moments and master weights, and gathers the updated block
+over the data axes where the parameter is not split.  No rank holds a
+whole parameter.
 """
 
 from __future__ import annotations
@@ -113,26 +116,28 @@ def schedule(oc: OptConfig, step: torch.Tensor) -> torch.Tensor:
 def init_opt_state(oc: OptConfig, params: Tree, shardings: Optional[Tree] = None) -> OptState:
     """Zero moments (and fp32 master weights) like ``params``.  For DTensor
     params, ``shardings`` (``sharding.opt_shardings``) places each moment and
-    master leaf, and each rank allocates only its block."""
+    master leaf, and each rank allocates only its block, the master's made
+    from its block of the param."""
     pairs = list(flatten_with_paths(params))
     if shardings is None:
-        place = lambda path, full: full.contiguous()  # noqa: E731
-        whole = lambda p: p.detach()  # noqa: E731
+        def leaf(path, p, dtype, values):
+            if values:
+                return p.detach().to(dtype, copy=True).contiguous()
+            return torch.zeros((), dtype=dtype, device=p.device).expand(p.shape).contiguous()
     else:
         from ..parallel import sharding as shd
         specs = dict(flatten_with_paths(shardings))
         mesh = pairs[0][1].device_mesh
-        place = lambda path, full: shd.distribute(full, specs[path], mesh)  # noqa: E731
-        whole = lambda p: p.detach().full_tensor()  # noqa: E731
 
-    def zeros(path, p):
-        return place(path, torch.zeros((), dtype=oc.moment_dtype,
-                                       device=p.device).expand(p.shape))
+        def leaf(path, p, dtype, values):
+            pls = shd.placements(specs[path], mesh)
+            blk = shd.sub_block(p.to_local().detach(), p.placements, pls, mesh)
+            out = torch.empty(blk.shape, dtype=dtype, device=blk.device)
+            return shd.from_block(out.copy_(blk) if values else out.zero_(), pls, mesh, p)
 
-    mu = unflatten((path, zeros(path, p)) for path, p in pairs)
-    nu = unflatten((path, zeros(path, p)) for path, p in pairs)
-    master = (unflatten((path, place(path, whole(p).to(torch.float32, copy=True)))
-                        for path, p in pairs)
+    mu = unflatten((path, leaf(path, p, oc.moment_dtype, False)) for path, p in pairs)
+    nu = unflatten((path, leaf(path, p, oc.moment_dtype, False)) for path, p in pairs)
+    master = (unflatten((path, leaf(path, p, torch.float32, True)) for path, p in pairs)
               if oc.master_weights else None)
     step = torch.zeros((), dtype=torch.int32, device=pairs[0][1].device)
     return OptState(step, mu, nu, master)
@@ -141,14 +146,37 @@ def init_opt_state(oc: OptConfig, params: Tree, shardings: Optional[Tree] = None
 @torch.no_grad()
 def clip_by_global_norm(grads: Tree, max_norm: float):
     """Scales ``grads`` in place to a global norm of at most ``max_norm``;
-    returns (grads, the norm before scaling)."""
+    returns (grads, the norm before scaling).  DTensor gradients: the norm
+    of the whole gradients, from each rank's blocks (``_sharded_sq``)."""
     leaves = _leaves(grads)
-    sq = sum((g.float() * g.float()).sum() for g in leaves)
+    if leaves and isinstance(leaves[0], DTensor):
+        sq = _sharded_sq(leaves)
+        leaves = [g.to_local() for g in leaves]
+    else:
+        sq = sum((g.float() * g.float()).sum() for g in leaves)
     gnorm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     for g in leaves:
         g.copy_(g.float() * scale)
     return grads, gnorm
+
+
+def _sharded_sq(leaves: List[DTensor]) -> torch.Tensor:
+    """The sum of squares of the whole tensors of DTensor ``leaves``: each
+    rank's block sums are summed over the mesh, a block held by several
+    ranks (replicated over a mesh dim) counted on the first of them only,
+    and the leaves' sums added in order, as the mesh-free sum adds them."""
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    parts = []
+    for g in leaves:
+        s = (g.to_local().float() * g.to_local().float()).sum()
+        copy = any(not pl.is_shard() and c for pl, c in zip(g.placements, coord))
+        parts.append(torch.zeros_like(s) if copy else s)
+    sums = torch.stack(parts)
+    for i in range(mesh.ndim):
+        torch.distributed.all_reduce(sums, group=mesh.get_group(i))
+    return sum(sums.unbind())
 
 
 def _decay_mask(path: Path) -> bool:
@@ -201,15 +229,16 @@ def adamw_update(oc: OptConfig, params: Tree, grads: Tree, state: OptState
 
 @torch.no_grad()
 def _update_sharded(oc: OptConfig, decay: bool, p, g, mu, nu, master, lr, c1, c2) -> None:
-    """ZeRO-1 update of a DTensor param from its whole gradient ``g``: this
-    rank's block (the moments' placement) of p and g is updated against its
-    moments and master block, then the updated blocks are gathered to the
-    param's placement."""
+    """ZeRO-1 update of a DTensor param from its gradient block ``g`` (a
+    DTensor at the moments' placement): this rank's block of p at that
+    placement is updated against the gradient, moment and master blocks,
+    then gathered over the data axes where p itself is not split."""
     from ..parallel import sharding as shd
+    from ..parallel import spmd
     mesh, pl = mu.device_mesh, mu.placements
-    p_blk = shd.local_block(p.full_tensor(), pl, mesh)
-    _update_leaf(oc, decay, p_blk, shd.local_block(g, pl, mesh), mu.to_local(),
-                 nu.to_local(), None if master is None else master.to_local(), lr, c1, c2)
-    new = DTensor.from_local(p_blk, mesh, pl, run_check=False, shape=p.shape,
-                             stride=p.stride())
-    p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
+    local = p.to_local()
+    blk = shd.sub_block(local, p.placements, pl, mesh)
+    _update_leaf(oc, decay, blk, g.to_local(), mu.to_local(), nu.to_local(),
+                 None if master is None else master.to_local(), lr, c1, c2)
+    if tuple(pl) != tuple(p.placements):
+        local.copy_(spmd.gather_block(blk, pl, p.placements, mesh))

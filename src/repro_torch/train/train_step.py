@@ -8,11 +8,17 @@ in place.  Remat inside the model keeps activations O(1) in depth.
 Given DTensor params (``sharding.param_shardings``) and optimizer state
 (``init_opt_state(..., sharding.opt_shardings(...))``), the same step runs
 on the params' mesh, as the reference's jitted step does under its
-shardings.  Each rank gathers the params whole, runs the loss SPMD on its
-rows of the batch (tensor-parallel over "model", ``parallel.ctx``), and the
-gradients are averaged over the data axes; clipping then sees the same
-whole gradients on every rank, and the ZeRO-1 update leaves each param at
-its placement and each moment and master leaf sharded over the data axes.
+shardings.  Each rank runs the loss SPMD on its rows of the batch
+(tensor-parallel over "model", ``parallel.ctx``) on its own blocks of the
+params (``ctx.placed_params``): each checkpointed layer gathers its blocks
+over the data axes where they are sharded (FSDP) inside, and the
+embedding, head and cross-entropy are split by the vocab over "model".
+The gradients come out at each param's placement, already summed over the
+data axes for an FSDP leaf (by its gather's backward); the rest are
+reduce-scattered onto their ZeRO-1 blocks (the moments' placement), and
+all are averaged over the data ranks.  Clipping takes the norm over those
+blocks, each element once, and the ZeRO-1 update leaves each param at its
+placement and each moment and master leaf sharded over the data axes.
 """
 
 from __future__ import annotations
@@ -42,28 +48,38 @@ def _local_rows(x: torch.Tensor, mesh) -> torch.Tensor:
 def make_train_step(cfg: ArchConfig, oc: opt.OptConfig):
     api = get_model(cfg)
 
-    def grads_on_mesh(pairs, batch):
+    def grads_on_mesh(pairs, mu, batch):
+        """Loss and gradients on the params' mesh: each gradient a DTensor at
+        its moments' (ZeRO-1) placement."""
         mesh = pairs[0][1].device_mesh
         dp = spmd.data_index(mesh)[1]
-        pairs = [(path, p.detach().full_tensor().detach().requires_grad_())
-                 for path, p in pairs]
+        placements = opt.unflatten((path, p.placements) for path, p in pairs)
+        blocks = [p.to_local().detach().requires_grad_() for _, p in pairs]
         batch = {k: _local_rows(v, mesh) for k, v in batch.items()}
         # the backward recomputes each checkpointed layer: under the mesh too
-        with ctx.mesh_context(mesh), ctx.sharded_batch():
-            loss = api.loss(opt.unflatten(pairs), batch)
-            grads = torch.autograd.grad(loss, [p for _, p in pairs])
-        grads = [spmd.all_reduce_data(g, mesh) for g in grads]
+        with ctx.mesh_context(mesh), ctx.sharded_batch(), ctx.placed_params(placements):
+            loss = api.loss(opt.unflatten((path, b) for (path, _), b in zip(pairs, blocks)),
+                            batch)
+            grads = list(torch.autograd.grad(loss, blocks))
+        del blocks
         loss = spmd.all_reduce_data(loss.detach(), mesh)
-        if dp > 1:      # the mean over the data ranks' equal shares of the batch
-            for x in (loss, *grads):
-                x.div_(dp)
-        return loss, pairs, grads
+        out = []
+        for i, (path, p) in enumerate(pairs):
+            g = spmd.reduce_grad(grads[i], p.placements, mu[path].placements, mesh)
+            grads[i] = None     # its block replaces it
+            if dp > 1:      # the mean over the data ranks' equal shares of the batch
+                g.div_(dp)
+            out.append(DTensor.from_local(g, mesh, mu[path].placements, run_check=False,
+                                          shape=p.shape, stride=p.stride()))
+        if dp > 1:
+            loss.div_(dp)
+        return loss, out
 
     def train_step(params: opt.Tree, opt_state: opt.OptState,
                    batch: Dict[str, torch.Tensor]):
         pairs = list(opt.flatten_with_paths(params))
         if isinstance(pairs[0][1], DTensor):
-            loss, pairs, grads = grads_on_mesh(pairs, batch)
+            loss, grads = grads_on_mesh(pairs, dict(opt.flatten_with_paths(opt_state.mu)), batch)
         else:
             pairs = [(path, p.detach().requires_grad_()) for path, p in pairs]
             loss = api.loss(opt.unflatten(pairs), batch)

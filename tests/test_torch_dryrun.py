@@ -25,6 +25,9 @@ against the JAX package's, on the CPU.
   (shapes, dtypes, strides), and a fake lowering on fake CUDA tensors, where
   ``ops`` routes to the operators, launches nothing: every ``.launches``
   counter stays at 0.
+* A reduced dense train step with FSDP forced, lowered on a fake world of 8
+  ranks: its all-gather and reduce-scatter payloads against the specs,
+  exactly, and the peak of live gathered parameters against one layer's.
 * One full-width cell through the CLI in a subprocess.
 """
 
@@ -299,6 +302,84 @@ def test_kernel_route_lowering_launches_nothing(family, kind):
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
+# ------------------------------------------------------ placed train step
+
+def test_fsdp_train_step_gathers_each_layer_and_reduce_scatters_its_gradients():
+    """One train step of reduced codeqwen1.5-7b (4 heads, 4 kv heads: no head
+    padding, so no weight is gathered over "model") with FSDP forced, lowered
+    on a fake world of 8 ranks as a (2, 4) ("data", "model") mesh and counted
+    on rank 0.  From the specs, in bytes of rank 0's blocks:
+      * all-gather payload = 2 x each layer's blocks split over "data",
+        gathered (the forward and the recompute), + ``emb/tok`` and
+        ``emb/out`` gathered once each (the lookup and the head are not
+        checkpointed) + the ZeRO-1 re-gather of every param replicated over
+        "data" (its own block);
+      * reduce-scatter payload = the sum of the gradient blocks (each leaf's
+        ZeRO-1 block: an FSDP leaf's own block, reduce-scattered by its
+        gather's backward; the rest after the backward);
+      * the peak of live gathered bytes is one layer's."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import spmd
+    cfg = get_arch("codeqwen1.5-7b").reduced()
+    api = get_model(cfg)
+    oc = opt.opt_config_for(cfg)
+    dryrun.join_fake_world(8)
+    prev = shd.needs_fsdp
+    try:
+        mesh = make_host_mesh(2, 4, device_type="cpu")
+        with FakeTensorMode():
+            whole = api.init(0, torch.float32, "cpu")
+            shd.needs_fsdp = lambda c: True
+            p_specs = dict(opt.flatten_with_paths(shd.param_shardings(cfg, whole, mesh)))
+            params = shd.distribute_tree(whole, shd.param_shardings(cfg, whole, mesh), mesh)
+            state = opt.init_opt_state(oc, params, shd.opt_shardings(cfg, whole, mesh))
+            shd.needs_fsdp = prev
+            tokens = torch.zeros((8, T), dtype=torch.int32)
+            batch = shd.distribute_tree({"tokens": tokens, "labels": tokens},
+                                        {"tokens": ("data", None), "labels": ("data", None)},
+                                        mesh)
+            count = roofline.Count("cpu")
+            count.track(params, "params")
+            count.track((state.step, state.mu, state.nu, state.master), "opt_state")
+            spmd.GATHERS.clear()
+            with count:
+                make_train_step(cfg, oc)(params, state, batch)
+    finally:
+        shd.needs_fsdp = prev
+        dist.destroy_process_group()
+
+    sizes = {"data": 2, "model": 4}
+
+    def nbytes(shape, spec):
+        n = 4                               # fp32
+        for d, e in zip(shape, list(spec) + [None] * len(shape)):
+            n *= d // (sizes[e] if e else 1)
+        return n
+    gathered = recompute = regather = blocks = 0
+    per_layer = 0
+    for path, x in opt.flatten_with_paths(whole):
+        shape, spec = tuple(x.shape), p_specs[path]
+        local = nbytes(shape, spec)
+        zero1 = nbytes(shape, shd.zero1_pspec(spec, shape, mesh))
+        blocks += zero1
+        if "data" not in spec:
+            regather += local
+        elif path[0] == "layers":
+            recompute += 2 * local * 2          # gathered (x dp), forward and recompute
+            per_layer += local * 2 // cfg.n_layers
+        else:
+            gathered += local * 2
+    got = count.collectives()[0]
+    assert recompute and gathered and regather
+    assert got["all-gather"] == recompute + gathered + regather
+    assert got["reduce-scatter"] == blocks
+    assert dict(spmd.GATHERS) == {"gather": 2 * cfg.n_layers + 2,
+                                  "reduce_scatter": cfg.n_layers + 2}
+    assert 0 < count.memory()["peak_of_category"]["gathered"] <= per_layer
+
+
 # ------------------------------------------------------ the CLI
 
 def test_dryrun_cli_full_width_cell(tmp_path):
@@ -315,7 +396,10 @@ def test_dryrun_cli_full_width_cell(tmp_path):
     assert rec["ok"] and rec["world"] == 256
     assert rec["mesh_shape"] == {"data": 16, "model": 16}
     assert rec["kernel_calls"] == {"flash_attention_fwd": 80, "flash_attention_bwd": 40}
-    # the step gathers the 2.7e9 bf16 params whole and all-reduces whole gradients
+    # the step gathers the attention's weights over "model" (36 heads padded to 48)
+    # and all-reduces the TP layers' partial outputs; no leaf is split over "data"
     assert rec["collective_count"]["all-gather"] > 0 and rec["collective_count"]["all-reduce"] > 0
+    assert rec["param_gathers"] == {"gather": 82, "reduce_scatter": 42}
+    assert rec["memory"]["fits_80gb"]
     assert rec["memory"]["fits_80gb"] is (rec["memory"]["peak_bytes"] <= 80e9)
     assert rec["roofline"]["bound_s"] > 0 and rec["flops_over_model_flops"] > 1

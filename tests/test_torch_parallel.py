@@ -13,7 +13,12 @@ through a rendezvous file:
   * TP head padding (H=6 over model 4: 8 padded heads) and the GQA-uneven
     k/v expansion (H=6, KV=2) against the mesh-free loss;
   * two sharded train steps against two mesh-free ones, and each rank's
-    local shapes of params and moments against the rules' shares;
+    local shapes of params and moments against the rules' shares: as the
+    rules place the params, with FSDP forced (``sharding.needs_fsdp``
+    patched), and for arctic's layout (4 experts over model 4, FSDP
+    forced); one mesh step of reduced rwkv6 and zamba2;
+  * the vocab-parallel embedding, head and cross-entropy (tied and untied)
+    against the mesh-free ones, the max term's gradient included;
   * prefill under the mesh caching the model's KV heads, not the padded
     ones; DTensor layouts; the kernel wrappers refusing a DTensor.
 
@@ -21,9 +26,11 @@ The ranks are spawned once for the module (``torch.set_num_threads(1)``
 each), run every case and write one result a case; each case reports as
 its own test.  The spawn has a time limit of its own, and so has every
 collective (the process group's timeout).  Values are fp32 on both sides
-and differ only in the order of summation: 1e-5.
+and differ only in the order of summation: 1e-5 (the train-step cases'
+AdamW eps: ``STEP_EPS``).
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -46,6 +53,13 @@ WORLD, MESH = 8, (2, 4)
 SPAWN_TIMEOUT_S = 300        # all ranks, every case
 PG_TIMEOUT_S = 60            # each collective
 TOL = 1e-5
+# AdamW's eps in the train-step cases.  At its default 1e-8 the first step
+# moves a param by lr * g / (|g| + eps): a gradient element near eps (here
+# |g| ~ 2e-8) turns the fp32 rounding of its sums into a param difference of
+# about TOL.  Summing the vocabulary in another order alone (a permutation
+# of it, in the mesh-free step) moves the params by 0.69-1.00 of TOL; at
+# 1e-6 the same rounding stays two orders below it.
+STEP_EPS = 1e-6
 
 
 # ------------------------------------------------------------------ the cases (in a rank)
@@ -198,38 +212,70 @@ def case_gqa_uneven_expansion(mesh):
     return res
 
 
-def case_sharded_train_step(mesh):
-    """Two steps of make_train_step on DTensor params and ZeRO-1 state against
-    two mesh-free steps; every rank's local shapes against the rules."""
+@contextlib.contextmanager
+def _fsdp_forced(on: bool = True):
+    """The sharding rules as if every arch needed FSDP (params split over the
+    data axes on their marked dim), for the block."""
+    prev = shd.needs_fsdp
+    if on:
+        shd.needs_fsdp = lambda cfg: True
+    try:
+        yield
+    finally:
+        shd.needs_fsdp = prev
+
+
+@contextlib.contextmanager
+def _groups_dp():
+    """The local MoE dispatch routed in groups = dp, the mesh path's groups."""
+    from repro_torch.models import moe
+    local = moe.moe_block
+    moe.moe_block = lambda *a, **kw: local(*a, groups=MESH[0], **kw)
+    try:
+        yield
+    finally:
+        moe.moe_block = local
+
+
+def _train_steps_case(mesh, cfg, seed, n_steps=2, fsdp=False):
+    """``n_steps`` of make_train_step on DTensor params and ZeRO-1 state
+    against as many mesh-free steps (an MoE config's routed in groups = dp):
+    loss, grad norm, every param, moment and master leaf, and each rank's
+    local shapes and placements against ``param_pspec``/``zero1_pspec``.
+    ``fsdp``: the params placed as FSDP places them; the step reads the
+    placements from the DTensors only, and runs outside the forcing."""
     from torch.distributed.tensor import DTensor
     from repro_torch.models import get_model
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import make_train_step
-    cfg = _attn_cfg("minicpm-2b", 6, 6)
     api = get_model(cfg)
-    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=1)
-    batches = [_batch(cfg, 30 + i) for i in range(2)]
+    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=1, eps=STEP_EPS,
+                            moment_dtype=torch.float32)
+    batches = [_batch(cfg, 30 + i) for i in range(n_steps)]
 
-    params = api.init(3, torch.float32, "cpu")
+    params = api.init(seed, torch.float32, "cpu")
     state = opt.init_opt_state(oc, params)
     step = make_train_step(cfg, oc)
-    for b in batches:
-        params, state, m_ref = step(params, state, b)
+    with _groups_dp() if cfg.n_experts else contextlib.nullcontext():
+        for b in batches:
+            params, state, m_ref = step(params, state, b)
 
-    full = api.init(3, torch.float32, "cpu")
-    p_specs = shd.param_shardings(cfg, full, mesh)
-    o_specs = shd.opt_shardings(cfg, full, mesh)
+    full = api.init(seed, torch.float32, "cpu")
+    with _fsdp_forced(fsdp):
+        p_specs = shd.param_shardings(cfg, full, mesh)
+        o_specs = shd.opt_shardings(cfg, full, mesh)
     params_sh = shd.distribute_tree(full, p_specs, mesh)
     state_sh = opt.init_opt_state(oc, params_sh, o_specs)
-    in_specs = shd.input_shardings(mesh, batches[1])
-    batches_sh = [batches[0], {k: shd.distribute(v, in_specs[k], mesh)
-                               for k, v in batches[1].items()}]
+    in_specs = shd.input_shardings(mesh, batches[-1])
+    batches_sh = batches[:-1] + [{k: shd.distribute(v, in_specs[k], mesh)
+                                  for k, v in batches[-1].items()}]
     for b in batches_sh:
         params_sh, state_sh, m = step(params_sh, state_sh, b)
 
     res = {"loss_err": abs(float(m["loss"]) - float(m_ref["loss"])),
            "grad_norm_err": abs(float(m["grad_norm"]) - float(m_ref["grad_norm"]))}
     assert res["loss_err"] <= TOL * (1 + abs(float(m_ref["loss"]))), res
+    assert res["grad_norm_err"] <= TOL * (1 + abs(float(m_ref["grad_norm"]))), res
     sizes = shd.axis_sizes(mesh)
 
     def share(shape, spec):
@@ -242,17 +288,20 @@ def case_sharded_train_step(mesh):
     trees = {kind: dict(opt.flatten_with_paths(t)) for kind, t in
              (("param", params_sh), ("mu", state_sh.mu), ("nu", state_sh.nu),
               ("master", state_sh.master), ("mu_ref", state.mu), ("nu_ref", state.nu),
-              ("master_ref", state.master))}
+              ("master_ref", state.master)) if t is not None}
     errs, shapes = {}, {}
     for (path, p), (_, want) in zip(opt.flatten_with_paths(params_sh),
                                     opt.flatten_with_paths(params)):
         name = shd.path_str(path)
         assert isinstance(p, DTensor), name
         errs[name] = _close(p.full_tensor(), want, name)
-        p_spec = shd.param_pspec(name, tuple(want.shape), cfg, mesh)
+        with _fsdp_forced(fsdp):
+            p_spec = shd.param_pspec(name, tuple(want.shape), cfg, mesh)
         o_spec = shd.zero1_pspec(p_spec, tuple(want.shape), mesh)
         tree_specs = {"param": p_spec, "moment": o_spec}
         for kind in ("param", "mu", "nu", "master"):
+            if kind not in trees:
+                continue
             x = trees[kind][path]
             spec = tree_specs["param" if kind == "param" else "moment"]
             got_shape = list(x.to_local().shape)
@@ -262,10 +311,125 @@ def case_sharded_train_step(mesh):
                 _close(x.full_tensor(), trees[kind + "_ref"][path], f"{name}.{kind}")
         shapes[name] = {"param": list(p.to_local().shape),
                         "moment": list(trees["mu"][path].to_local().shape)}
-    # the qkv projection is split over model, its moments over data as well
-    assert shapes["layers/attn/wq"] == {"param": [1, 128, 24], "moment": [1, 64, 24]}, shapes
     res.update(param_err_max=max(errs.values()), local_shapes=shapes)
     return res
+
+
+def case_sharded_train_step(mesh):
+    """Two steps of make_train_step on DTensor params and ZeRO-1 state against
+    two mesh-free steps; every rank's local shapes against the rules."""
+    res = _train_steps_case(mesh, _attn_cfg("minicpm-2b", 6, 6), 3)
+    shapes = res["local_shapes"]
+    # the qkv projection is split over model, its moments over data as well
+    assert shapes["layers/attn/wq"] == {"param": [1, 128, 24], "moment": [1, 64, 24]}, shapes
+    return res
+
+
+def case_fsdp_train_step(mesh):
+    """The same two steps with the params placed as FSDP places them (split
+    over "data" as well): each layer gathers its blocks over "data" and the
+    attention's over "model" (6 heads padded to 8 over 4 ranks), the
+    gradients come out reduce-scattered onto the blocks, and the tied
+    embedding is vocab-parallel."""
+    res = _train_steps_case(mesh, _attn_cfg("minicpm-2b", 6, 6), 3, fsdp=True)
+    shapes = res["local_shapes"]
+    # split over data and model; the moments take the param's blocks
+    assert shapes["layers/attn/wq"] == {"param": [1, 64, 24], "moment": [1, 64, 24]}, shapes
+    assert shapes["emb/tok"] == {"param": [128, 64], "moment": [128, 64]}, shapes
+    return res
+
+
+def case_fsdp_moe_train_step(mesh):
+    """Arctic's layout: E=4 experts over model 4, FSDP forced, its dense
+    residual MLP; each rank's experts come from its own blocks."""
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("arctic-480b").reduced(), n_experts=4)
+    res = _train_steps_case(mesh, cfg, 4, fsdp=True)
+    shapes = res["local_shapes"]
+    assert shapes["layers/moe/w1"]["param"] == [2, 1, 64, 64], shapes
+    assert shapes["layers/moe/router"]["param"] == [2, 64, 4], shapes
+    return res
+
+
+def case_rwkv6_train_step(mesh):
+    """A reduced rwkv6's mesh train step: its layers gathered whole inside
+    their blocks, the embedding and head vocab-parallel."""
+    from repro_torch.configs import get_arch
+    return _train_steps_case(mesh, get_arch("rwkv6-1.6b").reduced(), 5, n_steps=1)
+
+
+def case_zamba2_train_step(mesh):
+    """A reduced zamba2's mesh train step: its Mamba2 layers and the shared
+    block at each of its sites gathered whole inside their blocks."""
+    from repro_torch.configs import get_arch
+    return _train_steps_case(mesh, get_arch("zamba2-7b").reduced(), 6, n_steps=1)
+
+
+def _head_case(mesh, arch, seed):
+    """The embedding, head and cross-entropy on each rank's blocks (vocab over
+    "model", ``layers.embed``/``layers.lm_loss`` under placed params) against
+    the mesh-free ``cross_entropy(unembed(...))``: the loss, the gradient of
+    the hidden input and of every head leaf, at a vocab of 500 padded to 512
+    (the padded entries on the last model rank).  Rows whose argmax lies on
+    another model rank than their label hold the max term's gradient there:
+    the gradients differ from the max-free cross-entropy's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers
+    from repro_torch.parallel import ctx
+    cfg = dataclasses.replace(get_arch(arch).reduced(), vocab=500)
+    gen = torch.Generator().manual_seed(seed)
+    emb = layers.init_embeddings(cfg, gen, torch.float32)
+    emb["ln_f"] = 1 + 0.1 * torch.randn(cfg.d_model, generator=gen)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+    labels = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+    h = torch.randn((2, 16, cfg.d_model), generator=gen)
+
+    def run(p, biased=True):
+        x = h.clone().requires_grad_()
+        hh = layers.embed(p, toks) + x
+        if not biased:
+            logits = layers.unembed(p, hh).float()
+            logits = logits.masked_fill(torch.arange(logits.shape[-1]) >= cfg.vocab, -1e30)
+            loss = torch.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                                     labels.reshape(-1))
+        else:
+            loss = layers.lm_loss(p, hh, labels, cfg.vocab)
+        return loss, dict(zip(["h", *p], torch.autograd.grad(loss, [x, *p.values()])))
+
+    whole = {k: v.clone().requires_grad_() for k, v in emb.items()}
+    want, g_want = run(whole)
+    _, g_free = run(whole, biased=False)
+    placed = shd.distribute_tree(emb, shd.param_shardings(cfg, {"emb": emb}, mesh)["emb"], mesh)
+    blocks = {k: v.to_local().detach().requires_grad_() for k, v in placed.items()}
+    pls = {"emb": {k: v.placements for k, v in placed.items()}}
+    with ctx.mesh_context(mesh), ctx.placed_params(pls):
+        got, g_got = run(blocks)
+    head = "tok" if cfg.tie_embeddings else "out"
+    assert shd.placements(shd.param_pspec(f"emb/{head}", tuple(emb[head].shape), cfg, mesh),
+                          mesh)[1].is_shard(), "the head is not split over model"
+
+    def block(name, g):
+        return g if name == "h" else shd.local_block(g, placed[name].placements, mesh)
+    scale = max(float(g.abs().max()) for g in g_want.values())
+    errs = {n: float((g_got[n] - block(n, g)).abs().max()) for n, g in g_want.items()}
+    assert max(errs.values()) <= TOL * scale, (errs, scale)
+    # the max term: without it the head's gradient moves by far more than TOL
+    max_term = float((g_got[head] - block(head, g_free[head])).abs().max())
+    assert max_term > 100 * TOL * scale, (max_term, scale)
+    logits = layers.unembed(emb, layers.embed(emb, toks) + h)[..., :cfg.vocab]
+    n = layers.padded_vocab(cfg) // shd.axis_sizes(mesh)["model"]
+    elsewhere = int((logits.argmax(-1) // n != labels // n).sum())
+    assert elsewhere > 0, "every row's argmax on its label's rank"
+    return {"err": _close(got, want, "loss"), "grad_errs": errs, "grad_scale": scale,
+            "max_term_grad": max_term, "rows_argmax_on_another_rank": elsewhere}
+
+
+def case_vocab_parallel_loss_tied(mesh):
+    return _head_case(mesh, "minicpm-2b", 7)
+
+
+def case_vocab_parallel_loss_untied(mesh):
+    return _head_case(mesh, "codeqwen1.5-7b", 8)
 
 
 def case_prefill_caches_kv_heads(mesh):
