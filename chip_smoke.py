@@ -90,7 +90,17 @@ Phases, each fatal on failure:
       full-width minicpm-2b, every leaf checked (int8 in [-127, 127], error
       within 1.51 of its block's scale, residual = corrected - deq exactly,
       packed under a 3.5th of the fp32 bytes) and one leaf's q and scales bit
-      for bit against the CPU's, with its ms beside its bytes bound;
+      for bit against the CPU's, with its ms beside its bytes bound; (j4) in
+      (d), on codeqwen1.5-7b's weights (full width and depth) after its
+      checks, the first wave's 4 prompts through ``placed_prefill`` and 31
+      ``placed_decode`` steps on DTensor params, tokens and cache placed as
+      the reference places its serving calls, against the mesh-free wave:
+      every step's logits and tokens bit for bit; then the same wave with
+      the cache split by its sequence (``ctx.force_sequence_split``: the
+      context-parallel decode attention), teacher-forced with the first
+      wave's tokens, within ``SERVE_TOL``; K1 launched once a layer in
+      each prefill and never in decode, and each run's prefill and decode
+      tok/s and peak GB;
   (k) counts against the card (``repro_torch.launch.roofline``): in (d), one
       prefill wave (B=4, the longest of the 8 prompts) of each served model on
       its weights, and in (f) and (i), one more train step of each trained
@@ -158,7 +168,8 @@ from repro_torch.launch.train import write_dataset  # noqa: E402
 from repro_torch.models import get_model, moe, transformer  # noqa: E402
 from repro_torch.parallel import compress, ctx, spmd  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
-from repro_torch.serve.server import BatchServer, Request  # noqa: E402
+from repro_torch.serve.server import (  # noqa: E402
+    BatchServer, Request, placed_decode, placed_prefill)
 from repro_torch.storage.datapipe import ShardReader  # noqa: E402
 from repro_torch.storage.volume import LocalMount  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
@@ -231,6 +242,8 @@ MOE_ARCH, MOE_HEADROOM_BYTES = "mixtral-8x22b", 24e9
 # and fp32 r), and its rounding noise's read (4)
 MESH_TRAIN_STEPS, PG_TIMEOUT_S, COMPRESS_BYTES, NOISE_BYTES = 3, 60, 12, 4
 MESH_NAMED_OPS = ("nccl", "Memcpy", "copy", "fill", "zero")
+# (j4): the served model whose first wave of (d) also runs placed on the mesh
+PLACED_ARCH = "codeqwen1.5-7b"
 # (i): rwkv6-1.6b whole; zamba2-7b cut to SSM_TRAIN_LAYERS of its 81 layers (a multiple
 # of its attn_every, so every shared-block site is whole); kernel vs plain training at
 # SSM_CHECK_LAYERS layers
@@ -824,7 +837,8 @@ def init_serving_params(api, dtype=torch.bfloat16):
     return params, n_params
 
 
-def phase_serving(arch: str):
+def phase_serving(arch: str, mesh=None):
+    """(d) for ``arch``; and (j4) on ``mesh`` where one is given."""
     cfg = get_arch(arch)
     log(f"(d) serving {arch} at full width: {json.dumps(dataclasses.asdict(cfg))}")
     torch.cuda.reset_peak_memory_stats()
@@ -832,12 +846,16 @@ def phase_serving(arch: str):
     params, n_params = init_serving_params(api)
     gen = torch.Generator().manual_seed(1)
     lengths = torch.randint(1024, 2049, (8,), generator=gen).tolist()
-    serving = serve_requests(arch, cfg, api, params, n_params, lengths, gen, smax=4096)
+    prompts = draw_prompts(cfg, lengths, gen)
+    serving = serve_requests(arch, cfg, api, params, n_params, prompts, smax=4096)
     serving["consistency"] = check_consistency(cfg, api, params, SERVE_TOL[arch])
     params32 = _tree_map(lambda x: x.float(), params)
     serving["consistency_fp32"] = check_consistency(cfg, api, params32, FP32_TOL)
     del params32
     free_device_memory()
+    if mesh is not None:
+        serving["placed"] = placed_wave(cfg, api, params, prompts[:4], mesh, smax=4096)
+        free_device_memory()
     serving["profile"] = profile_wave(cfg, api, params, 4, max(lengths), 4096)
     serving["counts"] = prefill_counts(cfg, api, params, lengths, 4096)
     serving["phase_peak_mem_gb"] = max(torch.cuda.max_memory_allocated() / 1e9,
@@ -845,13 +863,17 @@ def phase_serving(arch: str):
     return serving
 
 
-def serve_requests(arch, cfg, api, params, n_params, lengths, gen, smax, batch=4, max_new=32):
-    """Serves one request per prompt length (tokens drawn from ``gen``) through
-    ``BatchServer`` after a warm-up, and checks the kernels' launch counts and
-    the outputs."""
-    n_req = len(lengths)
-    reqs = [Request(rid=i, prompt=torch.randint(0, cfg.vocab, (n,), generator=gen).tolist(),
-                    max_new=max_new) for i, n in enumerate(lengths)]
+def draw_prompts(cfg, lengths, gen):
+    """A prompt of each length, its tokens drawn from ``gen``."""
+    return [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist() for n in lengths]
+
+
+def serve_requests(arch, cfg, api, params, n_params, prompts, smax, batch=4, max_new=32):
+    """Serves one request per prompt through ``BatchServer`` after a warm-up,
+    and checks the kernels' launch counts and the outputs."""
+    n_req = len(prompts)
+    lengths = [len(p) for p in prompts]
+    reqs = [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
     srv = BatchServer(cfg, params, batch=batch, smax=smax, device="cuda")
     srv.serve([Request(rid=0, prompt=list(range(64)), max_new=2)])      # warm-up
     stats = {"prefill": 0.0, "decode": 0.0}
@@ -1629,6 +1651,110 @@ def phase_mesh_train(mesh):
     return res
 
 
+# ------------------------------------------------------------------ (j4) placed serving
+
+def _wave_tokens(prompts) -> torch.Tensor:
+    """The wave's prompts left-padded with token 0, as ``BatchServer`` pads them."""
+    toks = torch.zeros((len(prompts), max(map(len, prompts))), dtype=torch.long)
+    for i, prompt in enumerate(prompts):
+        toks[i, toks.shape[1] - len(prompt):] = torch.tensor(prompt)
+    return toks.cuda()
+
+
+def _wave(cfg, prefill, decode, toks, steps: int, forced=None):
+    """A prefill of ``toks`` and ``steps`` greedy decode steps through
+    ``prefill(toks)``/``decode(token, cache, cache_len)`` (whose logits are
+    whole tensors), each token the argmax of the step before or, teacher
+    forced, ``forced[i]``; each phase timed, the kernels' launches of the
+    prefill counted, and the run's own peak of device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = launches()
+    steps_logits, tokens = [logits], [logits[:, -1, :cfg.vocab].argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        nxt = tokens[-1] if forced is None else forced[i]
+        logits, cache = decode(nxt[:, None], cache, toks.shape[1] + i)
+        steps_logits.append(logits)
+        tokens.append(logits[:, -1, :cfg.vocab].argmax(-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    del cache
+    if launches() != counts:
+        raise AssertionError(f"decode launched a kernel: {launches()} after prefill's {counts}")
+    return steps_logits, tokens, {"prefill_s": prefill_s, "decode_s": decode_s,
+                                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                  "launches": counts}
+
+
+def placed_wave(cfg, api, params, prompts, mesh, smax: int, steps: int = 31):
+    """(j4): one wave of (d)'s prompts through ``placed_prefill`` and ``steps``
+    ``placed_decode`` steps on DTensor params, tokens and cache placed as the
+    reference places its serving calls on ``mesh``, against the mesh-free
+    wave on the same weights: every step's logits and tokens bit for bit (a
+    group of one changes no sum).  Then the same wave with the cache split by
+    its sequence (``ctx.force_sequence_split``: the context-parallel decode
+    attention, its softmax reduced over "model"), teacher-forced with the
+    first wave's tokens, within ``SERVE_TOL``, and with the same launches."""
+    t_phase = time.perf_counter()
+    log(f"(j4) placed serving {cfg.name}: one wave of {len(prompts)} prompts and {steps} decode "
+        f"steps on a {tuple(mesh.shape)} {mesh.mesh_dim_names} mesh of one NCCL rank")
+    toks = _wave_tokens(prompts)
+    n_tokens = sum(map(len, prompts))
+    placed = shd.distribute_tree(params, shd.param_shardings(cfg, params, mesh), mesh)
+
+    def place(x):
+        return shd.distribute(x, shd.input_shardings(mesh, {"x": x})["x"], mesh)
+
+    def whole_logits(out):
+        logits, cache = out
+        return logits.full_tensor(), cache
+
+    def placed_fns():
+        return (lambda t: whole_logits(placed_prefill(cfg, placed, place(t), smax, "bfloat16",
+                                                      mesh)),
+                lambda tok, cache, n: whole_logits(placed_decode(cfg, placed, place(tok), cache,
+                                                                 n, mesh)))
+
+    with torch.no_grad():
+        placed_fns()[0](toks[:, :64])      # warm-up: the group's first collectives
+        want, want_tokens, plain = _wave(cfg, lambda t: api.prefill(params, t, smax),
+                                         lambda tok, c, n: api.decode(params, tok, c, n),
+                                         toks, steps)
+        got, got_tokens, run = _wave(cfg, *placed_fns(), toks, steps)
+        with ctx.force_sequence_split():
+            seq, _, run_seq = _wave(cfg, *placed_fns(), toks, steps, forced=want_tokens[:-1])
+    runs = {"mesh_free": plain, "placed": run, "placed_sequence_split": run_seq}
+    for r in runs.values():
+        r.update(prefill_tok_s=n_tokens / r["prefill_s"],
+                 decode_tok_s=len(prompts) * steps / r["decode_s"])
+    identical = sum(torch.equal(g, w) for g, w in zip(got, want))
+    seq_errs = [rel_close(g, w, SERVE_TOL[cfg.name])[1] for g, w in zip(seq, want)]
+    want_launches = {name: (cfg.n_layers if name == "flash_attention_fwd" else 0)
+                     for name in KERNELS}
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": list(mesh.shape),
+           "mesh_axes": list(mesh.mesh_dim_names), "batch": len(prompts),
+           "prompt_lengths": list(map(len, prompts)), "smax": smax, "decode_steps": steps,
+           "steps_bit_identical": identical, "steps": len(want),
+           "tokens_equal": all(torch.equal(g, w) for g, w in zip(got_tokens, want_tokens)),
+           "sequence_split_tolerance": SERVE_TOL[cfg.name],
+           "sequence_split_max_err": max(seq_errs), "sequence_split_errs": seq_errs,
+           "expected_launches": want_launches, "runs": runs,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  placed serving: {json.dumps(res)}")
+    if identical != len(want) or not res["tokens_equal"] or \
+            max(seq_errs) > SERVE_TOL[cfg.name] or \
+            any(r["launches"] != want_launches for r in runs.values()) or \
+            not all(torch.isfinite(g).all() for g in got + seq):
+        raise AssertionError(f"placed serving against the mesh-free wave: {res}")
+    return res
+
+
 # ------------------------------------------------------------------ (h) MoE serving
 
 def _bf16_layer_bytes(cfg) -> tuple:
@@ -1730,7 +1856,8 @@ def phase_moe_serving(mesh):
     lengths = torch.randint(3072, 6145, (8,), generator=gen).tolist()
     if sum(n > cfg.swa_window for n in lengths) < 2:
         raise AssertionError(f"fewer than two prompts longer than the window: {lengths}")
-    serving = serve_requests(MOE_ARCH, cfg, api, params, n_params, lengths, gen, smax=8192)
+    serving = serve_requests(MOE_ARCH, cfg, api, params, n_params,
+                             draw_prompts(cfg, lengths, gen), smax=8192)
     serving.update(cut=cut, window=cfg.swa_window,
                    prompts_past_window=sum(n > cfg.swa_window for n in lengths))
     # no token can drop at capacity_factor = E / k (an expert takes at most one
@@ -2022,7 +2149,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
     free_device_memory()
     servings = {}
     for arch in ("codeqwen1.5-7b", "zamba2-7b", "rwkv6-1.6b"):
-        servings[arch] = phase_serving(arch)
+        servings[arch] = phase_serving(arch, mesh if arch == PLACED_ARCH else None)
         peaks.append(servings[arch]["phase_peak_mem_gb"])
         free_device_memory()
     training = phase_training()
@@ -2054,6 +2181,8 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
              f"{TRAIN_ARCH}-mesh-train": mesh_train["launches"],
              f"{TRAIN_ARCH}-mesh-train-fsdp": mesh_train["runs"]["fsdp"]["launches"],
              f"{MOE_ARCH}-ep-prefill": servings[MOE_ARCH]["ep_prefill"]["launches"],
+             **{f"{PLACED_ARCH}-{name}": run["launches"] for name, run in
+                servings[PLACED_ARCH]["placed"]["runs"].items() if name != "mesh_free"},
              **{f"{a}-train": t["launches"] for a, t in ssm_training.items()}}
 
     def by_path(kernel):
@@ -2134,6 +2263,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                                    "dryrun": cells, "operator_dispatch": dispatch},
                       "device": name, "nvidia_smi": smi}))
     print(json.dumps({"parallel": {"mesh_train": mesh_train,
+                                   "placed_serving": servings[PLACED_ARCH]["placed"],
                                    "ep_prefill": servings[MOE_ARCH]["ep_prefill"],
                                    "compression": training["compression"]},
                       "device": name, "nvidia_smi": smi}))

@@ -28,9 +28,10 @@ The record says how the port placed the call (``placement``).  A train
 step stores parameters and gradients as the reference's placements say:
 each layer gathers its blocks over the data axes inside its checkpointed
 block (``param_gathers``: gathers and their backward's reduce-scatters),
-and the loss is vocab-parallel.  Serving runs on whole parameters, caches
-and batches on every rank (the MLP and the MoE block take their "model"
-share), where the reference shards caches and logits.
+and the loss is vocab-parallel.  A prefill or decode runs
+``serve.server.placed_prefill``/``placed_decode`` on the params, tokens
+and cache placed as the reference's ``lower_cell`` places them, and its
+cache is counted as its own category of live bytes (``cache``).
 
 Importing this module has no side effects: the process group is joined by
 ``lower_cell``.
@@ -51,8 +52,9 @@ import torch.distributed as dist
 from ..configs import all_cells, get_arch, get_shape
 from ..kernels import ops
 from ..models import get_model, input_specs, kv_dtype_for_cell
-from ..parallel import ctx, spmd
+from ..parallel import spmd
 from ..parallel import sharding as shd
+from ..serve.server import cache_specs, placed_decode, placed_prefill
 from ..train import optimizer as opt
 from ..train.train_step import make_train_step
 from . import roofline
@@ -77,15 +79,30 @@ PLACEMENT = {
                            "updates its block and gathers it over the data axes where the "
                            "param is not split",
               "batch": "rows over the data axes (sharding.input_shardings)"},
-    "prefill": {"params": "whole on every rank (the serving path takes plain tensors)",
-                "tokens": "the whole batch on every rank",
-                "cache": "whole on every rank (the reference: sharding.cache_shardings)",
-                "logits": "whole on every rank (the reference: sharding.logits_sharding)",
-                "model_axis": "the MLP's hidden dim and the MoE experts over 'model'; "
-                              "attention whole"},
+    "prefill": {"params": "DTensors placed by sharding.param_shardings; the model takes each "
+                          "rank's blocks, and each layer gathers its blocks over the data axes "
+                          "where they are split (FSDP); weights split over 'model' stay this "
+                          "rank's block where that is its part (rwkv6's and Mamba2's layers and "
+                          "zamba2's shared block gather whole over 'model' too)",
+                "tokens": "rows over the data axes (sharding.input_shardings; a batch that "
+                          "does not divide them, whole on every rank)",
+                "cache": "sharding.cache_shardings: rows over the data axes; the KV heads over "
+                         "'model' where they divide it (each rank its q heads against its KV "
+                         "heads), else the sequence (each rank its slots of every KV head: the "
+                         "softmax's max and exp-sum and the partial outputs summed over "
+                         "'model'). rwkv6's and zamba2's recurrent states and zamba2's "
+                         "shared-block K/V over the data axes only, replicated over 'model' "
+                         "(their blocks are not yet split over 'model')",
+                "logits": "sharding.logits_sharding: rows over the data axes, the vocab over "
+                          "'model'",
+                "model_axis": "prefill's attention on each rank's heads, padded to a "
+                              "multiple of 'model'; decode's on its heads, or on its slots of "
+                              "every head (each rank's columns of q, k and v gathered, its rows "
+                              "of wo); the MLP's hidden dim and the MoE experts over 'model'; "
+                              "the rwkv6 and Mamba2 blocks whole on every rank"},
 }
-PLACEMENT["decode"] = {**PLACEMENT["prefill"], "tokens": "the whole batch's tokens on "
-                       "every rank"}
+PLACEMENT["decode"] = {**PLACEMENT["prefill"], "tokens": "the batch's tokens, placed as "
+                       "prefill's"}
 
 
 def fake_twin(tree, device):
@@ -130,33 +147,32 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool):
     spmd.GATHERS.clear()
     with FakeTensorMode(), ops.kernel_path():
         whole = api.init(0, torch.bfloat16, DEVICE)
+        params = shd.distribute_tree(whole, shd.param_shardings(cfg, whole, mesh), mesh)
+        del whole
         ins = _empty(input_specs(cfg, shape))
+        ins = shd.distribute_tree(ins, shd.input_shardings(mesh, ins), mesh)
+        count.track(params, "params")
+        count.track(ins, "other")
         if shape.kind == "train":
             oc = opt.opt_config_for(cfg)
-            params = shd.distribute_tree(whole, shd.param_shardings(cfg, whole, mesh), mesh)
-            state = opt.init_opt_state(oc, params, shd.opt_shardings(cfg, whole, mesh))
-            batch = shd.distribute_tree(ins, shd.input_shardings(mesh, ins), mesh)
-            del whole
+            state = opt.init_opt_state(oc, params, shd.opt_shardings(cfg, params, mesh))
             step = make_train_step(cfg, oc)
-            count.track(params, "params")
             count.track((state.step, state.mu, state.nu, state.master), "opt_state")
-            count.track(batch, "other")
             t0 = time.perf_counter()
             with count:
-                step(params, state, batch)
+                step(params, state, ins)
         elif shape.kind == "prefill":
-            count.track(whole, "params")
-            count.track(ins, "other")
             t0 = time.perf_counter()
-            with torch.no_grad(), ctx.mesh_context(mesh), count:
-                api.prefill(whole, ins["tokens"], shape.seq_len, kv)
+            with count:
+                placed_prefill(cfg, params, ins["tokens"], shape.seq_len, kv, mesh)
         else:
-            cache = _empty(api.cache_spec(shape.global_batch, shape.seq_len, kv))
-            count.track(whole, "params")
-            count.track((ins, cache), "other")
+            spec = api.cache_spec(shape.global_batch, shape.seq_len, kv)
+            cache = shd.distribute_tree(_empty(spec), cache_specs(
+                cfg, {name: dims for name, (dims, _) in spec.items()}, mesh), mesh)
+            count.track(cache, "cache")
             t0 = time.perf_counter()
-            with torch.no_grad(), ctx.mesh_context(mesh), count:
-                api.decode(whole, ins["token"], cache, shape.seq_len - 1)
+            with count:
+                placed_decode(cfg, params, ins["token"], cache, shape.seq_len - 1, mesh)
         lower_s = time.perf_counter() - t0
     return cfg, shape, mesh, count, lower_s, dict(spmd.GATHERS)
 

@@ -28,8 +28,9 @@ up, for the rank it runs on:
   * the peak of live device bytes (storages that operators made, plus
     those registered before the call), split into params, optimizer state,
     gradients (made by the backward with grad mode off), all-gathers'
-    results (``gathered``: in a train step, the parameters a layer gathers)
-    and the rest; and each category's own peak.
+    results (``gathered``: in a train step, the parameters a layer gathers),
+    a serving call's cache (registered as ``cache``) and the rest; and each
+    category's own peak.
 
 What of the reference has no counterpart, and why: ``fold_totals`` and the
 trip counts (nothing is folded: every layer runs in Python, and each of its
@@ -167,7 +168,7 @@ class Count(TorchDispatchMode):
     ``track(tree, category)`` registers tensors that exist before the call
     (params, optimizer state, inputs) as live device bytes."""
 
-    CATEGORIES = ("params", "opt_state", "grads", "gathered", "other")
+    CATEGORIES = ("params", "opt_state", "grads", "gathered", "cache", "other")
 
     def __init__(self, device_type: str = "cuda"):
         super().__init__()

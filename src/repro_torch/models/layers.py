@@ -20,8 +20,11 @@ weights and of the region's input are summed over the axis
 a train step's) the model is given each rank's blocks: a weight split
 over "model" arrives as this rank's block, taken as it is where it is the
 rank's part (``spmd.model_part``); the embedding looks up its rank's
-slice of the vocab and ``lm_loss`` runs the head and the cross-entropy
-vocab-parallel.
+slice of the vocab, ``unembed`` gives this rank's slice of the logits and
+``lm_loss`` runs the head and the cross-entropy vocab-parallel.  A placed
+serving call also hands the model its block of the K/V cache
+(``ctx.kv_split``): decode attention then runs on the rank's heads, or on
+its slots of every head with the softmax reduced over "model".
 """
 
 from __future__ import annotations
@@ -217,72 +220,99 @@ def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
     b, t, _ = x.shape
     mesh = tp_mesh() if pad_tp else None
     if mesh is None:
-        q, k, v = _mm(x, p["wq"]), _mm(x, p["wk"]), _mm(x, p["wv"])
-        if cfg.qkv_bias:
-            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-        hq, nk = H, KV
+        q = _proj(x, p["wq"], p["bq"] if cfg.qkv_bias else None).reshape(b, t, H, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+        return (rope(q, positions, cfg.rope_theta), *_kv(cfg, p, x, positions))
+    tp = _tp_size()
+    need = tp > 1 and (H % tp != 0 or KV % tp != 0)
+    hp = -(-H // tp) * tp if need else H
+    mha = KV == H
+    hq = hp // tp
+    x = spmd.enter_model(x, mesh)
+
+    def q_cols(w):          # padded to hp heads, this rank's hq of them
+        return spmd.model_part(w, mesh, -1, hq * hd, padded=hp * hd)
+
+    if need and not mha:    # GQA-uneven: k/v whole here, expanded below
+        kv_cols, nk = (lambda w: spmd.model_whole(w, mesh)), KV
+    elif need:              # MHA: padded like q
+        kv_cols, nk = q_cols, hq
     else:
-        tp = _tp_size()
-        need = tp > 1 and (H % tp != 0 or KV % tp != 0)
-        hp = -(-H // tp) * tp if need else H
-        mha = KV == H
-        hq = hp // tp
-        x = spmd.enter_model(x, mesh)
-
-        def q_cols(w):          # padded to hp heads, this rank's hq of them
-            return spmd.model_part(w, mesh, -1, hq * hd, padded=hp * hd)
-
-        if need and not mha:    # GQA-uneven: k/v whole here, expanded below
-            kv_cols, nk = (lambda w: spmd.model_whole(w, mesh)), KV
-        elif need:              # MHA: padded like q
-            kv_cols, nk = q_cols, hq
-        else:
-            nk = KV // tp
-            kv_cols = lambda w: spmd.model_part(w, mesh, -1, nk * hd)  # noqa: E731
-        q = _mm(x, q_cols(p["wq"]))
-        k, v = _mm(x, kv_cols(p["wk"])), _mm(x, kv_cols(p["wv"]))
-        if cfg.qkv_bias:
-            q, k, v = q + q_cols(p["bq"]), k + kv_cols(p["bk"]), v + kv_cols(p["bv"])
+        nk = KV // tp
+        kv_cols = lambda w: spmd.model_part(w, mesh, -1, nk * hd)  # noqa: E731
+    q = _mm(x, q_cols(p["wq"]))
+    k, v = _mm(x, kv_cols(p["wk"])), _mm(x, kv_cols(p["wv"]))
+    if cfg.qkv_bias:
+        q, k, v = q + q_cols(p["bq"]), k + kv_cols(p["bk"]), v + kv_cols(p["bv"])
     q = q.reshape(b, t, hq, hd)
     k = k.reshape(b, t, nk, hd)
     v = v.reshape(b, t, nk, hd)
-    if mesh is not None and need and not mha:
+    if need and not mha:
         # each of this rank's padded q heads reads kv head min(h // (H/KV), KV-1)
         lo = spmd.model_rank(mesh) * hq
         qmap = torch.clamp(torch.arange(lo, lo + hq, device=x.device) // max(H // KV, 1),
                            max=KV - 1)
         k, v = k[:, :, qmap], v[:, :, qmap]
     if cfg.qk_norm:
-        norms = ((p["q_norm"], p["k_norm"]) if mesh is None else
-                 (spmd.model_whole(p["q_norm"], mesh), spmd.model_whole(p["k_norm"], mesh)))
-        q = rms_norm(q, norms[0])
-        k = rms_norm(k, norms[1])
+        q = rms_norm(q, spmd.model_whole(p["q_norm"], mesh))
+        k = rms_norm(k, spmd.model_whole(p["k_norm"], mesh))
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
 
-def _sdpa(cfg: ArchConfig, q, k, v, q_pos, k_pos, k_valid=None):
-    """Grouped-query scaled-dot-product attention with causal (+SWA) mask.
+def _proj(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """``x @ w (+ bias)``, every column.  Given this rank's block of a
+    weight split over "model" by its columns (placed parameters), and of its
+    bias, the rank's columns gathered over "model" (forward only: every
+    model rank must hold the same rows of x)."""
+    y = _mm(x, w) if bias is None else _mm(x, w) + bias
+    return y if spmd.model_dim(w) is None else spmd.all_gather_model(y, tp_mesh())
 
-    q [B,Tq,H,hd], k/v [B,Tk,KV,hd]; *_pos absolute positions [B,Tq]/[B,Tk].
-    k_valid: optional [B,Tk] bool (cache entries actually written)."""
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    b, tq = q.shape[0], q.shape[1]
-    dt = torch.promote_types(q.dtype, k.dtype)
-    qg = q.reshape(b, tq, KV, H // KV, hd).to(dt)
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(dt)).float()
-    logits = logits / (hd ** 0.5)
-    mask = q_pos[:, None, None, :, None] >= k_pos[:, None, None, None, :]
-    if cfg.swa_window:
-        near = (q_pos[:, None, None, :, None]
-                - k_pos[:, None, None, None, :]) < cfg.swa_window
-        mask = mask & near
-    if k_valid is not None:
-        mask = mask & k_valid[:, None, None, None, :]
-    logits = logits.masked_fill(~mask, -1e30)
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(dt), v.to(dt))
-    return out.reshape(b, tq, H * hd)
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, rank_heads: bool) -> torch.Tensor:
+    """``out @ wo``.  Given this rank's block of rows of ``wo`` (split over
+    "model"), the block against out's matching columns (all of out where it
+    holds only this rank's heads: ``rank_heads``), summed over "model"."""
+    if spmd.model_dim(wo) is None:
+        return _mm(out, wo)
+    mesh, n = tp_mesh(), wo.shape[0]
+    if not rank_heads:
+        out = out.narrow(-1, spmd.model_rank(mesh) * n, n)
+    return spmd.reduce_model(_mm(out, wo), mesh)
+
+
+def _kv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
+    """The K/V projections (+bias, k-norm, RoPE) of every KV head -> k/v
+    [B,T,KV,hd] (``_proj``)."""
+    b, t, _ = x.shape
+    k = _proj(x, p["wk"], p["bk"] if cfg.qkv_bias else None)
+    v = _proj(x, p["wv"], p["bv"] if cfg.qkv_bias else None)
+    k = k.reshape(b, t, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"])
+    return rope(k, positions, cfg.rope_theta), v.reshape(b, t, cfg.n_kv_heads, cfg.hd)
+
+
+def whole(p: Params) -> Params:
+    """An attention's weights as every "model" rank uses them whole: under
+    placed parameters, blocks split over "model" gathered first; else ``p``."""
+    if ctx.param_placements() is None:
+        return p
+    mesh = tp_mesh()
+    return {n: spmd.model_whole(w, mesh) for n, w in p.items()}
+
+
+def cache_slots(n_slots: int) -> Tuple[int, int]:
+    """(this rank's first slot, its slots) of a K/V cache of ``n_slots``
+    slots: a contiguous range where the cache is split by its sequence over
+    "model" (``ctx.kv_split``), else all of them."""
+    if ctx.kv_split() != "sequence":
+        return 0, n_slots
+    mesh = tp_mesh()
+    n = n_slots // _tp_size()
+    return spmd.model_rank(mesh) * n, n
 
 
 def _write_slot(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
@@ -303,42 +333,64 @@ def attention_decode(cfg: ArchConfig, p: Params, x: torch.Tensor,
     q_pos: absolute position of the new token (RoPE);
     n_valid: number of populated cache slots AFTER this write.
     The new token's k/v (and scales) are written into the given cache
-    tensors in place.  Returns (out [B,1,D], cache_k, cache_v, scales)."""
-    b = x.shape[0]
-    smax = cache_k.shape[1]
+    tensors in place.  Returns (out [B,1,D], cache_k, cache_v, scales).
+    With n_valid == q_pos + 1 (full attention) the causal mask reduces to
+    the validity mask, and for the SWA ring validity is the mask.
+
+    Given a block of a cache split over "model" (``ctx.kv_split``), the
+    cache's dims are this rank's and the slots global.  Split by its heads,
+    the rank runs its q heads against its KV heads, then its rows of wo.
+    Split by its sequence (slots [r n, (r + 1) n) of every KV head:
+    context-parallel attention), every rank has q, k and v of every head
+    (``_proj``) and only the rank whose slots hold ``write_pos`` writes;
+    the softmax's max and exp-sum are reduced over "model", each rank
+    normalises its own probabilities and casts them as the mesh-free path
+    does (to bf16 in the int8 path, before the product with v), and the
+    partial outputs are summed over "model" in fp32 and rounded once to
+    the mesh-free output's dtype; then its rows of wo (``_out_proj``)."""
+    split, mesh = ctx.kv_split(), tp_mesh()
+    seq = split == "sequence"
+    b, n = x.shape[0], cache_k.shape[1]
     dev = x.device
     positions = torch.full((b, 1), q_pos, dtype=torch.int32, device=dev)
-    q, k_new, v_new = _qkv(cfg, p, x, positions)
-
-    slot = torch.arange(smax, dtype=torch.int32, device=dev)[None, :].expand(b, smax)
-    k_valid = slot < n_valid
+    q, k_new, v_new = _qkv(cfg, p, x, positions, pad_tp=split == "heads")
+    lo = spmd.model_rank(mesh) * n if seq else 0
+    if not seq or lo <= write_pos < lo + n:
+        new = (k_new, v_new)
+        if kv_scale is not None:
+            (k_q, k_s), (v_q, v_s) = _quantize_kv(k_new), _quantize_kv(v_new)
+            new = (k_q, v_q, k_s, v_s)
+        for dst, src in zip((cache_k, cache_v, *(kv_scale or ())), new):
+            _write_slot(dst, src, write_pos - lo)
+    H, KV, hd = q.shape[2], cache_k.shape[2], cfg.hd
+    qg = q.reshape(b, 1, KV, H // KV, hd)
     if kv_scale is not None:
-        ks, vs = kv_scale
-        k_q, k_s = _quantize_kv(k_new)
-        v_q, v_s = _quantize_kv(v_new)
-        for dst, src in ((cache_k, k_q), (cache_v, v_q), (ks, k_s), (vs, v_s)):
-            _write_slot(dst, src, write_pos)
         # scales applied after the dot: (q.k_q)*s_k == q.(k_q*s_k) per (token, head)
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        qg = q.reshape(b, 1, KV, H // KV, hd)
+        ks, vs = kv_scale
         s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), cache_k.float())
         s = s * ks[..., 0].transpose(1, 2)[:, :, None, None, :].float()
-        s = s / (hd ** 0.5)
-        s = s.masked_fill(~k_valid[:, None, None, None, :], -1e30)
-        pr = torch.softmax(s, dim=-1)
-        pv = (pr * vs[..., 0].transpose(1, 2)[:, :, None, None, :].float()
-              ).to(torch.bfloat16)
-        outh = torch.einsum("bkgqs,bskh->bqkgh", pv, cache_v.to(torch.bfloat16))
-        out = outh.reshape(b, 1, H * hd)
-        new_scales = (ks, vs)
+        out_dt = torch.bfloat16
     else:
-        _write_slot(cache_k, k_new, write_pos)
-        _write_slot(cache_v, v_new, write_pos)
-        zeros = torch.zeros((b, 1), dtype=torch.int32, device=dev)
-        out = _sdpa(cfg, q, cache_k, cache_v, zeros, torch.zeros_like(slot),
-                    k_valid)
-        new_scales = None
-    return _mm(out, p["wo"]), cache_k, cache_v, new_scales
+        out_dt = torch.promote_types(q.dtype, cache_k.dtype)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(out_dt), cache_k.to(out_dt)).float()
+    k_valid = lo + torch.arange(n, dtype=torch.int32, device=dev) < n_valid
+    s = (s / (hd ** 0.5)).masked_fill(~k_valid, -1e30)
+    if seq:
+        e = torch.exp(s - spmd.amax_model(s.amax(-1, keepdim=True), mesh))
+        pr = e / spmd.reduce_model(e.sum(-1, keepdim=True), mesh)
+    else:
+        pr = torch.softmax(s, dim=-1)
+    if kv_scale is not None:
+        pv = (pr * vs[..., 0].transpose(1, 2)[:, :, None, None, :].float()).to(out_dt)
+    else:
+        pv = pr.to(q.dtype).to(out_dt)
+    if seq:
+        part = torch.einsum("bkgqs,bskh->bqkgh", pv.float(), cache_v.float())
+        outh = spmd.reduce_model(part, mesh).to(out_dt)
+    else:
+        outh = torch.einsum("bkgqs,bskh->bqkgh", pv, cache_v.to(out_dt))
+    out = outh.reshape(b, 1, H * hd)
+    return _out_proj(out, p["wo"], split == "heads"), cache_k, cache_v, kv_scale
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -378,11 +430,20 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return spmd.reduce_model(torch.where(mine[..., None], rows, 0), mesh)
 
 
+def _logits(head: Params, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head (``out``, or the tied ``tok``) over x."""
+    x = rms_norm(x, head["ln_f"])
+    if "out" in head:
+        return _mm(x, head["out"])
+    return _mm(x, head["tok"].t())
+
+
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, p["ln_f"])
-    if "out" in p:
-        return _mm(x, p["out"])
-    return _mm(x, p["tok"].t())
+    """x [B, T, d] -> logits [B, T, V_pad].  With the head split over "model"
+    by the vocab (placed parameters), this rank's slice of the vocab,
+    [B, T, V_pad / tp], as ``sharding.logits_sharding`` places the logits."""
+    return _logits(gatherer("emb")({k: p[k] for k in ("ln_f", "out" if "out" in p else "tok")}),
+                   x)
 
 
 def lm_loss(p: Params, h: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -396,7 +457,7 @@ def lm_loss(p: Params, h: torch.Tensor, labels: torch.Tensor, vocab: int) -> tor
     w = head["tok" if tied else "out"]
     mesh = tp_mesh()
     if spmd.model_dim(w) != (0 if tied else 1):
-        return cross_entropy(unembed(head, h), labels, vocab)
+        return cross_entropy(_logits(head, h), labels, vocab)
     x = spmd.enter_model(rms_norm(h, head["ln_f"]), mesh)
     logits = _mm(x, w.t() if tied else w)
     return _cross_entropy_vocab_parallel(logits, labels, vocab,

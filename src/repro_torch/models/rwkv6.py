@@ -161,14 +161,17 @@ def _block(cfg: ArchConfig, lp: Params, h: torch.Tensor, tx: torch.Tensor,
 
 def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
               state: State = None) -> Tuple[torch.Tensor, State]:
-    """tokens [B,T] -> (final hidden [B,T,d], new state)."""
+    """tokens [B,T] -> (final hidden [B,T,d], new state).  Under placed
+    parameters (a placed serving call) each layer gathers its blocks whole,
+    as the loss's do, and the state holds this rank's rows."""
     b, _ = tokens.shape
     if state is None:
         state = zero_state(cfg, b, tokens.device)
     h = layers.embed(params["emb"], tokens)
+    gather = layers.gatherer("layers", stacked=True, whole=True)
     tx, cx, wkv = [], [], []
     for i, lp in enumerate(layers.unstack(params["layers"])):
-        h, tx2, cx2, wkv2 = _block(cfg, lp, h, state["tmix_x"][i], state["cmix_x"][i],
+        h, tx2, cx2, wkv2 = _block(cfg, gather(lp), h, state["tmix_x"][i], state["cmix_x"][i],
                                    state["wkv"][i])
         tx.append(tx2)
         cx.append(cx2)

@@ -19,6 +19,15 @@ phantom heads), runs its share of the MLP's hidden dim, and the partial
 outputs are summed.  Prefill pads no heads, as the reference's does not,
 so its K/V cache holds the model's KV heads.
 
+Under placed parameters and a sharded batch (a placed serving call,
+``serve.server.placed_prefill``/``placed_decode``), prefill and decode run
+SPMD on each rank's rows and blocks: each layer gathers its blocks, the
+attention runs on the rank's padded heads as the loss's does, and the
+cache is the rank's block as ``ctx.kv_split`` says: its KV heads (split by
+heads), its slots of every KV head (split by sequence: their k/v computed
+from the whole ``wk``/``wv`` for only the positions those slots hold), or
+all of it.  Padded heads never reach the cache.
+
 One difference: with a sliding window, prefill stores position j of the
 prompt in cache slot j mod W, where decode writes it.  The reference
 stores the last W positions in slots 0..W-1, so for a prompt longer than
@@ -37,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..parallel import spmd
+from ..parallel import ctx, spmd
 from . import layers, moe
 from .layers import Params
 
@@ -172,43 +181,76 @@ def kv_cache_spec(cfg: ArchConfig, batch: int, smax: int, dtype_name: str):
     }
 
 
+def _prompt_runs(t: int, n_slots: int, lo: int, n: int):
+    """The prompt positions whose K/V land in cache slots [lo, lo + n) of a
+    cache of ``n_slots`` (position j in slot j mod n_slots, the ring decode
+    continues; the last n_slots positions kept), as runs of consecutive
+    positions in slot order: (first slot - lo, first position, length) each,
+    at most two; slots past the prompt hold none."""
+    runs, s, end = [], lo, min(lo + n, t)
+    while s < end:
+        j = s + n_slots * ((t - 1 - s) // n_slots)
+        m = min(end - s, t - j)
+        runs.append((s - lo, j, m))
+        s += m
+    return runs
+
+
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,
             kv_dtype_name: str = "bfloat16") -> Tuple[torch.Tensor, Cache]:
     """Process the full prompt; return (last-token logits [B,1,V], cache dict).
 
     The cache is bf16 (or int8 + bf16 scales) whatever the params' dtype,
     holds zero rows past the prompt, and is allocated once at its full
-    [L, ...] size."""
+    [L, ...] size (this rank's block of it, under a placed serving call)."""
     b, t = tokens.shape
+    dev = tokens.device
     cache_smax = min(smax, cfg.swa_window) if cfg.swa_window else smax
     if not cfg.swa_window and t > smax:
         raise ValueError(f"prompt of {t} tokens does not fit a cache of {smax}")
-    cache = {name: torch.zeros(shape, dtype=dt, device=tokens.device)
-             for name, (shape, dt) in
-             kv_cache_spec(cfg, b, smax, kv_dtype_name).items()}
-    positions = _positions(b, t, tokens.device)
+    placed, split = ctx.param_placements() is not None, ctx.kv_split()
+    lo, n_slots = layers.cache_slots(cache_smax)
+    kv_heads = cfg.n_kv_heads // (layers._tp_size() if split == "heads" else 1)
+    cache = {name: torch.zeros((*shape[:2], n_slots, kv_heads, shape[-1]), dtype=dt,
+                               device=dev)
+             for name, (shape, dt) in kv_cache_spec(cfg, b, smax, kv_dtype_name).items()}
+    runs = _prompt_runs(t, cache_smax, lo, n_slots)
+
+    def rows(x):        # x's prompt positions that this rank's slots hold, in slot order
+        return torch.cat([x[:, :0]] + [x[:, j:j + m] for _, j, m in runs], 1)
+
+    own_rows = placed and split != "heads"     # every KV head of its slots' positions
+    if own_rows:
+        row_pos = rows(torch.arange(t, device=dev)[None].expand(b, t))
+    positions = _positions(b, t, dev)
     h = layers.embed(params["emb"], tokens)
     rs = _residual_scale(cfg)
+    gather = layers.gatherer("layers", stacked=True)
     for i, lp in enumerate(layers.unstack(params["layers"])):
-        attn, k, v = _attn_full(cfg, lp, h, positions)
+        lp = gather(lp)
+        if own_rows:
+            # from the layer's input; the attention's k/v are its padded heads
+            k, v = layers._kv(cfg, layers.whole(lp["attn"]), layers.rms_norm(rows(h), lp["ln1"]),
+                              row_pos)
+        attn, k_all, v_all = _attn_full(cfg, lp, h, positions, pad_tp=placed)
         h = h + rs * attn
         h = h + rs * _mix(cfg, lp, h)
-        # cache tail: last cache_smax positions (= all for full attention),
-        # position j in slot j mod cache_smax, the ring decode continues
-        k_tail, v_tail = k[:, -cache_smax:], v[:, -cache_smax:]
-        n = k_tail.shape[1]
-        shift = (t - n) % cache_smax        # nonzero only when the prompt wraps the ring
         if kv_dtype_name == "int8":
             # quantized after zero-padding, as the reference does, so the
             # unused slots hold the scale of a zero row
-            pad = (0, 0, 0, 0, 0, cache_smax - n)
-            (kq, ks), (vq, vs) = (layers._quantize_kv(F.pad(x, pad))
-                                  for x in (k_tail, v_tail))
+            if not own_rows:
+                k, v = rows(k_all), rows(v_all)
+            pad = (0, 0, 0, 0, 0, n_slots - k.shape[1])
+            (kq, ks), (vq, vs) = (layers._quantize_kv(F.pad(x, pad)) for x in (k, v))
             for name, x in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
-                cache[name][i] = x.roll(shift, 1)
+                cache[name][i] = x
+        elif own_rows:
+            cache["k"][i, :, :k.shape[1]] = k
+            cache["v"][i, :, :v.shape[1]] = v
         else:
-            cache["k"][i, :, :n] = k_tail.roll(shift, 1)
-            cache["v"][i, :, :n] = v_tail.roll(shift, 1)
+            for off, j, m in runs:
+                cache["k"][i, :, off:off + m] = k_all[:, j:j + m]
+                cache["v"][i, :, off:off + m] = v_all[:, j:j + m]
     return layers.unembed(params["emb"], h[:, -1:]), cache
 
 
@@ -220,10 +262,12 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     h = layers.embed(params["emb"], token)
     rs = _residual_scale(cfg)
     int8 = "k_scale" in cache
-    smax = cache["k"].shape[2]
+    smax = cache["k"].shape[2] * (layers._tp_size() if ctx.kv_split() == "sequence" else 1)
     write_pos = cache_len % smax if cfg.swa_window else cache_len
     n_valid = min(cache_len + 1, smax)
+    gather = layers.gatherer("layers", stacked=True)
     for i, lp in enumerate(layers.unstack(params["layers"])):
+        lp = gather(lp)
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if int8 else None
         out, _, _, _ = layers.attention_decode(
             cfg, lp["attn"], layers.rms_norm(h, lp["ln1"]), cache["k"][i],

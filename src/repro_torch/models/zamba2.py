@@ -167,7 +167,10 @@ def _shared_block(cfg: ArchConfig, sp: Params, h: torch.Tensor,
 def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
               state: Optional[State] = None, smax: int = 0):
     """tokens [B,T] -> (final hidden [B,T,d], new state).  The per-site K/V
-    come back in a cache of ``smax`` slots (``T`` if 0), zero past T."""
+    come back in a cache of ``smax`` slots (``T`` if 0), zero past T.  Under
+    placed parameters (a placed serving call) each mamba layer gathers its
+    blocks whole, as the loss's do, and the shared block is gathered whole
+    once; the state holds this rank's rows."""
     b, t = tokens.shape
     period = cfg.attn_every
     smax = smax or t
@@ -182,15 +185,17 @@ def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     h = layers.embed(params["emb"], tokens)
     kv_shape = (n_attn_sites(cfg), b, smax, cfg.n_kv_heads, cfg.hd)
     cache_k = cache_v = None
+    gather = layers.gatherer("mamba", stacked=True, whole=True)
+    sp = layers.gatherer("shared", whole=True)(params["shared"])
     convs, ssds = [], []
     for i, lp in enumerate(layers.unstack(params["mamba"])):
-        out, cs, ss = mamba_layer(cfg, lp, h, state["conv"][i], state["ssd"][i])
+        out, cs, ss = mamba_layer(cfg, gather(lp), h, state["conv"][i], state["ssd"][i])
         h = h + out
         convs.append(cs)
         ssds.append(ss)
         site, last_of_period = divmod(i + 1, period)
         if last_of_period == 0:
-            h, k, v = _shared_block(cfg, params["shared"], h, positions)
+            h, k, v = _shared_block(cfg, sp, h, positions)
             if cache_k is None:     # the K/V dtype is the compute dtype, as in the reference
                 cache_k = k.new_zeros(kv_shape)
                 cache_v = v.new_zeros(kv_shape)
@@ -251,13 +256,15 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
                 state: State, cache_len: int) -> Tuple[torch.Tensor, State]:
     """One token [B,1] through 81 mamba steps and 13 shared-attention decode
     sites.  The new token's k/v are written into ``state``'s cache in place.
-    Returns (logits [B,1,V], state)."""
+    Returns (logits [B,1,V], state).  Under placed parameters, gathered as
+    ``_backbone`` gathers them."""
     period = cfg.attn_every
     h = layers.embed(params["emb"], token)
-    sp = params["shared"]
+    gather = layers.gatherer("mamba", stacked=True, whole=True)
+    sp = layers.gatherer("shared", whole=True)(params["shared"])
     convs, ssds = [], []
     for i, lp in enumerate(layers.unstack(params["mamba"])):
-        out, cs, ss = mamba_layer(cfg, lp, h, state["conv"][i], state["ssd"][i])
+        out, cs, ss = mamba_layer(cfg, gather(lp), h, state["conv"][i], state["ssd"][i])
         h = h + out
         convs.append(cs)
         ssds.append(ss)

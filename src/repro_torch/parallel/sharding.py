@@ -32,6 +32,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..train.optimizer import flatten_with_paths, unflatten
+from . import ctx
 
 Spec = Tuple[Any, ...]
 
@@ -206,8 +207,9 @@ def cache_pspec(name: str, shape: Tuple[int, ...], mesh, cfg: ArchConfig) -> Spe
     batch = daxis if shape[1] % dsize == 0 else None
     if name in ("k", "v", "k_scale", "v_scale"):
         # [L, B, S, KV, hd]: heads over model when divisible; otherwise the
-        # sequence dim (context-parallel attention)
-        if shape[-2] % msize == 0:
+        # sequence dim (context-parallel attention), as also where
+        # ctx.force_sequence_split() says so
+        if shape[-2] % msize == 0 and not ctx.sequence_split_forced():
             return (None, batch, None, MP, None)
         return (None, batch, MP if shape[2] % msize == 0 else None, None, None)
     if name == "conv":   # [L, B, C, K]

@@ -33,6 +33,13 @@ held gathered and the recompute gathers it again:
   * ``reduce_grad``  a gradient summed over the data axes onto its ZeRO-1
     block, and ``gather_block`` the updated block gathered back.
 
+A placed serving call (no gradients) projects a decode token on each
+rank's columns of a weight and gathers the columns (``all_gather_model``),
+and splits decode attention's softmax over the cache's sequence:
+``amax_model`` is its elementwise max over "model", and ``reduce_model``
+its sums (the exp-sum, then the partial outputs: the probabilities are
+normalised between the two, so no two tensors are summed in one call).
+
 Groups come from the ``DeviceMesh``; the data axes are ``("pod", "data")``
 (pod the major one), or ``("data",)``.
 """
@@ -294,6 +301,19 @@ def max_model(x: torch.Tensor, mesh) -> torch.Tensor:
     entries.  Its gradient is ``amax``'s: split evenly over the row's
     maxima, which land on whichever ranks hold them."""
     return _MaxModel.apply(x, mesh)
+
+
+def all_gather_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The "model" ranks' blocks of ``x`` concatenated along its last dim, in
+    rank order (forward only)."""
+    return _all_gather(x, mesh.get_group(MP), x.dim() - 1)
+
+
+def amax_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The elementwise max of ``x`` over the "model" ranks (forward only)."""
+    x = x.contiguous().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(MP))
+    return x
 
 
 def reduce_grad(g: torch.Tensor, param_pls, block_pls, mesh) -> torch.Tensor:

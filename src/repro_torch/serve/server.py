@@ -7,18 +7,35 @@ so pad tokens are attended to), decoding is greedy over the real vocab, and
 the cache length starts at the wave's longest prompt.  The cache is what
 the model's ``prefill`` returns (a KV cache, or rwkv6's and zamba2's
 recurrent state) and is handed back to ``decode`` unread.
+
+``placed_prefill`` and ``placed_decode`` are the model's prefill and decode
+on a mesh, on DTensors placed as the reference's dry run places its
+jitted serving calls (``repro.launch.dryrun.lower_cell``): the params by
+``param_shardings``, the tokens by ``input_shardings`` (rows over the data
+axes), the cache by ``cache_shardings`` (rows over the data axes; the KV
+heads over "model" where they divide it, else the sequence); they return
+the logits placed by ``logits_sharding`` (vocab over "model") and the
+cache as it came in.  rwkv6's and zamba2's blocks are not yet split over
+"model", so their recurrent states and zamba2's shared-block K/V are
+placed over the data axes only (``cache_specs``).  ``BatchServer`` stays
+mesh-free, as the reference's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..models import get_model
+from ..models.layers import padded_vocab
+from ..parallel import ctx
+from ..parallel import sharding as shd
+from ..train.optimizer import flatten_with_paths, unflatten
 
 
 @dataclasses.dataclass
@@ -77,3 +94,101 @@ class BatchServer:
                     r.out = outs[i][: r.max_new]
                     done.append(r)
         return done
+
+
+# ------------------------------------------------------------------ on a mesh
+
+def cache_specs(cfg: ArchConfig, shapes: Dict[str, tuple], mesh) -> Dict[str, tuple]:
+    """Each cache leaf's spec in placed serving, from the leaves' whole
+    shapes: ``sharding.cache_pspec``'s, with nothing over "model" for the
+    ssm and hybrid families (their blocks run whole on every "model" rank)."""
+    specs = {name: shd.cache_pspec(name, tuple(shape), mesh, cfg)
+             for name, shape in shapes.items()}
+    if cfg.family in ("ssm", "hybrid"):
+        specs = {name: tuple(None if e == shd.MP else e for e in spec)
+                 for name, spec in specs.items()}
+    return specs
+
+
+def _kv_split(specs) -> Optional[str]:
+    """How the cache placed by ``specs`` splits the K/V over "model" (``ctx.kv_split``)."""
+    spec = specs.get("k")
+    if spec and spec[3] == shd.MP:
+        return "heads"
+    if spec and spec[2] == shd.MP:
+        return "sequence"
+    return None
+
+
+def _blocks(tree, specs, mesh, what: str):
+    """Each DTensor leaf's own block, after checking that it is placed on
+    ``mesh`` as its spec (a tree like ``tree``) says."""
+    spec_of = dict(flatten_with_paths(specs))
+    out = []
+    for path, x in flatten_with_paths(tree):
+        want = shd.placements(spec_of[path], mesh)
+        got = (tuple(x.placements) if isinstance(x, DTensor) and x.device_mesh == mesh
+               else "not a DTensor on the mesh")
+        if got != want:
+            raise ValueError(f"{what} {shd.path_str(path)}: placed {got}, expected {want} "
+                             f"(spec {spec_of[path]})")
+        out.append((path, x.to_local()))
+    return unflatten(out)
+
+
+def _dtensor(block: torch.Tensor, spec, mesh, shape) -> DTensor:
+    """``block`` as this rank's block of a DTensor of the whole ``shape``
+    placed by ``spec``."""
+    return DTensor.from_local(block, mesh, shd.placements(spec, mesh), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _call(cfg: ArchConfig, fn, params, tokens, cache_shapes, mesh, cache=None):
+    """``fn(params, tokens, cache)`` on the blocks of placed inputs; returns
+    the logits and cache as DTensors."""
+    b = tokens.shape[0]
+    p_specs = shd.param_shardings(cfg, params, mesh)
+    c_specs = cache_specs(cfg, cache_shapes, mesh)
+    local = _blocks(params, p_specs, mesh, "params")
+    toks = _blocks({"tokens": tokens}, shd.input_shardings(mesh, {"tokens": tokens}), mesh,
+                   "tokens")["tokens"]
+    if cache is not None:
+        cache = _blocks(cache, c_specs, mesh, "cache")
+    pls = unflatten((path, x.placements) for path, x in flatten_with_paths(params))
+    with ctx.mesh_context(mesh), ctx.sharded_batch(), ctx.placed_params(pls), \
+            ctx.placed_cache(_kv_split(c_specs)):
+        logits, cache = fn(local, toks, cache)
+    return (_dtensor(logits, shd.logits_sharding(mesh, b), mesh,
+                     (b, logits.shape[1], padded_vocab(cfg))),
+            {name: _dtensor(x, c_specs[name], mesh, cache_shapes[name])
+             for name, x in cache.items()})
+
+
+@torch.no_grad()
+def placed_prefill(cfg: ArchConfig, params, tokens: DTensor, smax: int, kv_dtype: str,
+                   mesh):
+    """The model's prefill on ``mesh``: params placed by
+    ``sharding.param_shardings``, tokens [B, T] by ``input_shardings``.
+    Each rank runs its rows of the batch on its blocks (tensor-parallel over
+    "model") and writes its block of the cache.  Returns (logits [B, 1,
+    V_pad] placed by ``logits_sharding``, the cache placed by
+    ``cache_specs``); raises ValueError on an input placed otherwise."""
+    api = get_model(cfg)
+    shapes = {name: shape for name, (shape, _) in
+              api.cache_spec(tokens.shape[0], smax, kv_dtype).items()}
+    return _call(cfg, lambda p, toks, _: api.prefill(p, toks, smax, kv_dtype), params, tokens,
+                 shapes, mesh)
+
+
+@torch.no_grad()
+def placed_decode(cfg: ArchConfig, params, token: DTensor, cache, cache_len: int, mesh):
+    """The model's decode step on ``mesh``: params and token [B, 1] as
+    ``placed_prefill`` takes them, the cache as it returns it (written in
+    place on each rank's block).  Returns (logits, cache) placed as
+    ``placed_prefill`` returns them; raises ValueError on an input placed
+    otherwise."""
+    api = get_model(cfg)
+    shapes = {name: tuple(x.shape) for name, x in cache.items()}
+    return _call(cfg, lambda p, tok, c: api.decode(p, tok, c, cache_len), params, token,
+                 shapes, mesh, cache)

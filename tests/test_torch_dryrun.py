@@ -28,9 +28,16 @@ against the JAX package's, on the CPU.
 * A reduced dense train step with FSDP forced, lowered on a fake world of 8
   ranks: its all-gather and reduce-scatter payloads against the specs,
   exactly, and the peak of live gathered parameters against one layer's.
-* One full-width cell through the CLI in a subprocess.
+* A reduced placed prefill and decode (``serve.server.placed_prefill``/
+  ``placed_decode``) lowered on a fake world of 256 ranks: a rank's dot
+  flops against the same call's on whole tensors (rwkv6 and zamba2, whose
+  blocks run whole on every "model" rank: 1/16; a dense arch, split over
+  both axes: under 1/64), and its cache's bytes against the specs' share.
+* Full-width cells through the CLI in a subprocess: a train step and a
+  decode step.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -380,6 +387,78 @@ def test_fsdp_train_step_gathers_each_layer_and_reduce_scatters_its_gradients():
     assert 0 < count.memory()["peak_of_category"]["gathered"] <= per_layer
 
 
+# ------------------------------------------------------ placed serving
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b", "codeqwen1.5-7b"])
+def test_placed_serving_lowering_on_256_ranks(arch):
+    """A reduced prefill (B=16, T=64) and decode step, placed on a fake world
+    of 256 ranks as a (16, 16) ("data", "model") mesh and counted on rank 0,
+    against the same calls on whole tensors.  rwkv6 and zamba2 (12 layers,
+    so that their vocab-parallel head, a 256th a rank, is a few percent of a
+    decode step) split only their rows over "data": within 5% of 1/16.  The
+    dense arch (16 heads and KV heads, one a rank: the cache split by its
+    heads) splits the rows, the heads and the MLP: under 1/64.  The cache a
+    rank holds, by the dry run's ``cache`` category at decode and by the
+    blocks prefill returns: the whole cache over 16 (rows) or 256 (rows and
+    heads)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve.server import cache_specs, placed_decode, placed_prefill
+    cfg = get_arch(arch).reduced()
+    dense = cfg.family == "dense"
+    cfg = dataclasses.replace(cfg, **({"n_heads": 16, "n_kv_heads": 16} if dense
+                                      else {"n_layers": 12}))
+    api = get_model(cfg)
+    b, t, smax = 16, 64, 72
+    ranks = 256 if dense else 16
+
+    def counted(fn, tracked=()):
+        count = roofline.Count("cpu")
+        for tree, category in tracked:
+            count.track(tree, category)
+        with torch.no_grad(), count:
+            out = fn()
+        return count, out
+
+    def nbytes(tree):
+        return sum(x.nbytes for x in tree.values())
+
+    dryrun.join_fake_world(256)
+    try:
+        mesh = make_host_mesh(16, 16, device_type="cpu")
+        with FakeTensorMode(), ops.kernel_path():
+            whole = api.init(0, torch.float32, "cpu")
+            toks = torch.zeros((b, t), dtype=torch.int32)
+            spec = api.cache_spec(b, smax)
+            cache = {k: torch.zeros(s, dtype=dt) for k, (s, dt) in spec.items()}
+            c_whole = {"prefill": counted(lambda: api.prefill(whole, toks, smax)),
+                       "decode": counted(lambda: api.decode(whole, toks[:, :1], cache, t))}
+            params = shd.distribute_tree(whole, shd.param_shardings(cfg, whole, mesh), mesh)
+            placed_cache = shd.distribute_tree(
+                cache, cache_specs(cfg, {k: s for k, (s, _) in spec.items()}, mesh), mesh)
+            c_placed = {
+                "prefill": counted(lambda: placed_prefill(
+                    cfg, params, shd.distribute(toks, ("data", None), mesh), smax,
+                    "bfloat16", mesh)),
+                "decode": counted(lambda: placed_decode(
+                    cfg, params, shd.distribute(toks[:, :1], ("data", None), mesh),
+                    placed_cache, t, mesh), [(placed_cache, "cache")])}
+            prefill_cache = c_whole["prefill"][1][1]
+            placed_prefill_cache = {k: x.to_local() for k, x in c_placed["prefill"][1][1].items()}
+    finally:
+        dist.destroy_process_group()
+    ratios = {kind: c_placed[kind][0].totals()["dot_flops"] / c_whole[kind][0].totals()["dot_flops"]
+              for kind in ("prefill", "decode")}
+    for kind, ratio in ratios.items():
+        if dense:
+            assert 1 / 512 < ratio < 1 / 64, (kind, ratios)
+        else:
+            assert abs(ratio * 16 - 1) <= 0.05, (kind, ratios)
+    assert c_placed["decode"][0].memory()["peak_of_category"]["cache"] == nbytes(cache) // ranks
+    assert nbytes(placed_prefill_cache) == nbytes(prefill_cache) // ranks
+
+
 # ------------------------------------------------------ the CLI
 
 def test_dryrun_cli_full_width_cell(tmp_path):
@@ -403,3 +482,26 @@ def test_dryrun_cli_full_width_cell(tmp_path):
     assert rec["memory"]["fits_80gb"]
     assert rec["memory"]["fits_80gb"] is (rec["memory"]["peak_bytes"] <= 80e9)
     assert rec["roofline"]["bound_s"] > 0 and rec["flops_over_model_flops"] > 1
+
+
+def test_dryrun_cli_full_width_decode_cell(tmp_path):
+    """qwen1.5-32b's decode_32k cell (int8 cache; 40 KV heads do not divide
+    "model" 16, so the cache is split by its sequence): placed as the
+    reference places it, it fits one card."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen1.5-32b",
+           "--shape", "decode_32k", "--mesh", "single", "--out", str(tmp_path)]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    rec = json.loads((tmp_path / "qwen1.5-32b__decode_32k__pod16x16.json").read_text())
+    assert rec["ok"] and rec["world"] == 256 and rec["kv_dtype"] == "int8"
+    assert rec["placement"] == dryrun.PLACEMENT["decode"]
+    assert "sequence" in rec["placement"]["cache"] and "logits_sharding" in rec["placement"]["logits"]
+    # the int8 cache, 64 x 128 x 32768 x 40 x 128 bytes for k and v with their bf16
+    # scales, over 16 "data" x 16 "model" ranks
+    cache = 2 * 64 * 128 * 32768 * 40 * (128 + 2)
+    assert rec["memory"]["peak_of_category"]["cache"] == cache // 256
+    assert rec["memory"]["fits_80gb"] and rec["memory"]["peak_bytes"] <= 80e9
+    # a rank's flops: its 8 rows, and each layer's MLP and wo over "model"
+    assert rec["flops_over_model_flops"] < 10
+    assert rec["kernel_calls"] == {}

@@ -22,12 +22,13 @@ through a rendezvous file:
   * prefill under the mesh caching the model's KV heads, not the padded
     ones; DTensor layouts; the kernel wrappers refusing a DTensor.
 
-The ranks are spawned once for the module (``torch.set_num_threads(1)``
-each), run every case and write one result a case; each case reports as
-its own test.  The spawn has a time limit of its own, and so has every
-collective (the process group's timeout).  Values are fp32 on both sides
-and differ only in the order of summation: 1e-5 (the train-step cases'
-AdamW eps: ``STEP_EPS``).
+The ranks are spawned once for the module (``torch_gloo_ranks``), run
+every case and write one result a case; each case reports as its own
+test.  The spawn has a time limit of its own, and so has every collective
+(the process group's timeout).  Values are fp32 on both sides and differ
+only in the order of summation: 1e-5 (the train-step cases' AdamW eps:
+``STEP_EPS``).  The placed serving paths have their own module and spawn
+(``tests/test_torch_serve_mesh.py``).
 """
 
 import contextlib
@@ -36,16 +37,12 @@ import json
 import os
 import subprocess
 import sys
-import tempfile
-import time
-import traceback
 from pathlib import Path
 
 import pytest
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+from torch_gloo_ranks import ROOT, cases_of, fsdp_forced, moe_groups, rank_main, spawn_ranks
 
 from repro_torch.parallel import sharding as shd  # noqa: E402
 
@@ -212,31 +209,6 @@ def case_gqa_uneven_expansion(mesh):
     return res
 
 
-@contextlib.contextmanager
-def _fsdp_forced(on: bool = True):
-    """The sharding rules as if every arch needed FSDP (params split over the
-    data axes on their marked dim), for the block."""
-    prev = shd.needs_fsdp
-    if on:
-        shd.needs_fsdp = lambda cfg: True
-    try:
-        yield
-    finally:
-        shd.needs_fsdp = prev
-
-
-@contextlib.contextmanager
-def _groups_dp():
-    """The local MoE dispatch routed in groups = dp, the mesh path's groups."""
-    from repro_torch.models import moe
-    local = moe.moe_block
-    moe.moe_block = lambda *a, **kw: local(*a, groups=MESH[0], **kw)
-    try:
-        yield
-    finally:
-        moe.moe_block = local
-
-
 def _train_steps_case(mesh, cfg, seed, n_steps=2, fsdp=False):
     """``n_steps`` of make_train_step on DTensor params and ZeRO-1 state
     against as many mesh-free steps (an MoE config's routed in groups = dp):
@@ -256,12 +228,12 @@ def _train_steps_case(mesh, cfg, seed, n_steps=2, fsdp=False):
     params = api.init(seed, torch.float32, "cpu")
     state = opt.init_opt_state(oc, params)
     step = make_train_step(cfg, oc)
-    with _groups_dp() if cfg.n_experts else contextlib.nullcontext():
+    with moe_groups(MESH[0]) if cfg.n_experts else contextlib.nullcontext():
         for b in batches:
             params, state, m_ref = step(params, state, b)
 
     full = api.init(seed, torch.float32, "cpu")
-    with _fsdp_forced(fsdp):
+    with fsdp_forced(fsdp):
         p_specs = shd.param_shardings(cfg, full, mesh)
         o_specs = shd.opt_shardings(cfg, full, mesh)
     params_sh = shd.distribute_tree(full, p_specs, mesh)
@@ -295,7 +267,7 @@ def _train_steps_case(mesh, cfg, seed, n_steps=2, fsdp=False):
         name = shd.path_str(path)
         assert isinstance(p, DTensor), name
         errs[name] = _close(p.full_tensor(), want, name)
-        with _fsdp_forced(fsdp):
+        with fsdp_forced(fsdp):
             p_spec = shd.param_pspec(name, tuple(want.shape), cfg, mesh)
         o_spec = shd.zero1_pspec(p_spec, tuple(want.shape), mesh)
         tree_specs = {"param": p_spec, "moment": o_spec}
@@ -494,53 +466,14 @@ def case_host_mesh_falls_back_to_the_world(mesh):
     return {}
 
 
-CASES = {name[len("case_"):]: fn for name, fn in globals().items()
-         if name.startswith("case_")}
-
-
-def _rank_main(rank: int, world: int, init_file: str, out: str) -> None:
-    torch.set_num_threads(1)
-    from repro_torch.launch.mesh import init_process_group, make_host_mesh
-    init_process_group(init_file, rank, world, backend="gloo", timeout_s=PG_TIMEOUT_S)
-    mesh = make_host_mesh(*MESH, device_type="cpu")
-    results = {}
-    for name, fn in CASES.items():
-        t0 = time.perf_counter()
-        try:
-            results[name] = {"ok": True, **fn(mesh)}
-        except Exception:
-            results[name] = {"ok": False, "error": traceback.format_exc()}
-        results[name]["s"] = time.perf_counter() - t0
-    Path(out).write_text(json.dumps(results))
-    import torch.distributed as dist
-    dist.destroy_process_group()
+CASES = cases_of(globals())
 
 
 # ------------------------------------------------------------------ the tests
 
 @pytest.fixture(scope="module")
 def rank_results():
-    with tempfile.TemporaryDirectory() as tmp:
-        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-        procs = [subprocess.Popen([sys.executable, __file__, str(r), str(WORLD),
-                                   os.path.join(tmp, "pg"), os.path.join(tmp, f"{r}.json")],
-                                  env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for r in range(WORLD)]
-        deadline = time.monotonic() + SPAWN_TIMEOUT_S
-        logs = []
-        try:
-            for p in procs:
-                out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
-                logs.append(out)
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
-        missing = [r for r in range(WORLD) if not os.path.exists(os.path.join(tmp, f"{r}.json"))]
-        assert not missing, f"ranks {missing} wrote no results:\n" + "\n".join(
-            log[-3000:] for log in logs)
-        return [json.loads(Path(tmp, f"{r}.json").read_text()) for r in range(WORLD)]
+    return spawn_ranks(__file__, WORLD, SPAWN_TIMEOUT_S)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -570,4 +503,4 @@ def test_production_mesh_under_the_fake_process_group():
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    rank_main(CASES, MESH, PG_TIMEOUT_S)
