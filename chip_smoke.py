@@ -79,7 +79,13 @@ Phases, each fatal on failure:
       reduce-scatter run on the group of one): the flash kernels' launches per
       step, every leaf after 2 steps bit for bit by K2 digests, the parameter
       gathers and gradient reduce-scatters a step, each run's step ms and
-      peak GB, and one more step of each under torch.profiler;
+      peak GB, and one more step of each under torch.profiler; and after
+      each of (i)'s models, that model at full width cut to
+      ``SSM_MESH_LAYERS`` layers takes 2 steps without a mesh and 2 on
+      placed params (its rwkv6 or Mamba2 blocks and zamba2's shared block
+      split over "model"): every leaf bit for bit by K2 digests, K4-bwd or
+      K3-bwd (and zamba2's K1-bwd) launched as the mesh-free step launches
+      them;
       (j2) in (h), on its weights and after its checks, one prefill wave
       through the expert-parallel ``moe_block_shard_map`` (8 experts a
       rank) against the local dispatch in groups = dp = 1, on shared expert
@@ -91,16 +97,18 @@ Phases, each fatal on failure:
       within 1.51 of its block's scale, residual = corrected - deq exactly,
       packed under a 3.5th of the fp32 bytes) and one leaf's q and scales bit
       for bit against the CPU's, with its ms beside its bytes bound; (j4) in
-      (d), on codeqwen1.5-7b's weights (full width and depth) after its
-      checks, the first wave's 4 prompts through ``placed_prefill`` and 31
-      ``placed_decode`` steps on DTensor params, tokens and cache placed as
-      the reference places its serving calls, against the mesh-free wave:
-      every step's logits and tokens bit for bit; then the same wave with
-      the cache split by its sequence (``ctx.force_sequence_split``: the
-      context-parallel decode attention), teacher-forced with the first
-      wave's tokens, within ``SERVE_TOL``; K1 launched once a layer in
-      each prefill and never in decode, and each run's prefill and decode
-      tok/s and peak GB;
+      (d), on each served model's weights (full width and depth) after its
+      checks, the first wave's 4 prompts through ``placed_prefill`` and
+      ``PLACED_STEPS`` ``placed_decode`` steps on DTensor params, tokens and
+      cache placed as the reference places its serving calls (rwkv6's and
+      zamba2's blocks, states and K/V split over "model"), against the
+      mesh-free wave: every step's logits and tokens bit for bit; then, for
+      codeqwen1.5-7b and zamba2-7b, the same wave with the K/V split by its
+      sequence (``ctx.force_sequence_split``: the context-parallel decode
+      attention), teacher-forced with the first wave's tokens, within
+      ``SERVE_TOL``; each prefill launching the kernels
+      ``expected_launches`` names, decode none, and each run's prefill and
+      decode tok/s and peak GB;
   (k) counts against the card (``repro_torch.launch.roofline``): in (d), one
       prefill wave (B=4, the longest of the 8 prompts) of each served model on
       its weights, and in (f) and (i), one more train step of each trained
@@ -132,6 +140,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -242,14 +251,19 @@ MOE_ARCH, MOE_HEADROOM_BYTES = "mixtral-8x22b", 24e9
 # and fp32 r), and its rounding noise's read (4)
 MESH_TRAIN_STEPS, PG_TIMEOUT_S, COMPRESS_BYTES, NOISE_BYTES = 3, 60, 12, 4
 MESH_NAMED_OPS = ("nccl", "Memcpy", "copy", "fill", "zero")
-# (j4): the served model whose first wave of (d) also runs placed on the mesh
-PLACED_ARCH = "codeqwen1.5-7b"
+# (j4): the served models whose first wave of (d) also runs placed on the mesh, each
+# with its decode steps (zamba2-7b and rwkv6-1.6b fewer: a placed decode step costs
+# host time a layer)
+PLACED_STEPS = {"codeqwen1.5-7b": 31, "zamba2-7b": 16, "rwkv6-1.6b": 16}
 # (i): rwkv6-1.6b whole; zamba2-7b cut to SSM_TRAIN_LAYERS of its 81 layers (a multiple
 # of its attn_every, so every shared-block site is whole); kernel vs plain training at
 # SSM_CHECK_LAYERS layers
 SSM_TRAIN = ("rwkv6-1.6b", "zamba2-7b")
 SSM_TRAIN_LAYERS = {"zamba2-7b": 36}
 SSM_CHECK_LAYERS = {"rwkv6-1.6b": 2, "zamba2-7b": 6}
+# (j1): their mesh train step at full width, cut to these layers (zamba2-7b's 6: one
+# site of its shared block, so that K1 and K1-bwd run placed too)
+SSM_MESH_LAYERS, SSM_MESH_STEPS = {"rwkv6-1.6b": 4, "zamba2-7b": 6}, 2
 SCAN_SOURCES = ("rwkv6_scan", "mamba2_ssd", "rwkv6_scan_bwd", "mamba2_ssd_bwd")
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd": flash_attention_bwd, "checksum": checksum_kernel,
@@ -854,7 +868,8 @@ def phase_serving(arch: str, mesh=None):
     del params32
     free_device_memory()
     if mesh is not None:
-        serving["placed"] = placed_wave(cfg, api, params, prompts[:4], mesh, smax=4096)
+        serving["placed"] = placed_wave(cfg, api, params, prompts[:4], mesh, smax=4096,
+                                        steps=PLACED_STEPS[arch])
         free_device_memory()
     serving["profile"] = profile_wave(cfg, api, params, 4, max(lengths), 4096)
     serving["counts"] = prefill_counts(cfg, api, params, lengths, 4096)
@@ -1651,6 +1666,78 @@ def phase_mesh_train(mesh):
     return res
 
 
+def phase_ssm_mesh_train(arch: str, mesh):
+    """(j1) for the ssm and hybrid families: ``arch`` at full width cut to
+    ``SSM_MESH_LAYERS`` layers takes ``SSM_MESH_STEPS`` steps of
+    ``make_train_step`` without a mesh and as many on DTensor params and
+    ZeRO-1 state placed by the rules on ``mesh`` (its rwkv6 or Mamba2 blocks,
+    and zamba2's shared block, split over "model"), from the same weights
+    and batches: the K2 digest of every leaf after the last step bit for
+    bit, the steps' launches (K4/K3 forward twice a layer, K4-bwd/K3-bwd
+    once; zamba2's K1 and K1-bwd at its site), each step's ms (the first of
+    each run pays its first-call costs), and the parameter gathers and
+    gradient reduce-scatters a step."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(arch), n_layers=SSM_MESH_LAYERS[arch])
+    log(f"(j1) mesh train step: {arch} cut to {cfg.n_layers} layers, full width, on a "
+        f"{tuple(mesh.shape)} {mesh.mesh_dim_names} mesh of one NCCL rank")
+    api = get_model(cfg)
+    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS + 1)
+    step = make_train_step(cfg, oc)
+    batches = [train_batch(cfg, TRAIN_B, TRAIN_T, 100 + i) for i in range(SSM_MESH_STEPS)]
+    runs, digests = {}, {}
+    for name in ("mesh_free", "placed"):
+        params = api.init(0, torch.bfloat16, "cuda")
+        if name == "placed":
+            params = shd.distribute_tree(params, shd.param_shardings(cfg, params, mesh), mesh)
+            state = opt.init_opt_state(oc, params, shd.opt_shardings(cfg, params, mesh))
+        else:
+            state = opt.init_opt_state(oc, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        spmd.GATHERS.clear()
+        spmd.MODEL_GATHERS.clear()
+        steps = []
+        for batch in batches:
+            params, state, m = _timed_step(step, params, state, batch)
+            steps.append(m)
+        digests[name] = {".".join(path): ops.tensor_checksum(_local_words(p)).tolist()
+                         for path, p in opt.flatten_with_paths(params)}
+        runs[name] = {"steps": steps, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": launches(),
+                      "param_gathers": spmd.GATHERS["gather"] / len(steps),
+                      "grad_reduce_scatters": spmd.GATHERS["reduce_scatter"] / len(steps),
+                      "model_gathers": dict(spmd.MODEL_GATHERS)}
+        del params, state
+        free_device_memory()
+    expect = {name: n * len(batches) for name, n in train_launches(cfg).items()}
+    expect["checksum"] = len(digests["placed"])
+    sites = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    # a gather a layer (and shared-block site) in the forward and one in its
+    # recompute, and the embedding's for the lookup and for the head; a
+    # reduce-scatter each
+    want_gathers = (2 * (cfg.n_layers + sites) + 2, cfg.n_layers + sites + 2)
+    differ = sorted(k for k, v in digests["placed"].items() if v != digests["mesh_free"][k])
+    res = {"arch": arch, "layers": cfg.n_layers, "shared_block_sites": sites,
+           "mesh": list(mesh.shape), "batch": TRAIN_B, "seq": TRAIN_T,
+           "expected_launches": expect, "launches": runs["placed"]["launches"],
+           "want_gathers_per_step": list(want_gathers), "leaves": len(digests["placed"]),
+           "leaves_bit_identical": len(digests["placed"]) - len(differ),
+           "differing_leaves": differ, "step_ms_mesh_free": runs["mesh_free"]["steps"][-1]["ms"],
+           "step_ms_placed": runs["placed"]["steps"][-1]["ms"],
+           "peak_mem_gb": max(r["peak_mem_gb"] for r in runs.values()), "runs": runs,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  mesh train: {json.dumps(res)}")
+    got_gathers = (runs["placed"]["param_gathers"], runs["placed"]["grad_reduce_scatters"])
+    if differ or any(r["launches"] != expect for r in runs.values()) or \
+            got_gathers != want_gathers or runs["placed"]["model_gathers"] or \
+            not all(math.isfinite(m[k]) for r in runs.values() for m in r["steps"]
+                    for k in ("loss", "grad_norm")):
+        raise AssertionError(f"mesh train step of {arch} against the mesh-free one: {res}")
+    return res
+
+
 # ------------------------------------------------------------------ (j4) placed serving
 
 def _wave_tokens(prompts) -> torch.Tensor:
@@ -1692,15 +1779,17 @@ def _wave(cfg, prefill, decode, toks, steps: int, forced=None):
                                   "launches": counts}
 
 
-def placed_wave(cfg, api, params, prompts, mesh, smax: int, steps: int = 31):
+def placed_wave(cfg, api, params, prompts, mesh, smax: int, steps: int):
     """(j4): one wave of (d)'s prompts through ``placed_prefill`` and ``steps``
     ``placed_decode`` steps on DTensor params, tokens and cache placed as the
     reference places its serving calls on ``mesh``, against the mesh-free
     wave on the same weights: every step's logits and tokens bit for bit (a
-    group of one changes no sum).  Then the same wave with the cache split by
-    its sequence (``ctx.force_sequence_split``: the context-parallel decode
-    attention, its softmax reduced over "model"), teacher-forced with the
-    first wave's tokens, within ``SERVE_TOL``, and with the same launches."""
+    group of one changes no sum), each prefill launching the kernels
+    ``expected_launches`` names and decode none.  Then, for a model with a
+    K/V cache, the same wave with it split by its sequence
+    (``ctx.force_sequence_split``: the context-parallel decode attention, its
+    softmax reduced over "model"), teacher-forced with the first wave's
+    tokens, within ``SERVE_TOL``, and with the same launches."""
     t_phase = time.perf_counter()
     log(f"(j4) placed serving {cfg.name}: one wave of {len(prompts)} prompts and {steps} decode "
         f"steps on a {tuple(mesh.shape)} {mesh.mesh_dim_names} mesh of one NCCL rank")
@@ -1727,28 +1816,31 @@ def placed_wave(cfg, api, params, prompts, mesh, smax: int, steps: int = 31):
                                          lambda tok, c, n: api.decode(params, tok, c, n),
                                          toks, steps)
         got, got_tokens, run = _wave(cfg, *placed_fns(), toks, steps)
-        with ctx.force_sequence_split():
-            seq, _, run_seq = _wave(cfg, *placed_fns(), toks, steps, forced=want_tokens[:-1])
-    runs = {"mesh_free": plain, "placed": run, "placed_sequence_split": run_seq}
+        runs = {"mesh_free": plain, "placed": run}
+        seq = []
+        if cfg.family != "ssm":
+            with ctx.force_sequence_split():
+                seq, _, runs["placed_sequence_split"] = _wave(cfg, *placed_fns(), toks, steps,
+                                                              forced=want_tokens[:-1])
     for r in runs.values():
         r.update(prefill_tok_s=n_tokens / r["prefill_s"],
                  decode_tok_s=len(prompts) * steps / r["decode_s"])
     identical = sum(torch.equal(g, w) for g, w in zip(got, want))
     seq_errs = [rel_close(g, w, SERVE_TOL[cfg.name])[1] for g, w in zip(seq, want)]
-    want_launches = {name: (cfg.n_layers if name == "flash_attention_fwd" else 0)
-                     for name in KERNELS}
+    want_launches = {name: expected_launches(cfg).get(name, 0) for name in KERNELS}
     res = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": list(mesh.shape),
            "mesh_axes": list(mesh.mesh_dim_names), "batch": len(prompts),
            "prompt_lengths": list(map(len, prompts)), "smax": smax, "decode_steps": steps,
            "steps_bit_identical": identical, "steps": len(want),
            "tokens_equal": all(torch.equal(g, w) for g, w in zip(got_tokens, want_tokens)),
            "sequence_split_tolerance": SERVE_TOL[cfg.name],
-           "sequence_split_max_err": max(seq_errs), "sequence_split_errs": seq_errs,
+           "sequence_split_max_err": max(seq_errs, default=None),
+           "sequence_split_errs": seq_errs,
            "expected_launches": want_launches, "runs": runs,
            "phase_s": time.perf_counter() - t_phase}
     log(f"  placed serving: {json.dumps(res)}")
     if identical != len(want) or not res["tokens_equal"] or \
-            max(seq_errs) > SERVE_TOL[cfg.name] or \
+            max(seq_errs, default=0.0) > SERVE_TOL[cfg.name] or \
             any(r["launches"] != want_launches for r in runs.values()) or \
             not all(torch.isfinite(g).all() for g in got + seq):
         raise AssertionError(f"placed serving against the mesh-free wave: {res}")
@@ -2149,7 +2241,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
     free_device_memory()
     servings = {}
     for arch in ("codeqwen1.5-7b", "zamba2-7b", "rwkv6-1.6b"):
-        servings[arch] = phase_serving(arch, mesh if arch == PLACED_ARCH else None)
+        servings[arch] = phase_serving(arch, mesh)
         peaks.append(servings[arch]["phase_peak_mem_gb"])
         free_device_memory()
     training = phase_training()
@@ -2165,10 +2257,14 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
     peaks.append(servings[MOE_ARCH]["phase_peak_mem_gb"])
     free_device_memory()
     ssm_training = {}
+    ssm_mesh_train = {}
     for arch in SSM_TRAIN:
         ssm_training[arch] = phase_training(arch, SSM_TRAIN_LAYERS.get(arch, 0),
                                             SSM_CHECK_LAYERS[arch])
         peaks.append(ssm_training[arch]["phase_peak_mem_gb"])
+        free_device_memory()
+        ssm_mesh_train[arch] = phase_ssm_mesh_train(arch, mesh)
+        peaks.append(ssm_mesh_train[arch]["peak_mem_gb"])
         free_device_memory()
     counted = [servings[a]["counts"] for a in ("codeqwen1.5-7b", "zamba2-7b", "rwkv6-1.6b")] \
         + [training["counts"]] + [t["counts"] for t in ssm_training.values()]
@@ -2181,9 +2277,10 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
              f"{TRAIN_ARCH}-mesh-train": mesh_train["launches"],
              f"{TRAIN_ARCH}-mesh-train-fsdp": mesh_train["runs"]["fsdp"]["launches"],
              f"{MOE_ARCH}-ep-prefill": servings[MOE_ARCH]["ep_prefill"]["launches"],
-             **{f"{PLACED_ARCH}-{name}": run["launches"] for name, run in
-                servings[PLACED_ARCH]["placed"]["runs"].items() if name != "mesh_free"},
-             **{f"{a}-train": t["launches"] for a, t in ssm_training.items()}}
+             **{f"{a}-{name}": run["launches"] for a in PLACED_STEPS for name, run in
+                servings[a]["placed"]["runs"].items() if name != "mesh_free"},
+             **{f"{a}-train": t["launches"] for a, t in ssm_training.items()},
+             **{f"{a}-mesh-train": t["launches"] for a, t in ssm_mesh_train.items()}}
 
     def by_path(kernel):
         return {a: n[kernel] for a, n in paths.items() if n[kernel]}
@@ -2262,8 +2359,9 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
     print(json.dumps({"roofline": {"targets": roofline.TARGETS, "calls": counted,
                                    "dryrun": cells, "operator_dispatch": dispatch},
                       "device": name, "nvidia_smi": smi}))
-    print(json.dumps({"parallel": {"mesh_train": mesh_train,
-                                   "placed_serving": servings[PLACED_ARCH]["placed"],
+    print(json.dumps({"parallel": {"mesh_train": mesh_train, "ssm_mesh_train": ssm_mesh_train,
+                                   "placed_serving": {a: servings[a]["placed"]
+                                                      for a in PLACED_STEPS},
                                    "ep_prefill": servings[MOE_ARCH]["ep_prefill"],
                                    "compression": training["compression"]},
                       "device": name, "nvidia_smi": smi}))

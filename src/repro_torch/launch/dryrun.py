@@ -68,8 +68,9 @@ PLACEMENT = {
                         "rank's blocks, a checkpointed layer gathers its blocks over the data "
                         "axes where they are split (FSDP) inside, and again in the recompute; "
                         "weights split over 'model' stay this rank's block where that is its "
-                        "part (attention under TP head padding, and rwkv6's and Mamba2's "
-                        "layers, gather over 'model' too)",
+                        "part (attention under TP head padding, and the rwkv6 and Mamba2 blocks "
+                        "whose heads do not divide 'model', gather over 'model' too; rwkv6's "
+                        "small maa_w2 is used whole)",
               "grads": "at each param's placement: an FSDP leaf's reduce-scattered over the "
                        "data axes by its gather's backward, the rest reduce-scattered onto "
                        "their ZeRO-1 blocks after the backward",
@@ -82,24 +83,28 @@ PLACEMENT = {
     "prefill": {"params": "DTensors placed by sharding.param_shardings; the model takes each "
                           "rank's blocks, and each layer gathers its blocks over the data axes "
                           "where they are split (FSDP); weights split over 'model' stay this "
-                          "rank's block where that is its part (rwkv6's and Mamba2's layers and "
-                          "zamba2's shared block gather whole over 'model' too)",
+                          "rank's block where that is its part (the rwkv6 and Mamba2 blocks "
+                          "whose heads do not divide 'model' gather whole over it)",
                 "tokens": "rows over the data axes (sharding.input_shardings; a batch that "
                           "does not divide them, whole on every rank)",
                 "cache": "sharding.cache_shardings: rows over the data axes; the KV heads over "
                          "'model' where they divide it (each rank its q heads against its KV "
                          "heads), else the sequence (each rank its slots of every KV head: the "
                          "softmax's max and exp-sum and the partial outputs summed over "
-                         "'model'). rwkv6's and zamba2's recurrent states and zamba2's "
-                         "shared-block K/V over the data axes only, replicated over 'model' "
-                         "(their blocks are not yet split over 'model')",
+                         "'model'); zamba2's shared-block K/V likewise. rwkv6's wkv and "
+                         "zamba2's SSD states by their heads over 'model', the shift states by "
+                         "d and the conv tail by its channels (each layer gathers those two "
+                         "over 'model' on entry and keeps its block on exit)",
                 "logits": "sharding.logits_sharding: rows over the data axes, the vocab over "
                           "'model'",
                 "model_axis": "prefill's attention on each rank's heads, padded to a "
                               "multiple of 'model'; decode's on its heads, or on its slots of "
                               "every head (each rank's columns of q, k and v gathered, its rows "
                               "of wo); the MLP's hidden dim and the MoE experts over 'model'; "
-                              "the rwkv6 and Mamba2 blocks whole on every rank"},
+                              "the rwkv6 and Mamba2 blocks on each rank's heads (rwkv6's "
+                              "channel mix on its share of d_ff, reduce-scattered onto its "
+                              "d-block and gathered), whole on every rank where the heads do "
+                              "not divide 'model'"},
 }
 PLACEMENT["decode"] = {**PLACEMENT["prefill"], "tokens": "the batch's tokens, placed as "
                        "prefill's"}

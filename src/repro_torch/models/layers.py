@@ -14,7 +14,8 @@ Under a mesh with a "model" axis (``parallel.ctx``) the projections and
 attention run tensor-parallel, SPMD on each rank's own tensors: ``_qkv``
 with ``pad_tp`` returns this rank's share of the heads, zero-padded up to a
 multiple of the axis when they do not divide it (the reference's
-``pad_tp``), and ``swiglu_tp`` splits the hidden dim.  The gradients of the
+``pad_tp``), ``swiglu_tp`` splits the hidden dim and ``rms_norm_tp``
+normalises a vector whose last dim is split.  The gradients of the
 weights and of the region's input are summed over the axis
 (``parallel.spmd``).  Under placed parameters (``ctx.param_placements``,
 a train step's) the model is given each rank's blocks: a weight split
@@ -35,6 +36,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..parallel import ctx, spmd
+from ..parallel import sharding as shd
 
 Params = Dict[str, Any]
 
@@ -174,7 +176,7 @@ def _tp_size() -> int:
     return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index("model"))
 
 
-def gatherer(name: str, stacked: bool = False, whole: bool = False):
+def gatherer(name: str, stacked: bool = False):
     """The function that turns this rank's blocks of ``params[name]`` (one
     layer's, for an [L]-stacked tree) into what the model computes with:
     ``spmd.gather`` under placed parameters, else the identity.  A block
@@ -184,7 +186,62 @@ def gatherer(name: str, stacked: bool = False, whole: bool = False):
         return lambda tree: tree
     pl = spmd.layer_placements(pl[name]) if stacked else pl[name]
     mesh = ctx.get_mesh()
-    return lambda tree: spmd.gather(tree, pl, mesh, whole)
+    return lambda tree: spmd.gather(tree, pl, mesh)
+
+
+def model_share(n: int) -> Optional[Tuple[int, int]]:
+    """(this rank's first, its count) of ``n`` heads split evenly over the
+    ambient mesh's "model" axis; None without such an axis, or where they do
+    not divide it (the block then runs whole on every rank)."""
+    mesh = tp_mesh()
+    if mesh is None or n % _tp_size():
+        return None
+    per = n // _tp_size()
+    return spmd.model_rank(mesh) * per, per
+
+
+def gathered_whole(p: Params) -> Params:
+    """A block's weights as every "model" rank uses them whole, each running
+    the whole block alike: blocks split over "model" gathered
+    (``spmd.gather_model``); ``p`` itself without a "model" axis."""
+    mesh = tp_mesh()
+    if mesh is None:
+        return p
+    return {n: spmd.gather_model(w, mesh) for n, w in p.items()}
+
+
+def rms_norm_tp(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` of a vector whose last dim is split over the ambient
+    mesh's "model" axis: x [..., n] and w [n] are this rank's block of it.
+    The mean of squares is the local mean times n / (whole width), summed
+    over "model"; on an axis of size 1 that factor is 1.0 and the sum a
+    copy, so the operations and values are ``rms_norm``'s."""
+    mesh = tp_mesh()
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True) * (1 / _tp_size())
+    var = spmd.enter_model(spmd.reduce_model(var, mesh), mesh)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def state_model_dim(cfg: ArchConfig, name: str, shape) -> Optional[int]:
+    """The dim of the recurrent state or cache leaf ``name`` of whole
+    ``shape`` that ``sharding.cache_pspec`` splits over "model" on the
+    ambient mesh (a placed serving call then hands the model this rank's
+    block of it), or None."""
+    mesh = tp_mesh()
+    if mesh is None:
+        return None
+    spec = shd.cache_pspec(name, tuple(shape), mesh, cfg)
+    return next((d for d, e in enumerate(spec) if e == shd.MP), None)
+
+
+def state_block(cfg: ArchConfig, name: str, shape) -> tuple:
+    """The shape of this rank's block of the state or cache leaf ``name`` of
+    whole ``shape``: ``state_model_dim``'s dim divided over "model"."""
+    dim = state_model_dim(cfg, name, shape)
+    if dim is None:
+        return tuple(shape)
+    return (*shape[:dim], shape[dim] // _tp_size(), *shape[dim + 1:])
 
 
 def swiglu_tp(p: Params, x: torch.Tensor) -> torch.Tensor:

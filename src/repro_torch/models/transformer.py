@@ -196,6 +196,51 @@ def _prompt_runs(t: int, n_slots: int, lo: int, n: int):
     return runs
 
 
+class PromptKV:
+    """Where a prompt [B, T]'s K/V land in this rank's block of a layer's
+    cache of ``cache_smax`` slots (``ctx.kv_split``): its KV heads of every
+    slot (split by heads), its slots of every KV head (split by sequence),
+    or all of it; position j in slot j mod cache_smax.  Where the rank holds
+    every KV head of its slots under placed parameters, their K/V come from
+    the layer's input for only the positions those slots hold (``own``);
+    else from the attention's own k/v, which are then the rank's heads."""
+
+    def __init__(self, cfg: ArchConfig, b: int, t: int, cache_smax: int, device):
+        split = ctx.kv_split()
+        self.cfg = cfg
+        lo, self.n_slots = layers.cache_slots(cache_smax)
+        self.kv_heads = cfg.n_kv_heads // (layers._tp_size() if split == "heads" else 1)
+        self.runs = _prompt_runs(t, cache_smax, lo, self.n_slots)
+        self.own_rows = ctx.param_placements() is not None and split != "heads"
+        if self.own_rows:
+            self.row_pos = self.rows(torch.arange(t, device=device)[None].expand(b, t))
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """x's prompt positions that this rank's slots hold, in slot order."""
+        return torch.cat([x[:, :0]] + [x[:, j:j + m] for _, j, m in self.runs], 1)
+
+    def own(self, lp: Params, h: torch.Tensor):
+        """(k, v) of every KV head for this rank's slots, from the layer's input
+        h (``own_rows``; the attention's k/v are its padded heads), else None."""
+        if not self.own_rows:
+            return None
+        return layers._kv(self.cfg, layers.whole(lp["attn"]),
+                          layers.rms_norm(self.rows(h), lp["ln1"]), self.row_pos)
+
+    def write(self, cache_k: torch.Tensor, cache_v: torch.Tensor, own, k_all: torch.Tensor,
+              v_all: torch.Tensor) -> None:
+        """A layer's K/V into its cache [B, n_slots, KV, hd] in place: ``own``
+        where given, else the attention's k/v [B, T, KV, hd] by slot runs."""
+        if own is not None:
+            k, v = own
+            cache_k[:, :k.shape[1]] = k
+            cache_v[:, :v.shape[1]] = v
+            return
+        for off, j, m in self.runs:
+            cache_k[:, off:off + m] = k_all[:, j:j + m]
+            cache_v[:, off:off + m] = v_all[:, j:j + m]
+
+
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,
             kv_dtype_name: str = "bfloat16") -> Tuple[torch.Tensor, Cache]:
     """Process the full prompt; return (last-token logits [B,1,V], cache dict).
@@ -208,49 +253,31 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,
     cache_smax = min(smax, cfg.swa_window) if cfg.swa_window else smax
     if not cfg.swa_window and t > smax:
         raise ValueError(f"prompt of {t} tokens does not fit a cache of {smax}")
-    placed, split = ctx.param_placements() is not None, ctx.kv_split()
-    lo, n_slots = layers.cache_slots(cache_smax)
-    kv_heads = cfg.n_kv_heads // (layers._tp_size() if split == "heads" else 1)
-    cache = {name: torch.zeros((*shape[:2], n_slots, kv_heads, shape[-1]), dtype=dt,
+    placed = ctx.param_placements() is not None
+    kvw = PromptKV(cfg, b, t, cache_smax, dev)
+    cache = {name: torch.zeros((*shape[:2], kvw.n_slots, kvw.kv_heads, shape[-1]), dtype=dt,
                                device=dev)
              for name, (shape, dt) in kv_cache_spec(cfg, b, smax, kv_dtype_name).items()}
-    runs = _prompt_runs(t, cache_smax, lo, n_slots)
-
-    def rows(x):        # x's prompt positions that this rank's slots hold, in slot order
-        return torch.cat([x[:, :0]] + [x[:, j:j + m] for _, j, m in runs], 1)
-
-    own_rows = placed and split != "heads"     # every KV head of its slots' positions
-    if own_rows:
-        row_pos = rows(torch.arange(t, device=dev)[None].expand(b, t))
     positions = _positions(b, t, dev)
     h = layers.embed(params["emb"], tokens)
     rs = _residual_scale(cfg)
     gather = layers.gatherer("layers", stacked=True)
     for i, lp in enumerate(layers.unstack(params["layers"])):
         lp = gather(lp)
-        if own_rows:
-            # from the layer's input; the attention's k/v are its padded heads
-            k, v = layers._kv(cfg, layers.whole(lp["attn"]), layers.rms_norm(rows(h), lp["ln1"]),
-                              row_pos)
+        own = kvw.own(lp, h)
         attn, k_all, v_all = _attn_full(cfg, lp, h, positions, pad_tp=placed)
         h = h + rs * attn
         h = h + rs * _mix(cfg, lp, h)
         if kv_dtype_name == "int8":
             # quantized after zero-padding, as the reference does, so the
             # unused slots hold the scale of a zero row
-            if not own_rows:
-                k, v = rows(k_all), rows(v_all)
-            pad = (0, 0, 0, 0, 0, n_slots - k.shape[1])
+            k, v = own if own is not None else (kvw.rows(k_all), kvw.rows(v_all))
+            pad = (0, 0, 0, 0, 0, kvw.n_slots - k.shape[1])
             (kq, ks), (vq, vs) = (layers._quantize_kv(F.pad(x, pad)) for x in (k, v))
             for name, x in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
                 cache[name][i] = x
-        elif own_rows:
-            cache["k"][i, :, :k.shape[1]] = k
-            cache["v"][i, :, :v.shape[1]] = v
         else:
-            for off, j, m in runs:
-                cache["k"][i, :, off:off + m] = k_all[:, j:j + m]
-                cache["v"][i, :, off:off + m] = v_all[:, j:j + m]
+            kvw.write(cache["k"][i], cache["v"][i], own, k_all, v_all)
     return layers.unembed(params["emb"], h[:, -1:]), cache
 
 

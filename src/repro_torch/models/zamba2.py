@@ -19,6 +19,13 @@ State: per mamba layer the conv tail [B, din+2N, K-1] (in the compute
 dtype, as the reference returns it) and the fp32 SSD state [B,H,P,N]; per
 call site of the shared block a K/V cache [B, smax, KV, hd], written in
 place by decode.
+
+Under a mesh with a "model" axis (a placed train step or serving call),
+each Mamba2 layer runs on the rank's heads (``mamba_layer``) and the
+shared block as the transformer's layers do, from each rank's blocks; the
+state is the rank's block as ``sharding.cache_pspec`` places it (the conv
+tail converted at each layer's edge, ``_conv_edges``; the K/V as
+``ctx.kv_split`` says, written by ``transformer.PromptKV``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops, ref
+from ..parallel import spmd
 from . import layers, transformer
 from .layers import Params, _dense_init, _mm, _normal
 
@@ -90,38 +98,106 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
 
 def mamba_layer(cfg: ArchConfig, p: Params, h: torch.Tensor,
                 conv_state: torch.Tensor, ssd_state: torch.Tensor):
-    """h [B,T,d]; conv_state [B, din+2N, K-1]; ssd_state [B,H,P,N]."""
+    """h [B,T,d]; conv_state [B, din+2N, K-1]; ssd_state [B,H,P,N].
+
+    Under a mesh with a "model" axis that divides the heads, each rank runs
+    its heads (``layers.model_share``): its columns of in_z and in_x, its
+    channels of the conv and the norm, and its heads of dt, A and D, with B
+    and C whole (one group); conv_state is then the tail of its n
+    x-channels and of B and C [B, n + 2N, K-1] (``_conv_edges`` converts
+    the placed state), ssd_state its heads' [B, H/tp, P, N]; the split norm
+    (``layers.rms_norm_tp``) and its rows of out_proj, summed over "model".
+    Where the heads do not divide it, every rank runs the whole layer on
+    the weights gathered whole."""
     b, t, _ = h.shape
     din = _din(cfg)
     N = cfg.ssm_state
     P = cfg.ssm_head_dim
     H = din // P
+    mesh, share = layers.tp_mesh(), layers.model_share(H)
     x_in = layers.rms_norm(h, p["ln"])
-    z = _mm(x_in, p["in_z"])
-    xbc = torch.cat([_mm(x_in, p["in_x"]), _mm(x_in, p["in_B"]),
-                     _mm(x_in, p["in_C"])], dim=-1)
-    dt = _mm(x_in, p["in_dt"])
+    if share is None:
+        p = layers.gathered_whole(p)
+        nh = H
+
+        def mine(name, dim, per=1):
+            return p[name]
+
+        def whole(name):
+            return p[name]
+    else:
+        nh = share[1]
+        x_in = spmd.enter_model(x_in, mesh)
+
+        def mine(name, dim, per=1):     # this rank's heads (or channels) of a leaf
+            return spmd.model_part(p[name], mesh, dim, nh * per)
+
+        def whole(name):
+            return spmd.model_whole(p[name], mesh)
+    n = nh * P
+    z = _mm(x_in, mine("in_z", -1, P))
+    xbc = torch.cat([_mm(x_in, mine("in_x", -1, P)), _mm(x_in, whole("in_B")),
+                     _mm(x_in, whole("in_C"))], dim=-1)
+    dt = _mm(x_in, mine("in_dt", -1))
 
     # short causal convs on x / B / C, carrying the K-1 tail as state
     xbc_pad = torch.cat([conv_state.transpose(1, 2).to(xbc.dtype), xbc], dim=1)
     # a copy: a view would keep the whole [B, T+K-1, din+2N] input alive with the state
     new_conv_state = xbc_pad[:, -(CONV_K - 1):].transpose(1, 2).clone()
-    w_cat = torch.cat([p["conv_w"], p["conv_Bw"], p["conv_Cw"]], dim=1)
-    b_cat = torch.cat([p["conv_b"], p["conv_b"].new_zeros(2 * N)])
+    conv_b = mine("conv_b", 0, P)
+    w_cat = torch.cat([mine("conv_w", -1, P), whole("conv_Bw"), whole("conv_Cw")], dim=1)
+    b_cat = torch.cat([conv_b, conv_b.new_zeros(2 * N)])
     conv = sum(xbc_pad[:, i:i + t] * w_cat[i] for i in range(CONV_K)) + b_cat
-    x, B, C = torch.split(F.silu(conv), [din, N, N], dim=-1)
+    x, B, C = torch.split(F.silu(conv), [n, N, N], dim=-1)
 
-    dt = F.softplus(dt.float() + p["dt_bias"])             # [B,T,H]
-    A = -torch.exp(p["A_log"])
-    xh = x.reshape(b, t, H, P).float().contiguous()
+    dt = F.softplus(dt.float() + mine("dt_bias", 0))      # [B,T,H]
+    A = -torch.exp(mine("A_log", 0))
+    xh = x.reshape(b, t, nh, P).float().contiguous()
     B, C = B.float().contiguous(), C.float().contiguous()
     if t == 1:
         y, new_ssd = ref.mamba2_naive(xh, dt, A, B, C, ssd_state)
     else:
         y, new_ssd = ops.mamba2_ssd(xh, dt, A, B, C, ssd_state, chunk=128)
-    y = y + p["D"][None, None, :, None] * xh
-    y = layers.rms_norm(y.reshape(b, t, din).to(h.dtype), p["norm"]) * F.silu(z)
-    return _mm(y, p["out_proj"]), new_conv_state, new_ssd
+    y = y + mine("D", 0)[None, None, :, None] * xh
+    y = y.reshape(b, t, n).to(h.dtype)
+    if share is None:
+        y = layers.rms_norm(y, p["norm"]) * F.silu(z)
+        return _mm(y, p["out_proj"]), new_conv_state, new_ssd
+    y = layers.rms_norm_tp(y, mine("norm", 0, P)) * F.silu(z)
+    return spmd.reduce_model(_mm(y, mine("out_proj", 0, P)), mesh), new_conv_state, new_ssd
+
+
+def _conv_edges(cfg: ArchConfig, b: int):
+    """(in, out) of a layer's conv tail: the tail as the placed state holds it
+    [B, C, K-1] -> the channels ``mamba_layer`` computes, and its new tail ->
+    what the state keeps.  ``sharding.cache_pspec`` splits the C = din + 2N
+    channels x | B | C evenly over "model" where they divide it, so rank r
+    holds [r C/tp, (r + 1) C/tp), while it computes x-channels
+    [r din/tp, (r + 1) din/tp) and all of B and C: on entry the blocks are
+    gathered and the rank's channels taken, on exit the ranks' x-channels
+    gathered beside B and C and the rank's block kept.  The identity
+    without a "model" axis."""
+    mesh = layers.tp_mesh()
+    if mesh is None:
+        return (lambda x: x), (lambda x: x)
+    din, tp = _din(cfg), layers._tp_size()
+    split = layers.state_model_dim(cfg, "conv", conv_state_spec(cfg, b)) is not None
+    share = layers.model_share(din // cfg.ssm_head_dim)
+    n = din // tp
+    lo = spmd.model_rank(mesh) * n
+    blk = (din + 2 * cfg.ssm_state) // tp
+
+    def conv_in(x):
+        if split:
+            x = spmd.all_gather_model(x, mesh, 1)
+        return x if share is None else torch.cat([x[:, lo:lo + n], x[:, din:]], 1)
+
+    def conv_out(x):
+        if share is not None:
+            x = torch.cat([spmd.all_gather_model(x[:, :n], mesh, 1), x[:, n:]], 1)
+        return x.narrow(1, spmd.model_rank(mesh) * blk, blk) if split else x
+
+    return conv_in, conv_out
 
 
 def conv_state_spec(cfg: ArchConfig, batch: int):
@@ -158,10 +234,22 @@ def zero_state(cfg: ArchConfig, batch: int, smax: int,
 
 def _shared_block(cfg: ArchConfig, sp: Params, h: torch.Tensor,
                   positions: torch.Tensor):
-    """The shared attention + MLP block over h; returns (h, k, v)."""
-    attn, k, v = transformer._attn_full(cfg, sp, h, positions)
+    """The shared attention + MLP block over h; returns (h, k, v).  Under a
+    mesh it runs as the transformer's layers do: the attention on each
+    rank's heads, padded to a multiple of "model" (k and v are then its
+    heads), and the MLP's hidden dim split."""
+    attn, k, v = transformer._attn_full(cfg, sp, h, positions, pad_tp=True)
     h = h + attn
-    return h + layers.swiglu(sp["mlp"], layers.rms_norm(h, sp["ln2"])), k, v
+    return h + layers.swiglu_tp(sp["mlp"], layers.rms_norm(h, sp["ln2"])), k, v
+
+
+def _zero_ssm_state(cfg: ArchConfig, b: int, device) -> State:
+    """The zero conv tail and SSD state; under a mesh, this rank's block of
+    each, as ``sharding.cache_pspec`` splits it over "model"."""
+    return {"conv": torch.zeros(layers.state_block(cfg, "conv", conv_state_spec(cfg, b)),
+                                dtype=torch.bfloat16, device=device),
+            "ssd": torch.zeros(layers.state_block(cfg, "ssd", ssd_state_spec(cfg, b)),
+                               dtype=torch.float32, device=device)}
 
 
 def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -169,38 +257,41 @@ def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     """tokens [B,T] -> (final hidden [B,T,d], new state).  The per-site K/V
     come back in a cache of ``smax`` slots (``T`` if 0), zero past T.  Under
     placed parameters (a placed serving call) each mamba layer gathers its
-    blocks whole, as the loss's do, and the shared block is gathered whole
-    once; the state holds this rank's rows."""
+    blocks as the loss's do, the shared block is gathered once, and the
+    state is this rank's block as ``sharding.cache_pspec`` places it: its
+    rows, and over "model" the conv tail's channels (``_conv_edges``), the
+    SSD state's heads and the K/V's heads or slots (``ctx.kv_split``,
+    written as the transformer's prefill writes them)."""
     b, t = tokens.shape
     period = cfg.attn_every
     smax = smax or t
     if t > smax:
         raise ValueError(f"prompt of {t} tokens does not fit a cache of {smax}")
     if state is None:
-        state = {"conv": torch.zeros(conv_state_spec(cfg, b), dtype=torch.bfloat16,
-                                     device=tokens.device),
-                 "ssd": torch.zeros(ssd_state_spec(cfg, b), dtype=torch.float32,
-                                    device=tokens.device)}
+        state = _zero_ssm_state(cfg, b, tokens.device)
     positions = transformer._positions(b, t, tokens.device)
     h = layers.embed(params["emb"], tokens)
-    kv_shape = (n_attn_sites(cfg), b, smax, cfg.n_kv_heads, cfg.hd)
+    kvw = transformer.PromptKV(cfg, b, t, smax, tokens.device)
+    kv_shape = (n_attn_sites(cfg), b, kvw.n_slots, kvw.kv_heads, cfg.hd)
     cache_k = cache_v = None
-    gather = layers.gatherer("mamba", stacked=True, whole=True)
-    sp = layers.gatherer("shared", whole=True)(params["shared"])
+    gather = layers.gatherer("mamba", stacked=True)
+    sp = layers.gatherer("shared")(params["shared"])
+    conv_in, conv_out = _conv_edges(cfg, b)
     convs, ssds = [], []
     for i, lp in enumerate(layers.unstack(params["mamba"])):
-        out, cs, ss = mamba_layer(cfg, gather(lp), h, state["conv"][i], state["ssd"][i])
+        out, cs, ss = mamba_layer(cfg, gather(lp), h, conv_in(state["conv"][i]),
+                                  state["ssd"][i])
         h = h + out
-        convs.append(cs)
+        convs.append(conv_out(cs))
         ssds.append(ss)
         site, last_of_period = divmod(i + 1, period)
         if last_of_period == 0:
+            own = kvw.own(sp, h)
             h, k, v = _shared_block(cfg, sp, h, positions)
             if cache_k is None:     # the K/V dtype is the compute dtype, as in the reference
                 cache_k = k.new_zeros(kv_shape)
                 cache_v = v.new_zeros(kv_shape)
-            cache_k[site - 1, :, :t] = k
-            cache_v[site - 1, :, :t] = v
+            kvw.write(cache_k[site - 1], cache_v[site - 1], own, k, v)
     return h, {"conv": torch.stack(convs), "ssd": torch.stack(ssds),
                "k": cache_k, "v": cache_v}
 
@@ -217,18 +308,22 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> 
     ``batch["labels"]``, from the zero state.  Differentiable in every parameter
     leaf; each mamba layer and each shared-block site keeps only its input for
     the backward and runs again inside it.  No K/V cache is written.  Under
-    placed parameters each of them gathers its blocks whole inside (the
-    blocks run whole on every "model" rank; the shared block at each of its
-    sites), and the embedding and head are vocab-parallel."""
+    placed parameters each of them gathers its blocks over the data axes
+    inside (the shared block at each of its sites) and runs split over
+    "model" (``mamba_layer``, ``_shared_block``); the embedding and head are
+    vocab-parallel."""
     tokens = batch["tokens"]
     b, t = tokens.shape
     positions = transformer._positions(b, t, tokens.device)
     h = layers.embed(params["emb"], tokens)
-    conv = h.new_zeros((b, _din(cfg) + 2 * cfg.ssm_state, CONV_K - 1))
-    ssd = torch.zeros(ssd_state_spec(cfg, b)[1:], dtype=torch.float32, device=tokens.device)
+    P = cfg.ssm_head_dim
+    share = layers.model_share(_din(cfg) // P)
+    H = _din(cfg) // P if share is None else share[1]     # the heads this rank runs
+    conv = h.new_zeros((b, H * P + 2 * cfg.ssm_state, CONV_K - 1))
+    ssd = torch.zeros((b, H, P, cfg.ssm_state), dtype=torch.float32, device=tokens.device)
 
-    gather_mamba = layers.gatherer("mamba", stacked=True, whole=True)
-    gather_shared = layers.gatherer("shared", whole=True)
+    gather_mamba = layers.gatherer("mamba", stacked=True)
+    gather_shared = layers.gatherer("shared")
 
     def mamba_block(h, lp):
         return h + mamba_layer(cfg, gather_mamba(lp), h, conv, ssd)[0]
@@ -256,17 +351,20 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
                 state: State, cache_len: int) -> Tuple[torch.Tensor, State]:
     """One token [B,1] through 81 mamba steps and 13 shared-attention decode
     sites.  The new token's k/v are written into ``state``'s cache in place.
-    Returns (logits [B,1,V], state).  Under placed parameters, gathered as
-    ``_backbone`` gathers them."""
+    Returns (logits [B,1,V], state).  Under placed parameters, gathered and
+    split as ``_backbone`` does; the decode attention runs on the rank's
+    block of the K/V (``layers.attention_decode``)."""
     period = cfg.attn_every
     h = layers.embed(params["emb"], token)
-    gather = layers.gatherer("mamba", stacked=True, whole=True)
-    sp = layers.gatherer("shared", whole=True)(params["shared"])
+    gather = layers.gatherer("mamba", stacked=True)
+    sp = layers.gatherer("shared")(params["shared"])
+    conv_in, conv_out = _conv_edges(cfg, token.shape[0])
     convs, ssds = [], []
     for i, lp in enumerate(layers.unstack(params["mamba"])):
-        out, cs, ss = mamba_layer(cfg, gather(lp), h, state["conv"][i], state["ssd"][i])
+        out, cs, ss = mamba_layer(cfg, gather(lp), h, conv_in(state["conv"][i]),
+                                  state["ssd"][i])
         h = h + out
-        convs.append(cs)
+        convs.append(conv_out(cs))
         ssds.append(ss)
         site, last_of_period = divmod(i + 1, period)
         if last_of_period == 0:
@@ -274,7 +372,7 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
                 cfg, sp["attn"], layers.rms_norm(h, sp["ln1"]), state["k"][site - 1],
                 state["v"][site - 1], cache_len, cache_len, cache_len + 1)
             h = h + out
-            h = h + layers.swiglu(sp["mlp"], layers.rms_norm(h, sp["ln2"]))
+            h = h + layers.swiglu_tp(sp["mlp"], layers.rms_norm(h, sp["ln2"]))
     return layers.unembed(params["emb"], h), {
         "conv": torch.stack(convs), "ssd": torch.stack(ssds),
         "k": state["k"], "v": state["v"]}

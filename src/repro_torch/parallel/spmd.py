@@ -9,6 +9,11 @@ with its transpose as its backward:
   * ``enter_model``   marks a value every model rank holds whole and uses
     only in part (a region's input, a weight sliced by rank); forward it
     passes through, and its backward sums the partial gradients;
+  * ``all_gather_model`` concatenates the model ranks' blocks of a value
+    every rank then uses whole, alike; its backward is this rank's slice
+    of the gradient.  ``reduce_scatter_model`` sums partial results over
+    "model" and keeps this rank's block; its backward is that all-gather.
+    The pair costs what one ``reduce_model`` does;
   * ``gather_data``   concatenates each data rank's rows, for a caller
     that holds the whole batch on every rank (forward only).
 
@@ -18,16 +23,16 @@ layer's blocks inside its checkpointed block, so that only one layer is
 held gathered and the recompute gathers it again:
 
   * ``gather``       all-gathers each leaf over the data axes where it is
-    sharded (FSDP), and over "model" too where the block runs whole on
-    every model rank (``whole``); its backward is the transpose: the data
-    ranks' partial gradients reduce-scattered onto the block, and over
-    "model" this rank's chunk of the whole gradient every model rank
-    computed alike.  A leaf left split over "model" is marked as this
-    rank's block (``model_dim``);
+    sharded (FSDP); its backward is the transpose: the data ranks' partial
+    gradients reduce-scattered onto the block.  A leaf left split over
+    "model" is marked as this rank's block (``model_dim``);
   * ``model_part``   this model rank's part of a weight for the TP code:
     the block itself where it is that part, else the weight (gathered
     whole over "model" first if it is a block) sliced as ``model_slice``,
-    and ``model_whole`` a weight each model rank uses whole;
+    and ``model_whole`` a weight each model rank uses whole for its part
+    of the work; ``gather_model`` a block gathered whole over "model" for
+    a computation every model rank runs alike (its gradient: this rank's
+    chunk of the whole one), counted in ``MODEL_GATHERS``;
   * ``max_model``    a row max over the "model" axis, with the gradient
     of ``amax`` (the vocab-parallel cross-entropy's max term);
   * ``reduce_grad``  a gradient summed over the data axes onto its ZeRO-1
@@ -61,6 +66,9 @@ MP = "model"
 # checkpointed layer's recompute gathers again) and of its backward (each
 # reduce-scatters that tree's gradients), for a caller to reset and read
 GATHERS: Counter = Counter()
+# blocks gathered whole over "model" (``gather_model``, also inside
+# ``model_part`` and ``model_whole``): "leaves" and their whole "elements"
+MODEL_GATHERS: Counter = Counter()
 
 
 def data_axes(mesh) -> Tuple[str, ...]:
@@ -171,13 +179,11 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
-def _plan(pls, mesh, whole: bool) -> Tuple[Tuple[str, int], ...]:
+def _plan(pls, mesh) -> Tuple[Tuple[str, int], ...]:
     """(axis, tensor dim) of each all-gather a leaf placed by ``pls`` takes:
-    the data axes it is sharded over, the minor one first, then "model"
-    when ``whole``."""
+    the data axes it is sharded over, the minor one first."""
     named = [(a, pl.dim) for a, pl in zip(mesh.mesh_dim_names, pls) if isinstance(pl, Shard)]
-    steps = [s for s in reversed(named) if s[0] != MP]
-    return tuple(steps + [s for s in named if s[0] == MP and whole])
+    return tuple(s for s in reversed(named) if s[0] != MP)
 
 
 class _Gather(torch.autograd.Function):
@@ -218,7 +224,7 @@ def whole_size(x: torch.Tensor, dim: int, mesh) -> int:
     return x.shape[dim] * model_size(mesh) if model_dim(x) == dim else x.shape[dim]
 
 
-def gather(tree, placements, mesh, whole: bool = False):
+def gather(tree, placements, mesh):
     """A tree of this rank's parameter blocks as the model computes with it
     (see the module's docstring); ``placements``: a tree like ``tree`` of
     each leaf's DTensor placements, or None for a tree that is whole (the
@@ -228,8 +234,8 @@ def gather(tree, placements, mesh, whole: bool = False):
     paths, blocks = zip(*flatten_with_paths(tree))
     pl_of = dict(flatten_with_paths(placements))
     pls = [pl_of[path] for path in paths]
-    outs = _Gather.apply(mesh, tuple(_plan(p, mesh, whole) for p in pls), 1, *blocks)
-    if not whole and model_size(mesh) > 1:
+    outs = _Gather.apply(mesh, tuple(_plan(p, mesh) for p in pls), 1, *blocks)
+    if model_size(mesh) > 1:
         for x, p in zip(outs, pls):
             dims = [pl.dim for a, pl in zip(mesh.mesh_dim_names, p)
                     if a == MP and isinstance(pl, Shard)]
@@ -249,17 +255,22 @@ def layer_placements(placements):
     return tuple(Shard(pl.dim - 1) if isinstance(pl, Shard) else pl for pl in placements)
 
 
-def _gather_model(w: torch.Tensor, mesh) -> torch.Tensor:
+def gather_model(w: torch.Tensor, mesh) -> torch.Tensor:
     """``w`` whole: a block (``model_dim``) gathered over "model", whose
-    gradient is then this rank's chunk of the whole one."""
+    gradient is then this rank's chunk of the whole one (every model rank
+    computes that whole gradient alike); ``w`` itself where it is whole."""
     block = model_dim(w)
-    return w if block is None else _Gather.apply(mesh, (((MP, block),),), 0, w)[0]
+    if block is None:
+        return w
+    MODEL_GATHERS["leaves"] += 1
+    MODEL_GATHERS["elements"] += w.numel() * model_size(mesh)
+    return _Gather.apply(mesh, (((MP, block),),), 0, w)[0]
 
 
 def model_whole(w: torch.Tensor, mesh) -> torch.Tensor:
     """``enter_model`` of a weight every model rank uses whole, each for its
     part of the work: gathered over "model" first if it is a block."""
-    return enter_model(_gather_model(w, mesh), mesh)
+    return enter_model(gather_model(w, mesh), mesh)
 
 
 def model_part(w: torch.Tensor, mesh, dim: int, n: int, padded: Optional[int] = None
@@ -273,7 +284,7 @@ def model_part(w: torch.Tensor, mesh, dim: int, n: int, padded: Optional[int] = 
     block = model_dim(w)
     if block == dim and w.shape[dim] == n and padded in (None, n * model_size(mesh)):
         return w
-    w = _gather_model(w, mesh)
+    w = gather_model(w, mesh)
     if padded is not None and padded != w.shape[dim]:
         pad = [0, 0] * (w.dim() - 1 - dim) + [0, padded - w.shape[dim]]
         w = torch.nn.functional.pad(w, pad)
@@ -303,10 +314,44 @@ def max_model(x: torch.Tensor, mesh) -> torch.Tensor:
     return _MaxModel.apply(x, mesh)
 
 
-def all_gather_model(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The "model" ranks' blocks of ``x`` concatenated along its last dim, in
-    rank order (forward only)."""
-    return _all_gather(x, mesh.get_group(MP), x.dim() - 1)
+class _AllGatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _all_gather(x, mesh.get_group(MP), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(model_size(ctx.mesh), ctx.dim)[model_rank(ctx.mesh)], None, None
+
+
+class _ReduceScatterModel(torch.autograd.Function):
+    # contiguous results: along a last dim the collective's result is strided
+    # (it moves the dim to the front), and its backward's feeds a product's
+    # backward, where a transposed operand can take another cuBLAS kernel
+    # than the mesh-free path's contiguous one
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _reduce_scatter(x, mesh.get_group(MP), dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh.get_group(MP), ctx.dim).contiguous(), None, None
+
+
+def all_gather_model(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    """The "model" ranks' blocks of ``x`` concatenated along ``dim``, in rank
+    order.  Every rank uses the whole result alike, so the gradient of its
+    block is its slice of the whole gradient."""
+    return _AllGatherModel.apply(x, mesh, dim % x.dim())
+
+
+def reduce_scatter_model(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    """The sum over the "model" ranks of partial results ``x``, this rank's
+    block along ``dim`` (rank r: the r-th of ``model_size`` equal chunks);
+    its gradient is the blocks' gradients gathered over "model"."""
+    return _ReduceScatterModel.apply(x, mesh, dim % x.dim())
 
 
 def amax_model(x: torch.Tensor, mesh) -> torch.Tensor:

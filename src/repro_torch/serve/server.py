@@ -13,12 +13,11 @@ on a mesh, on DTensors placed as the reference's dry run places its
 jitted serving calls (``repro.launch.dryrun.lower_cell``): the params by
 ``param_shardings``, the tokens by ``input_shardings`` (rows over the data
 axes), the cache by ``cache_shardings`` (rows over the data axes; the KV
-heads over "model" where they divide it, else the sequence); they return
-the logits placed by ``logits_sharding`` (vocab over "model") and the
-cache as it came in.  rwkv6's and zamba2's blocks are not yet split over
-"model", so their recurrent states and zamba2's shared-block K/V are
-placed over the data axes only (``cache_specs``).  ``BatchServer`` stays
-mesh-free, as the reference's does.
+heads over "model" where they divide it, else the sequence; rwkv6's and
+zamba2's recurrent states by their heads or channels, the shift states by
+d); they return the logits placed by ``logits_sharding`` (vocab over
+"model") and the cache as it came in.  ``BatchServer`` stays mesh-free, as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -100,14 +99,9 @@ class BatchServer:
 
 def cache_specs(cfg: ArchConfig, shapes: Dict[str, tuple], mesh) -> Dict[str, tuple]:
     """Each cache leaf's spec in placed serving, from the leaves' whole
-    shapes: ``sharding.cache_pspec``'s, with nothing over "model" for the
-    ssm and hybrid families (their blocks run whole on every "model" rank)."""
-    specs = {name: shd.cache_pspec(name, tuple(shape), mesh, cfg)
-             for name, shape in shapes.items()}
-    if cfg.family in ("ssm", "hybrid"):
-        specs = {name: tuple(None if e == shd.MP else e for e in spec)
-                 for name, spec in specs.items()}
-    return specs
+    shapes: ``sharding.cache_pspec``'s."""
+    return {name: shd.cache_pspec(name, tuple(shape), mesh, cfg)
+            for name, shape in shapes.items()}
 
 
 def _kv_split(specs) -> Optional[str]:

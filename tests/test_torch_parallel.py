@@ -16,7 +16,10 @@ through a rendezvous file:
     local shapes of params and moments against the rules' shares: as the
     rules place the params, with FSDP forced (``sharding.needs_fsdp``
     patched), and for arctic's layout (4 experts over model 4, FSDP
-    forced); one mesh step of reduced rwkv6 and zamba2;
+    forced); one mesh step of reduced rwkv6 and zamba2, their blocks split
+    over "model" (no layer gathered whole over it: ``spmd.MODEL_GATHERS``),
+    and of each with heads that do not divide the axis (the block whole on
+    every rank);
   * the vocab-parallel embedding, head and cross-entropy (tied and untied)
     against the mesh-free ones, the max term's gradient included;
   * prefill under the mesh caching the model's KV heads, not the padded
@@ -218,6 +221,7 @@ def _train_steps_case(mesh, cfg, seed, n_steps=2, fsdp=False):
     placements from the DTensors only, and runs outside the forcing."""
     from torch.distributed.tensor import DTensor
     from repro_torch.models import get_model
+    from repro_torch.parallel import spmd
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import make_train_step
     api = get_model(cfg)
@@ -241,8 +245,10 @@ def _train_steps_case(mesh, cfg, seed, n_steps=2, fsdp=False):
     in_specs = shd.input_shardings(mesh, batches[-1])
     batches_sh = batches[:-1] + [{k: shd.distribute(v, in_specs[k], mesh)
                                   for k, v in batches[-1].items()}]
+    spmd.MODEL_GATHERS.clear()
     for b in batches_sh:
         params_sh, state_sh, m = step(params_sh, state_sh, b)
+    model_gathers = dict(spmd.MODEL_GATHERS)
 
     res = {"loss_err": abs(float(m["loss"]) - float(m_ref["loss"])),
            "grad_norm_err": abs(float(m["grad_norm"]) - float(m_ref["grad_norm"]))}
@@ -283,7 +289,8 @@ def _train_steps_case(mesh, cfg, seed, n_steps=2, fsdp=False):
                 _close(x.full_tensor(), trees[kind + "_ref"][path], f"{name}.{kind}")
         shapes[name] = {"param": list(p.to_local().shape),
                         "moment": list(trees["mu"][path].to_local().shape)}
-    res.update(param_err_max=max(errs.values()), local_shapes=shapes)
+    res.update(param_err_max=max(errs.values()), local_shapes=shapes,
+               model_gathers=model_gathers)
     return res
 
 
@@ -323,18 +330,61 @@ def case_fsdp_moe_train_step(mesh):
     return res
 
 
-def case_rwkv6_train_step(mesh):
-    """A reduced rwkv6's mesh train step: its layers gathered whole inside
-    their blocks, the embedding and head vocab-parallel."""
+def _reduced(arch, **kw):
     from repro_torch.configs import get_arch
-    return _train_steps_case(mesh, get_arch("rwkv6-1.6b").reduced(), 5, n_steps=1)
+    return dataclasses.replace(get_arch(arch).reduced(), **kw)
+
+
+def case_rwkv6_train_step(mesh):
+    """A reduced rwkv6's mesh train step (4 heads over model 4): each rank its
+    head of the time mix and its share of the channel mix, from its own
+    blocks; only the small maa_w2 ([5, 32, d], split by d, used whole) is
+    gathered over "model", in each layer's forward and recompute.  The
+    embedding and head vocab-parallel."""
+    cfg = _reduced("rwkv6-1.6b")
+    res = _train_steps_case(mesh, cfg, 5, n_steps=1)
+    shapes = res["local_shapes"]
+    assert shapes["layers/tmix/wr"]["param"] == [2, 128, 32], shapes
+    assert shapes["layers/tmix/wo"]["param"] == [2, 32, 128], shapes
+    assert shapes["layers/tmix/u"]["param"] == [2, 1, 32], shapes
+    assert shapes["layers/cmix/wv"]["param"] == [2, 64, 128], shapes
+    maa_w2 = 5 * 32 * cfg.d_model
+    assert res["model_gathers"] == {"leaves": 2 * cfg.n_layers,
+                                    "elements": 2 * cfg.n_layers * maa_w2}, res
+    return res
 
 
 def case_zamba2_train_step(mesh):
-    """A reduced zamba2's mesh train step: its Mamba2 layers and the shared
-    block at each of its sites gathered whole inside their blocks."""
-    from repro_torch.configs import get_arch
-    return _train_steps_case(mesh, get_arch("zamba2-7b").reduced(), 6, n_steps=1)
+    """A reduced zamba2's mesh train step (8 Mamba2 heads and 4 attention
+    heads over model 4): each Mamba2 layer and the shared block at each of
+    its sites run the rank's heads from its own blocks; nothing is gathered
+    over "model"."""
+    res = _train_steps_case(mesh, _reduced("zamba2-7b"), 6, n_steps=1)
+    shapes = res["local_shapes"]
+    assert shapes["mamba/in_x"]["param"] == [4, 128, 64], shapes
+    assert shapes["mamba/conv_w"]["param"] == [4, 4, 64], shapes
+    assert shapes["mamba/out_proj"]["param"] == [4, 64, 128], shapes
+    assert shapes["shared/attn/wq"]["param"] == [128, 32], shapes
+    assert res["model_gathers"] == {}, res
+    return res
+
+
+def case_rwkv6_train_step_heads_not_dividing(mesh):
+    """rwkv6 at head size 64 (2 heads over model 4): the time mix gathered
+    whole on every rank, the channel mix split."""
+    res = _train_steps_case(mesh, _reduced("rwkv6-1.6b", ssm_head_dim=64), 7, n_steps=1)
+    assert res["local_shapes"]["layers/tmix/wr"]["param"] == [2, 128, 32], res
+    assert res["model_gathers"]["leaves"] > 0, res
+    return res
+
+
+def case_zamba2_train_step_heads_not_dividing(mesh):
+    """zamba2 at Mamba2 head size 128 (2 heads over model 4): each Mamba2 layer
+    gathered whole on every rank; the shared block split."""
+    res = _train_steps_case(mesh, _reduced("zamba2-7b", ssm_head_dim=128), 8, n_steps=1)
+    assert res["local_shapes"]["mamba/in_x"]["param"] == [4, 128, 64], res
+    assert res["model_gathers"]["leaves"] > 0, res
+    return res
 
 
 def _head_case(mesh, arch, seed):

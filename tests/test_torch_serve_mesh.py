@@ -3,8 +3,8 @@
 ``serve.server.placed_prefill``/``placed_decode`` run the model's prefill
 and decode on DTensors placed as the reference's dry run places its
 serving calls: params by ``param_shardings``, tokens by
-``input_shardings``, the cache by ``cache_shardings`` (for rwkv6 and
-zamba2, over the data axes only), and they return the logits placed by
+``input_shardings``, the cache by ``cache_shardings`` (rwkv6's and
+zamba2's states and K/V over "model" too), and they return the logits placed by
 ``logits_sharding``.  On a (2, 4) ("data", "model") mesh of 8 CPU
 processes (``torch_gloo_ranks``), each case serves a prompt and 4 greedy
 decode steps both ways from the same fp32 weights (made once, from a
@@ -29,9 +29,12 @@ The cases reach the heads branch (codeqwen1.5-7b, 4 KV heads over model
 bf16 and int8, a cache split over neither, GQA (phi3-medium-14b, 1 KV
 head), mixtral's window with a prompt past it (the ring over the sequence
 split, the MoE block on each data rank's rows), arctic with FSDP forced,
-rwkv6 and zamba2 (rows over the data axes only), and placements other
-than the specs', refused.  Values are fp32 and differ only in the order
-of summation: 1e-5.
+rwkv6 and zamba2 split over "model" (their states by heads, channels and
+d; zamba2's shared-block K/V by its heads, and by its sequence, forced),
+each also with heads that do not divide the axis (the block whole on
+every rank, its states at their placements all the same), and placements
+other than the specs', refused.  Values are fp32 and differ only in the
+order of summation: 1e-5.
 """
 
 import contextlib
@@ -101,16 +104,14 @@ def _argmax(logits, vocab):
     return logits[:, -1, :vocab].argmax(-1)
 
 
-def _serve_case(mesh, cfg, seed, t, smax, kv="bfloat16", b=4, model_split=True):
+def _serve_case(mesh, cfg, seed, t, smax, kv="bfloat16", b=4):
     """``_serve`` with a bf16 K/V cache served fp32 (see the module's docstring)."""
     with fp32_kv_cache() if kv == "bfloat16" else contextlib.nullcontext():
-        return _serve(mesh, cfg, seed, t, smax, kv, b, model_split)
+        return _serve(mesh, cfg, seed, t, smax, kv, b)
 
 
-def _serve(mesh, cfg, seed, t, smax, kv, b, model_split):
-    """A prompt [b, t] and ``STEPS`` greedy steps, mesh-free then placed;
-    ``model_split``: whether the rules split the cache over "model" (the
-    ssm and hybrid families: over the data axes only)."""
+def _serve(mesh, cfg, seed, t, smax, kv, b):
+    """A prompt [b, t] and ``STEPS`` greedy steps, mesh-free then placed."""
     from repro_torch.models import get_model
     from repro_torch.serve.server import placed_decode, placed_prefill
     api = get_model(cfg)
@@ -148,8 +149,6 @@ def _serve(mesh, cfg, seed, t, smax, kv, b, model_split):
     tokens = [_argmax(w, cfg.vocab).tolist() for w in want]
     assert [_argmax(g.full_tensor(), cfg.vocab).tolist() for g in got] == tokens
     specs = {k: shd.cache_pspec(k, tuple(x.shape), mesh, cfg) for k, x in cache.items()}
-    if not model_split:
-        specs = {k: tuple(None if e == "model" else e for e in s) for k, s in specs.items()}
     local = {k: list(x.to_local().shape) for k, x in cache.items()}
     assert local == {k: _share(x.shape, specs[k]) for k, x in cache.items()}, (local, specs)
     for k, x in cache.items():
@@ -218,15 +217,55 @@ def case_arctic_fsdp(mesh):
         return _serve_case(mesh, _reduced("arctic-480b"), 9, t=16, smax=24)
 
 
-def case_rwkv6_rows(mesh):
-    """(g) rwkv6 reduced: its state over the data axes only."""
-    return _serve_case(mesh, _reduced("rwkv6-1.6b"), 11, t=16, smax=0, model_split=False)
+def case_rwkv6_model_split(mesh):
+    """(g) rwkv6 reduced (4 heads over model 4): each rank its head of the
+    time mix and its d-blocks of the channel mix; the wkv state split by its
+    heads, the shift states by d."""
+    res = _serve_case(mesh, _reduced("rwkv6-1.6b"), 11, t=16, smax=0)
+    shapes = res["local_cache_shapes"]
+    assert shapes["wkv"] == [2, 2, 1, 32, 32] and shapes["tmix_x"] == [2, 2, 32], res
+    return res
 
 
-def case_zamba2_rows(mesh):
-    """(h) zamba2 reduced: its states and shared-block K/V over the data axes
-    only."""
-    return _serve_case(mesh, _reduced("zamba2-7b"), 13, t=16, smax=24, model_split=False)
+def case_rwkv6_heads_not_dividing(mesh):
+    """(g') rwkv6 at head size 64 (2 heads over model 4): the time mix whole
+    on every rank, its wkv state whole over "model", the shift states still
+    split by d; the channel mix split."""
+    res = _serve_case(mesh, _reduced("rwkv6-1.6b", ssm_head_dim=64), 15, t=16, smax=0)
+    shapes = res["local_cache_shapes"]
+    assert shapes["wkv"] == [2, 2, 2, 64, 64] and shapes["cmix_x"] == [2, 2, 32], res
+    return res
+
+
+def case_zamba2_model_split(mesh):
+    """(h) zamba2 reduced (8 Mamba2 heads, 4 shared-block KV heads over model
+    4): the SSD state by its heads, the conv tail by its 288 channels (72 a
+    rank against the 64 x-channels a rank computes), the K/V by its heads."""
+    res = _serve_case(mesh, _reduced("zamba2-7b"), 13, t=16, smax=24)
+    shapes = res["local_cache_shapes"]
+    assert shapes["ssd"] == [4, 2, 2, 32, 16] and shapes["conv"] == [4, 2, 72, 3], res
+    assert shapes["k"] == [2, 2, 24, 1, 32], res
+    return res
+
+
+def case_zamba2_sequence_split(mesh):
+    """(h') (h) with the shared block's K/V split by its sequence, forced (6 of
+    24 slots a rank; decode writes on two ranks)."""
+    from repro_torch.parallel import ctx
+    with ctx.force_sequence_split():
+        res = _serve_case(mesh, _reduced("zamba2-7b"), 13, t=16, smax=24)
+    assert res["local_cache_shapes"]["k"] == [2, 2, 6, 4, 32], res
+    return res
+
+
+def case_zamba2_heads_not_dividing(mesh):
+    """(h'') zamba2 at Mamba2 head size 128 (2 heads over model 4): each
+    Mamba2 layer whole on every rank, its SSD state whole over "model", its
+    conv tail still split by channels."""
+    res = _serve_case(mesh, _reduced("zamba2-7b", ssm_head_dim=128), 17, t=16, smax=24)
+    shapes = res["local_cache_shapes"]
+    assert shapes["ssd"] == [4, 2, 2, 128, 16] and shapes["conv"] == [4, 2, 72, 3], res
+    return res
 
 
 def case_wrong_placements_raise(mesh):

@@ -12,7 +12,11 @@ bf16 weights (seed 0) at full width:
   * ``codeqwen``: codeqwen1.5-7b, all 32 layers, through the model's
     mesh-free ``prefill``/``decode`` (what ``BatchServer`` calls);
   * ``mixtral``: mixtral-8x22b cut to 4 of its 56 layers, the same;
-  * ``placed``: codeqwen1.5-7b through ``serve.server.placed_prefill``/
+  * ``rwkv6``: rwkv6-1.6b cut to 4 of its 24 layers, the same;
+  * ``zamba2``: zamba2-7b cut to 6 of its 81 layers (one site of its shared
+    block), the same;
+  * ``placed``, ``rwkv6-placed``, ``zamba2-placed``: codeqwen1.5-7b, and
+    the two cuts above, through ``serve.server.placed_prefill``/
     ``placed_decode`` on DTensors on a 1 x 1 mesh (skipped, and said so,
     in a tree that has no placed serving).
 
@@ -37,7 +41,11 @@ import tempfile
 import time
 from pathlib import Path
 
-MODELS = ("codeqwen", "mixtral", "placed")
+# model: (arch, layers it is cut to or 0 for all, placed)
+MODELS = {"codeqwen": ("codeqwen1.5-7b", 0, False), "mixtral": ("mixtral-8x22b", 4, False),
+          "placed": ("codeqwen1.5-7b", 0, True), "rwkv6": ("rwkv6-1.6b", 4, False),
+          "zamba2": ("zamba2-7b", 6, False), "rwkv6-placed": ("rwkv6-1.6b", 4, True),
+          "zamba2-placed": ("zamba2-7b", 6, True)}
 B, T = 4, 1788
 
 
@@ -62,7 +70,7 @@ def _calls(model: str, cfg, params):
     from repro_torch.models import get_model
     api = get_model(cfg)
     smax = T + 64
-    if model != "placed":
+    if not MODELS[model][2]:
         return (lambda t: api.prefill(params, t, smax),
                 lambda tok, c, n: api.decode(params, tok, c, n))
     try:
@@ -96,8 +104,9 @@ def worker(args) -> None:
         init_process_group(str(Path(rdv) / "pg"), 0, 1, "nccl", 60)
         try:
             for model in args.models.split(","):
-                cfg = (dataclasses.replace(get_arch("mixtral-8x22b"), n_layers=4)
-                       if model == "mixtral" else get_arch("codeqwen1.5-7b"))
+                arch, layers, _ = MODELS[model]
+                cfg = get_arch(arch)
+                cfg = dataclasses.replace(cfg, n_layers=layers) if layers else cfg
                 params = get_model(cfg).init(0, torch.bfloat16, "cuda")
                 calls = _calls(model, cfg, params)
                 if calls is None:
@@ -138,7 +147,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     build = ("import sys; sys.path.insert(0, sys.argv[1]); from repro_torch.kernels "
-             "import _build; _build.build_all(['flash_attention'])")
+             "import _build; _build.build_all(['flash_attention', 'rwkv6_scan', 'mamba2_ssd'])")
     builds = [subprocess.Popen([sys.executable, "-c", build, src]) for src in trees.values()]
     if any(p.wait(timeout=600) for p in builds):
         raise SystemExit("a tree's kernels did not build")
