@@ -49,12 +49,18 @@ Phases, each fatal on failure:
       (``FP32_TOL``, ``TRAIN_TOL``);
   (g) the trainer: minicpm-2b at full width cut to ``TRAINER_LAYERS`` layers
       (stated in the JSON), bf16 params with fp32 master weights and moments,
-      B=2, T=2048, trains through ``Trainer`` on a ``LocalMount`` holding
-      ``repro_torch.launch.train``'s dataset: run U takes 3 steps with no
-      checkpoint; run C saves step 2 and crashes after step 3; a fresh Trainer
-      restores step 2 and takes step 3.  Every leaf of params, mu, nu and master
-      after step 3 must have the same checksum-kernel digest in U and in the
-      resumed run.  Save and restore GB/s, by stage;
+      B=2, T=2048, trains through ``Trainer`` on volume ``train`` of the port's
+      simulated CFS cluster (``repro_torch.launch.train.build_cluster``: 4 meta
+      nodes, 6 data nodes, 1 MiB extents, three replicas; the data disks
+      raised from 4 GiB to 8, stated in the JSON: ``TRAINER_DISK_BYTES``), holding
+      ``repro_torch.launch.train``'s dataset, its shards read by hedged reads:
+      run U takes 3 steps with no checkpoint; run C saves step 2 and crashes
+      after step 3; a fresh Trainer restores step 2 and takes step 3.  Every
+      leaf of params, mu, nu and master after step 3 must have the same
+      checksum-kernel digest in U and in the resumed run, and ``fsck`` of the
+      volume must find no fault.  Save and restore GB/s, by stage, beside the
+      cluster's modeled time (its virtual clock) for each; the datapipe's
+      hedged reads from its client's counters;
   (h) MoE serving: mixtral-8x22b at full width, cut to the most layers that fit
       the card beside ``MOE_HEADROOM_BYTES`` for the wave's buffers, serves 8
       requests with prompts of 3072-6144 tokens (past its 4096 window) through
@@ -142,7 +148,6 @@ import gc
 import json
 import math
 import os
-import shutil
 import statistics
 import subprocess
 import sys
@@ -173,14 +178,14 @@ from repro_torch.kernels.work import (  # noqa: E402
     wkv6_work)
 from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import init_process_group, make_host_mesh  # noqa: E402
-from repro_torch.launch.train import write_dataset  # noqa: E402
+from repro_torch.core.fsck import fsck  # noqa: E402
+from repro_torch.launch.train import build_cluster, write_dataset  # noqa: E402
 from repro_torch.models import get_model, moe, transformer  # noqa: E402
 from repro_torch.parallel import compress, ctx, spmd  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.serve.server import (  # noqa: E402
     BatchServer, Request, placed_decode, placed_prefill)
 from repro_torch.storage.datapipe import ShardReader  # noqa: E402
-from repro_torch.storage.volume import LocalMount  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
@@ -238,10 +243,17 @@ SSM_BF16_GRAD_TOL = 0.25
 TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "minicpm-2b", 2, 2048, 4
 # (g): run C checkpoints every 2 steps and crashes after step 3; minicpm-2b cut
 # to TRAINER_LAYERS of its 40 layers at full width (a 7.4 GB checkpoint: the
-# 38.2 GB one of all 40 layers took 155 s to save and restore on an H100 80GB
-# HBM3 at 700 W, and doubled the script's time), on a disk with DISK_MARGIN
-# times the checkpoint free
-TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_LAYERS, DISK_MARGIN = 2, 3, 4, 1.18
+# 38.2 GB one of all 40 layers took 155 s to save and restore to a local
+# directory on an H100 80GB HBM3 at 700 W, and doubled the script's time).  The
+# simulated cluster holds three replicas in host memory, with buffers about 5x
+# the bytes written: the host must have HOST_MARGIN times the checkpoint free
+TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_LAYERS, HOST_MARGIN = 2, 3, 4, 6.0
+# (g)'s data disks: build_cluster's 4 GiB overflow on the fullest disk under the
+# 7.38 GB checkpoint's replicas (DiskFull on an H100 host; each file goes to one random
+# partition, so the fill is lumpy), so the disks are doubled until one of them could
+# hold a replica of every byte (g) writes (checkpoint, and the dataset within
+# TRAINER_DATA_BYTES): a node holds at most one replica of any byte, so that always fits
+TRAINER_DISK_BYTES, TRAINER_DATA_BYTES = 4 << 30, 1 << 20
 # (h): mixtral-8x22b keeps as many layers as fit the card beside this much
 # for the serving wave's activations, MoE buffers and checks
 MOE_ARCH, MOE_HEADROOM_BYTES = "mixtral-8x22b", 24e9
@@ -1379,11 +1391,36 @@ def check_train_consistency(cfg, dtype, tol: float, n_layers: int = 4, grad_tol=
 
 # ------------------------------------------------------------------ (g) the trainer
 
-def _io_report(io: dict) -> dict:
-    """Bytes over wall-clock seconds, and each stage's seconds and share."""
+def _io_report(io: dict, modeled: dict) -> dict:
+    """Bytes over wall-clock seconds, each stage's seconds and share, and the
+    cluster's modeled seconds for the same bytes (its virtual clock)."""
     stages = {k: v for k, v in io.items() if k.endswith("_s") and k != "s"}
     return {"bytes": io["bytes"], "s": io["s"], "gb_s": io["bytes"] / io["s"] / 1e9,
-            "stages_s": stages, "stage_shares": {k: v / io["s"] for k, v in stages.items()}}
+            "stages_s": stages, "stage_shares": {k: v / io["s"] for k, v in stages.items()},
+            "modeled_s": modeled["s"], "modeled_gb_s": io["bytes"] / modeled["s"] / 1e9}
+
+
+def _on_the_clock(cluster, fn, out: dict):
+    """``fn`` run as one timed op of the cluster, from virtual time 0 on idle
+    queues; its modeled seconds go into ``out["s"]``."""
+    def call(*args, **kw):
+        net = cluster.net
+        net.reset_accounting()
+        op = net.begin_op(at=0.0)
+        try:
+            return fn(*args, **kw)
+        finally:
+            net.end_op()
+            out["s"] = op.us / 1e6
+    return call
+
+
+def _host_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no MemAvailable in /proc/meminfo")
 
 
 def _digests(trainer) -> dict:
@@ -1410,7 +1447,8 @@ def _train_timed(trainer, n: int) -> list:
 
 
 def phase_trainer():
-    """(g): crash and resume through Trainer, held bit for bit to a run without."""
+    """(g): crash and resume through Trainer on the port's CFS, held bit for bit
+    to a run without."""
     full = get_arch(TRAIN_ARCH)
     cfg = dataclasses.replace(full, n_layers=TRAINER_LAYERS)
     ckpt_bytes = cfg.param_count() * (2 + 3 * 4)   # bf16 params; fp32 master, mu, nu
@@ -1418,72 +1456,94 @@ def phase_trainer():
            f"{ckpt_bytes / 1e9:.1f} GB")
     log(f"(g) training {TRAIN_ARCH} through the Trainer, with a crash and a resume; {cut}")
     torch.cuda.reset_peak_memory_stats()
-    parent = ROOT / "build"
-    parent.mkdir(exist_ok=True)
-    free = shutil.disk_usage(parent).free
-    if free < DISK_MARGIN * ckpt_bytes:
-        raise AssertionError(f"{free / 1e9:.1f} GB free under {parent}, under {DISK_MARGIN} x "
-                             f"the {ckpt_bytes / 1e9:.1f} GB checkpoint")
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_volume_", dir=parent))
+    host_free = _host_available()
+    if host_free < HOST_MARGIN * ckpt_bytes:
+        raise AssertionError(f"{host_free / 1e9:.1f} GB of host memory available, under "
+                             f"{HOST_MARGIN} x the {ckpt_bytes / 1e9:.1f} GB checkpoint")
+    disk = TRAINER_DISK_BYTES
+    while disk < ckpt_bytes + TRAINER_DATA_BYTES:
+        disk *= 2
+    disk_cut = None if disk == TRAINER_DISK_BYTES else (
+        f"data disks of {disk >> 30} GiB in place of build_cluster's "
+        f"{TRAINER_DISK_BYTES >> 30} GiB, which the checkpoint's replicas overflow")
+    cluster = build_cluster(data_disk_capacity=disk)
+    data_nodes = list(cluster.data_nodes.values())
+    mnt = cluster.mount("train")
+    write_dataset(mnt, cfg.vocab)
+    # the datapipe on a client of its own: its counters are the datapipe's reads
+    reader_mnt = cluster.mount("train")
+    reader = ShardReader(reader_mnt, "/data", rank=0, world=1, batch=TRAIN_B,
+                         seq_len=TRAIN_T)
+    reads_before = dict(reader_mnt.client.stats)
+    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=TRAINER_CRASH_AT + 1)
+
+    def trainer(ckpt_every: int) -> Trainer:
+        tc = TrainerConfig(ckpt_every=ckpt_every, max_steps=TRAINER_CRASH_AT)
+        return Trainer(cfg, oc, tc, mnt, reader, seed=0, param_dtype=torch.bfloat16,
+                       device="cuda")
+
+    reset_launches()
+    # run U: TRAINER_CRASH_AT steps, no checkpoint
+    t_u = trainer(ckpt_every=TRAINER_CRASH_AT + 1)
+    n_params = sum(p.numel() for _, p in opt.flatten_with_paths(t_u.params))
+    steps_u = _train_timed(t_u, TRAINER_CRASH_AT)
+    digests_u = _digests(t_u)
+    for path, leaf in opt.flatten_with_paths(t_u.params):
+        words = leaf.reshape(-1).view(torch.int32)
+        if ref.checksum(words).tolist() != digests_u["~".join(("params", *path))]:
+            raise AssertionError(f"checksum kernel vs plain on params {path}")
+    step_u = int(t_u.opt_state.step)
+    del t_u
+    free_device_memory()
+
+    # run C: saves step TRAINER_CKPT_EVERY, crashes after step TRAINER_CRASH_AT
+    t_c = trainer(ckpt_every=TRAINER_CKPT_EVERY)
+    save_clock: dict = {}
+    t_c.ckpt.save = _on_the_clock(cluster, t_c.ckpt.save, save_clock)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     try:
-        mnt = LocalMount(root)
-        write_dataset(mnt, cfg.vocab)
-        reader = ShardReader(mnt, "/data", rank=0, world=1, batch=TRAIN_B, seq_len=TRAIN_T)
-        oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=TRAINER_CRASH_AT + 1)
+        t_c.train(TRAINER_CRASH_AT, crash_at=TRAINER_CRASH_AT)
+    except RuntimeError as e:
+        if f"injected trainer crash at step {TRAINER_CRASH_AT}" not in str(e):
+            raise
+    else:
+        raise AssertionError("run C did not crash")
+    run_c_s = time.perf_counter() - t0
+    if t_c.ckpt.list_steps() != [TRAINER_CKPT_EVERY]:
+        raise AssertionError(f"checkpoints after the crash: {t_c.ckpt.list_steps()}")
+    save = _io_report(t_c.ckpt.last_io, save_clock)
+    log(f"  run C crashed after step {TRAINER_CRASH_AT} ({run_c_s:.1f} s); "
+        f"save {json.dumps(save)}")
+    del t_c
+    free_device_memory()
 
-        def trainer(ckpt_every: int) -> Trainer:
-            tc = TrainerConfig(ckpt_every=ckpt_every, max_steps=TRAINER_CRASH_AT)
-            return Trainer(cfg, oc, tc, mnt, reader, seed=0, param_dtype=torch.bfloat16,
-                           device="cuda")
-
-        reset_launches()
-        # run U: TRAINER_CRASH_AT steps, no checkpoint
-        t_u = trainer(ckpt_every=TRAINER_CRASH_AT + 1)
-        n_params = sum(p.numel() for _, p in opt.flatten_with_paths(t_u.params))
-        steps_u = _train_timed(t_u, TRAINER_CRASH_AT)
-        digests_u = _digests(t_u)
-        for path, leaf in opt.flatten_with_paths(t_u.params):
-            words = leaf.reshape(-1).view(torch.int32)
-            if ref.checksum(words).tolist() != digests_u["~".join(("params", *path))]:
-                raise AssertionError(f"checksum kernel vs plain on params {path}")
-        step_u = int(t_u.opt_state.step)
-        del t_u
-        free_device_memory()
-
-        # run C: saves step TRAINER_CKPT_EVERY, crashes after step TRAINER_CRASH_AT
-        t_c = trainer(ckpt_every=TRAINER_CKPT_EVERY)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            t_c.train(TRAINER_CRASH_AT, crash_at=TRAINER_CRASH_AT)
-        except RuntimeError as e:
-            if f"injected trainer crash at step {TRAINER_CRASH_AT}" not in str(e):
-                raise
-        else:
-            raise AssertionError("run C did not crash")
-        run_c_s = time.perf_counter() - t0
-        if t_c.ckpt.list_steps() != [TRAINER_CKPT_EVERY]:
-            raise AssertionError(f"checkpoints after the crash: {t_c.ckpt.list_steps()}")
-        save = _io_report(t_c.ckpt.last_io)
-        log(f"  run C crashed after step {TRAINER_CRASH_AT} ({run_c_s:.1f} s); "
-            f"save {json.dumps(save)}")
-        del t_c
-        free_device_memory()
-
-        # resume: a fresh Trainer restores step TRAINER_CKPT_EVERY and trains on
-        t_r = trainer(ckpt_every=TRAINER_CRASH_AT + 1)
-        if not t_r.resume() or t_r.step != TRAINER_CKPT_EVERY:
-            raise AssertionError(f"resume: step {t_r.step}")
-        restore = _io_report(t_r.ckpt.last_io)
-        log(f"  restored step {t_r.step}: {json.dumps(restore)}")
-        steps_r = _train_timed(t_r, TRAINER_CRASH_AT - TRAINER_CKPT_EVERY)
-        digests_r = _digests(t_r)
-        step_r = int(t_r.opt_state.step)
-        counts = launches()
-        del t_r
-        free_device_memory()
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # resume: a fresh Trainer restores step TRAINER_CKPT_EVERY and trains on
+    t_r = trainer(ckpt_every=TRAINER_CRASH_AT + 1)
+    restore_clock: dict = {}
+    t_r.ckpt.restore = _on_the_clock(cluster, t_r.ckpt.restore, restore_clock)
+    if not t_r.resume() or t_r.step != TRAINER_CKPT_EVERY:
+        raise AssertionError(f"resume: step {t_r.step}")
+    restore = _io_report(t_r.ckpt.last_io, restore_clock)
+    log(f"  restored step {t_r.step}: {json.dumps(restore)}")
+    steps_r = _train_timed(t_r, TRAINER_CRASH_AT - TRAINER_CKPT_EVERY)
+    digests_r = _digests(t_r)
+    step_r = int(t_r.opt_state.step)
+    counts = launches()
+    del t_r
+    free_device_memory()
+    reads = {k: reader_mnt.client.stats[k] - reads_before[k]
+             for k in ("data_calls", "hedged_reads", "retries")}
+    report = fsck(cluster, "train")
+    if not report.clean:
+        raise AssertionError(f"fsck of volume train after the resume: {report}")
+    disks = {n.node_id: n.disk.used / n.disk.capacity for n in data_nodes}
+    files = {"inodes": report.inodes_scanned, "dentries": report.dentries_scanned}
+    log(f"  fsck clean ({json.dumps(files)}); datapipe reads {json.dumps(reads)}; "
+        f"data disks used {json.dumps(disks)}")
+    disk_gb = data_nodes[0].disk.capacity / 1e9
+    del cluster, data_nodes, mnt, reader, reader_mnt, trainer    # frees the volume's replicas
+    gc.collect()
 
     differ = sorted(k for k in digests_u if digests_r.get(k) != digests_u[k])
     if differ or step_r != step_u or digests_r.keys() != digests_u.keys():
@@ -1498,7 +1558,12 @@ def phase_trainer():
     trainer_res = {
         "arch": TRAIN_ARCH, "layers": cfg.n_layers, "cut": cut, "params": n_params,
         "batch": TRAIN_B, "seq": TRAIN_T, "ckpt_every": TRAINER_CKPT_EVERY,
-        "crash_at": TRAINER_CRASH_AT, "disk_free_gb": free / 1e9, "steps_u": steps_u,
+        "crash_at": TRAINER_CRASH_AT, "host_available_gb": host_free / 1e9,
+        "cluster": {"build": "launch.train.build_cluster", "n_meta": 4, "n_data": 6,
+                    "data_disk_gb": disk_gb,
+                    "extent_max_bytes": 1024 * 1024, "replicas": 3, "cut": disk_cut,
+                    "data_disks_used": disks, "fsck_clean": True, **files},
+        "datapipe_reads": reads, "steps_u": steps_u,
         "steps_resumed": steps_r, "run_c_s": run_c_s,
         "step_ms_steady_u": sum(steady) / len(steady), "save": save, "restore": restore,
         "launches": counts, "train_steps": n_steps, "leaves_digested": len(digests_u),

@@ -1,12 +1,14 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [--device cuda|cpu]``.
 
-Trains the reduced configuration of ``--arch`` end to end: writes a token
-dataset into a volume on a local directory (``--root``; by default a fresh
-temporary directory, removed at exit), trains through ``Trainer`` with
-checkpoints on that volume, and, with ``--crash-at``, injects a crash and
+Trains the reduced configuration of ``--arch`` end to end through the
+port's CFS: builds a simulated cluster (``build_cluster``, the reference's
+deployment: 4 meta nodes, 6 data nodes, 1 MiB extents, volume ``train`` of
+3 meta and 8 data partitions), writes a token dataset into its volume,
+trains through ``Trainer`` with its checkpoints on that volume and its
+shards read by hedged reads, and, with ``--crash-at``, injects a crash and
 resumes from the last checkpoint.  The same flags as
-``repro.launch.train``, plus ``--device`` and ``--root``.  Every family
-trains (``--arch rwkv6-1.6b`` and ``--arch zamba2-7b`` through their scans'
+``repro.launch.train``, plus ``--device``.  Every family trains
+(``--arch rwkv6-1.6b`` and ``--arch zamba2-7b`` through their scans'
 backward kernels on the card).
 """
 
@@ -14,15 +16,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import tempfile
 from typing import List, Optional
 
 import numpy as np
 
 from ..configs import ARCH_NAMES, get_arch
 from ..configs.base import ArchConfig
+from ..core import CfsCluster
 from ..storage.datapipe import ShardReader, ShardWriter
-from ..storage.volume import LocalMount
 from ..train import optimizer as opt
 from ..train.trainer import Trainer, TrainerConfig
 
@@ -38,6 +39,15 @@ def reduced_config(arch: str, device: str) -> ArchConfig:
     return cfg
 
 
+def build_cluster(data_disk_capacity: int = 4 * 1024 * 1024 * 1024) -> CfsCluster:
+    """The reference's training cluster, with volume ``train``; only the data
+    disks' capacity may be raised, for a checkpoint larger than they hold."""
+    c = CfsCluster(n_meta=4, n_data=6, extent_max_size=1024 * 1024,
+                   data_disk_capacity=data_disk_capacity)
+    c.create_volume("train", n_meta_partitions=3, n_data_partitions=8)
+    return c
+
+
 def write_dataset(mnt, vocab: int, n_docs: int = 8) -> None:
     """Arithmetic token sequences, (start + 3 i) mod min(vocab, 97), as the
     reference writes them."""
@@ -49,11 +59,11 @@ def write_dataset(mnt, vocab: int, n_docs: int = 8) -> None:
     w.finish()
 
 
-def run(args, root: str) -> Trainer:
+def run(args) -> Trainer:
     cfg = reduced_config(args.arch, args.device)
     print(f"arch={cfg.name} (reduced: {cfg.n_layers}L d={cfg.d_model}) on {args.device}, "
-          f"volume {root}")
-    mnt = LocalMount(root)
+          f"volume train of a CFS cluster")
+    mnt = build_cluster().mount("train")
     write_dataset(mnt, cfg.vocab)
     oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=5, total_steps=args.steps)
     tc = TrainerConfig(ckpt_every=args.ckpt_every, max_steps=args.steps)
@@ -86,13 +96,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     ap.add_argument("--crash-at", type=int, default=None,
                     help="inject a crash at this step, then resume")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--root", default=None,
-                    help="the volume's directory (default: a fresh temporary one)")
-    args = ap.parse_args(argv)
-    if args.root is not None:
-        return run(args, args.root)
-    with tempfile.TemporaryDirectory(prefix="repro_torch_volume_") as root:
-        return run(args, root)
+    return run(ap.parse_args(argv))
 
 
 if __name__ == "__main__":

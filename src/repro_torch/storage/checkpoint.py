@@ -38,7 +38,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .volume import NotFound
+from ..core.client import NotFound
 
 __all__ = ["CheckpointManager", "tensor_to_bytes", "bytes_to_tensor"]
 

@@ -8,9 +8,11 @@ Mirrors ``repro.storage.datapipe``, with the same files:
   drawn once from ``RandomState(seed)``, and addresses a batch by its step,
   so a restarted trainer replays the same batches.
 
-The reference reads a shard with a hedged read that races the volume's
-replicas (``hedged_read_file``); a local directory has no replicas, so a
-shard is read whole with ``read_file``.
+On a CFS volume (``core.fs.CfsMount``) a shard is read as the reference
+reads it, by ``hedged_read_file``: the client's ``read_extents`` races the
+next replica against an attempt whose modeled latency passes ``hedge_us``,
+and only the winner is charged.  A ``LocalMount`` has no replicas, so there
+a shard is read whole with ``read_file``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,10 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
-__all__ = ["ShardWriter", "ShardReader"]
+from ..core.client import NotFound
+from ..core.fs import CfsMount
+
+__all__ = ["ShardWriter", "ShardReader", "hedged_read_file"]
 
 
 class ShardWriter:
@@ -58,17 +63,29 @@ class ShardWriter:
         return self._n
 
 
+def hedged_read_file(mount: CfsMount, path: str, hedge_us: float = 2_000.0) -> bytes:
+    """The whole file at ``path``, read through the client's hedged
+    ``read_extents``; the winning replica lands in its read-affinity map."""
+    client = mount.client
+    _, _, dentry = mount._resolve(path)
+    if dentry is None:
+        raise NotFound(path)
+    inode = client.get_inode(dentry["inode"])
+    return client.read_extents(inode, 0, inode["size"], hedge_us=hedge_us)
+
+
 class ShardReader:
     """Deterministic per-rank batches: ``batch_at(step)`` is the same on every call."""
 
     def __init__(self, mount, base: str, rank: int, world: int, batch: int,
-                 seq_len: int, seed: int = 0):
+                 seq_len: int, hedge_us: float = 2_000.0, seed: int = 0):
         self.mnt = mount
         self.base = base
         self.rank = rank
         self.world = world
         self.batch = batch
         self.seq_len = seq_len
+        self.hedge_us = hedge_us
         meta = json.loads(mount.read_file(f"{base}/META").decode())
         self.n_shards = meta["shards"]
         self.tokens_per_shard = meta["tokens_per_shard"]
@@ -78,6 +95,11 @@ class ShardReader:
 
     def my_shards(self) -> List[int]:
         return [s for i, s in enumerate(self._order) if i % self.world == self.rank]
+
+    def _read(self, path: str) -> bytes:
+        if isinstance(self.mnt, CfsMount):
+            return hedged_read_file(self.mnt, path, self.hedge_us)
+        return self.mnt.read_file(path)
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
         """{"tokens", "labels"}: int32 [batch, seq_len], the labels shifted by one."""
@@ -89,7 +111,7 @@ class ShardReader:
         offset = (step * need) % self.tokens_per_shard
         while got < need:
             sid = shards[cursor % len(shards)]
-            raw = self.mnt.read_file(f"{self.base}/shard_{sid:05d}.tok")
+            raw = self._read(f"{self.base}/shard_{sid:05d}.tok")
             arr = np.frombuffer(raw, dtype=self.dtype)[offset:]
             toks.append(arr[: need - got])
             got += len(toks[-1])

@@ -1,6 +1,6 @@
-"""A volume on a local directory, in place of a mounted CFS volume.
+"""A volume on a local directory, beside a mounted CFS volume (``core.fs.CfsMount``).
 
-``repro.storage`` reads and writes through seven methods of a CFS mount:
+The storage layer reads and writes through seven methods of a CFS mount:
 ``exists``, ``mkdir``, ``write_file``, ``read_file``, ``readdir``,
 ``unlink`` and ``rmdir``.  ``LocalMount`` implements those seven over a
 root directory: the volume path ``/ckpt/step_2/MANIFEST`` is the file
@@ -8,8 +8,9 @@ root directory: the volume path ``/ckpt/step_2/MANIFEST`` is the file
 (the file and its directory entry are fsynced), so the checkpoint's
 commit order (tensor files, then MANIFEST, then LATEST) holds across a
 crash.  Errors are the operating system's, except that ``read_file`` of a
-missing path raises ``NotFound``, as ``repro.core.client.NotFound`` is
-raised there.
+missing path raises ``NotFound``: the class that the port's CFS mount
+raises (``core.client.NotFound``, a ``FileNotFoundError``), so code on
+either mount catches one class.
 """
 
 from __future__ import annotations
@@ -18,11 +19,9 @@ import os
 from pathlib import Path
 from typing import List
 
+from ..core.client import NotFound
+
 __all__ = ["LocalMount", "NotFound"]
-
-
-class NotFound(FileNotFoundError):
-    """No file at a volume path."""
 
 
 class LocalMount:

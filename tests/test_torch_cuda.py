@@ -653,20 +653,19 @@ def test_trainer_crash_and_resume_on_cuda_is_bit_exact(cuda, tmp_path, monkeypat
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["minicpm-2b", "rwkv6-1.6b", "zamba2-7b"])
-def test_launch_train_crash_and_resume_on_cuda(cuda, tmp_path, capsys, arch, monkeypatch):
-    """The training launcher on the card, every family: a crash after step 3 and a
-    resume from the step-2 checkpoint match a straight run bit for bit (rwkv6 and
-    zamba2 train through the scans' backward kernels, at their head size of 64;
-    5 steps straight, 3 crashed and 3 resumed: 11 backward launches a layer)."""
+def test_launch_train_crash_and_resume_on_cuda(cuda, capsys, arch, monkeypatch):
+    """The training launcher on the card, every family, each run on a CFS
+    cluster of its own: a crash after step 3 and a resume from the step-2
+    checkpoint match a straight run bit for bit (rwkv6 and zamba2 train through
+    the scans' backward kernels, at their head size of 64; 5 steps straight, 3
+    crashed and 3 resumed: 11 backward launches a layer)."""
     from repro_torch.launch import train as launch_train
     for fn in (wkv6_bwd, ssd_bwd):
         monkeypatch.setattr(fn, "launches", 0)
     common = ["--device", "cuda", "--steps", "5", "--ckpt-every", "2", "--seq", "64",
               "--arch", arch]
-    (tmp_path / "a").mkdir()
-    (tmp_path / "b").mkdir()
-    whole = launch_train.main(common + ["--root", str(tmp_path / "a")])
-    resumed = launch_train.main(common + ["--root", str(tmp_path / "b"), "--crash-at", "3"])
+    whole = launch_train.main(common)
+    resumed = launch_train.main(common + ["--crash-at", "3"])
     out = capsys.readouterr().out
     assert "injected trainer crash at step 3" in out and "resumed at step 2" in out
     assert resumed.history == whole.history[2:]

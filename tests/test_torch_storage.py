@@ -1,12 +1,13 @@
 """The port's storage (``repro_torch.storage``) against ``repro.storage``, on the CPU.
 
-The port's volume is a local directory (``LocalMount``); the reference's is
-a simulated CFS volume.  Checkpoint files cross between the two byte for
-byte, and each package restores the other's bit for bit.  The six tests of
-``tests/test_storage_training.py`` that do not need replicas are ported
-below.  ``test_hedged_read_avoids_straggler`` is not: it races the CFS
-volume's replicas against a straggler, and a local directory has no
-replicas, so the port reads a shard with a plain ``read_file``.
+The port's volume is a volume of the port's own copy of the CFS cluster
+(``repro_torch.core``, built by ``repro_torch.launch.train.build_cluster``)
+or a local directory (``LocalMount``); the reference's is a volume of the
+reference's cluster.  Checkpoint files cross between the packages byte for
+byte, and each package restores the other's bit for bit.  The six ported
+tests of ``tests/test_storage_training.py`` run on both of the port's
+mounts (``cfs`` and ``local``); ``test_hedged_read_avoids_straggler`` races
+the port's cluster's replicas against a straggler, as the reference's does.
 """
 
 import os
@@ -25,8 +26,9 @@ from repro.storage.datapipe import ShardReader as JaxShardReader
 from repro.storage.datapipe import ShardWriter as JaxShardWriter
 from repro_torch import interop
 from repro_torch.configs import get_arch as torch_get_arch
+from repro_torch.launch.train import build_cluster
 from repro_torch.storage.checkpoint import CheckpointManager, bytes_to_tensor, tensor_to_bytes
-from repro_torch.storage.datapipe import ShardReader, ShardWriter
+from repro_torch.storage.datapipe import ShardReader, ShardWriter, hedged_read_file
 from repro_torch.storage.volume import LocalMount, NotFound
 from repro_torch.train import optimizer as opt
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -51,10 +53,41 @@ def _write(writer_cls, mnt, base):
 
 
 @pytest.fixture(scope="module")
-def data_volume(tmp_path_factory):
-    mnt = LocalMount(tmp_path_factory.mktemp("volume"))
+def port_cluster():
+    return build_cluster()
+
+
+MOUNTS = ["cfs", "local"]
+
+
+@pytest.fixture(params=MOUNTS)
+def mount(request, port_cluster, tmp_path):
+    """A fresh mount of the port's cluster's volume, or of a local directory."""
+    return port_cluster.mount("train") if request.param == "cfs" else LocalMount(tmp_path)
+
+
+@pytest.fixture(scope="module", params=MOUNTS)
+def data_volume(request, port_cluster, tmp_path_factory):
+    if request.param == "cfs":
+        mnt = port_cluster.mount("train")
+    else:
+        mnt = LocalMount(tmp_path_factory.mktemp("volume"))
     _write(ShardWriter, mnt, "/data")
     return mnt
+
+
+def _corrupt(mnt, path: str, offset: int, data: bytes) -> None:
+    """Overwrite bytes of a file in place: on CFS through the normal write
+    path, so on every replica, as the reference's test does."""
+    if isinstance(mnt, LocalMount):
+        with open(mnt._host(path), "r+b") as f:
+            f.seek(offset)
+            f.write(data)
+    else:
+        f = mnt.open(path, "r+")
+        f.seek(offset)
+        f.write(data)
+        f.close()
 
 
 def make_trainer(mnt, base="/ckpt", seed=0):
@@ -249,20 +282,18 @@ def test_checkpoint_crash_safety(data_volume):
     assert t2.step == 3          # torn step-5 ckpt invisible (no MANIFEST)
 
 
-def test_checkpoint_detects_corruption(tmp_path):
-    mnt = LocalMount(tmp_path)
+def test_checkpoint_detects_corruption(mount):
+    mnt = mount
     cm = CheckpointManager(mnt, "/ck_d", shards=2)
     cm.save(1, {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8)})
-    name = [n for n in mnt.readdir("/ck_d/step_1") if n != "MANIFEST"][0]
-    with open(tmp_path / "ck_d" / "step_1" / name, "r+b") as f:
-        f.seek(20)
-        f.write(b"\xff\xff\xff")
+    name = sorted(n for n in mnt.readdir("/ck_d/step_1") if n != "MANIFEST")[0]
+    _corrupt(mnt, f"/ck_d/step_1/{name}", 20, b"\xff\xff\xff")
     with pytest.raises(IOError, match="checksum mismatch"):
         cm.restore({"w": torch.zeros((8, 8))})
 
 
-def test_elastic_restore_different_shard_count(tmp_path):
-    mnt = LocalMount(tmp_path)
+def test_elastic_restore_different_shard_count(mount):
+    mnt = mount
     emb = torch.from_numpy(np.random.RandomState(3).randn(16, 8).astype(np.float32))
     CheckpointManager(mnt, "/ck_e", shards=4).save(7, {"emb": emb})
     assert len(mnt.readdir("/ck_e/step_7")) == 5             # 4 shards + MANIFEST
@@ -285,13 +316,15 @@ def test_datapipe_deterministic_batches(cluster, data_volume):
 
     # the same dataset on a CFS volume, written and read by the reference
     mnt = cluster.mount("train")
-    mnt.mkdir("/pipe")
-    assert _write(JaxShardWriter, mnt, "/pipe/data") == 6
-    assert _volume_files(mnt, "/pipe/data") == {
-        p.replace("/data", "/pipe/data"): b for p, b in _volume_files(data_volume, "/data").items()}
+    pipe = "/pipe_local" if isinstance(data_volume, LocalMount) else "/pipe_cfs"
+    mnt.mkdir(pipe)
+    assert _write(JaxShardWriter, mnt, f"{pipe}/data") == 6
+    assert _volume_files(mnt, f"{pipe}/data") == {
+        p.replace("/data", f"{pipe}/data"): b
+        for p, b in _volume_files(data_volume, "/data").items()}
     for rank, world, seed in ((0, 1, 0), (1, 2, 0), (0, 2, 5)):
         mine = ShardReader(data_volume, "/data", rank, world, batch=3, seq_len=50, seed=seed)
-        ref = JaxShardReader(mnt, "/pipe/data", rank, world, batch=3, seq_len=50, seed=seed)
+        ref = JaxShardReader(mnt, f"{pipe}/data", rank, world, batch=3, seq_len=50, seed=seed)
         assert mine.my_shards() == ref.my_shards()
         for step in (0, 1, 7, 40):
             got, want = mine.batch_at(step), ref.batch_at(step)
@@ -326,8 +359,10 @@ def test_reference_keeps_a_torn_checkpoint_for_good(cluster):
     assert mnt.exists("/torn_jax/step_5") and cm.list_steps() == [9, 11]
 
 
-def test_port_rewrites_and_collects_a_torn_checkpoint(tmp_path):
-    mnt = LocalMount(tmp_path)
+def test_port_rewrites_and_collects_a_torn_checkpoint(mount):
+    """On CFS the clearing runs against its directory semantics: ``rmdir``
+    of a directory that still holds a file is ``DirNotEmpty``."""
+    mnt = mount
     tree = {"a": torch.ones((4, 2)), "b": torch.zeros(4)}
     cm = _torn_save(CheckpointManager, mnt, "/torn", tree)
     cm.save(5, tree)                              # cleared and written again
@@ -341,3 +376,78 @@ def test_port_rewrites_and_collects_a_torn_checkpoint(tmp_path):
         cm.save(6, tree, crash_after=1)
     cm.save(7, tree)
     assert not mnt.exists("/torn/step_6") and cm.list_steps() == [5, 7]
+
+
+# ---------------------------------------------------------------- the port's CFS
+
+def test_latest_step_on_a_fresh_mount_is_none(mount):
+    """Both mounts raise one ``NotFound`` (a ``FileNotFoundError``), which the
+    checkpoint catches: a fresh volume has no latest step, and restoring
+    from it raises that class."""
+    with pytest.raises(NotFound) as err:
+        mount.read_file("/nothing_here")
+    assert isinstance(err.value, FileNotFoundError)
+    cm = CheckpointManager(mount, "/ck_fresh")
+    assert cm.latest_step() is None and cm.list_steps() == []
+    with pytest.raises(NotFound, match="no checkpoint"):
+        cm.restore({"w": torch.zeros(2)})
+
+
+def test_hedged_read_avoids_straggler(port_cluster, data_volume):
+    """``tests/test_storage_training.py``'s case on the port's cluster: a read
+    whose modeled latency on the leader passes the budget races the next
+    replica, the fast replica wins the read affinity, and the write-leader
+    cache keeps the true leader."""
+    mnt = port_cluster.mount("train")
+    mnt.write_file("/hedge.bin", b"z" * 4096)
+    pid = mnt.stat("/hedge.bin")["extents"][0][0]
+    leader = mnt.client._dp(pid).replicas[0]
+    port_cluster.net.set_straggler(leader, 50_000.0)
+    mnt.client.leader_cache[f"dp{pid}"] = leader
+    port_cluster.net.begin_op()
+    try:
+        data = hedged_read_file(mnt, "/hedge.bin", hedge_us=5_000.0)
+    finally:
+        cost = port_cluster.net.end_op().us
+        port_cluster.net.set_straggler(leader, 0.0)
+    assert data == b"z" * 4096
+    assert cost < 50_000.0, f"hedge failed to dodge the straggler: {cost}us"
+    assert mnt.client.stats["hedged_reads"] == 1
+    assert mnt.client.read_affinity[f"dp{pid}"] != leader
+    assert mnt.client.leader_cache[f"dp{pid}"] == leader
+    with pytest.raises(NotFound):
+        hedged_read_file(mnt, "/no_such.bin")
+
+
+def test_shard_reader_reads_cfs_shards_through_the_hedged_path(port_cluster):
+    mnt = port_cluster.mount("train")
+    _write(ShardWriter, mnt, "/hedged_data")
+    reader = ShardReader(mnt, "/hedged_data", 0, 1, batch=2, seq_len=16)
+    calls = mnt.client.stats["data_calls"]
+    reader.batch_at(3)
+    assert mnt.client.stats["data_calls"] > calls       # read_extents, not read_file
+
+
+def test_checkpoints_are_the_same_bytes_on_both_clusters(cluster, port_cluster):
+    """The reference's CheckpointManager on the reference's cluster and the
+    port's on the port's write the same bytes to every file; each package
+    then restores the other's checkpoint, from its own cluster, bit for bit."""
+    state = _state_numpy(2)
+    ref_mnt, port_mnt = cluster.mount("train"), port_cluster.mount("train")
+    JaxCheckpointManager(ref_mnt, "/x_both", shards=2).save(5, state)
+    CheckpointManager(port_mnt, "/x_both", shards=2).save(5, interop.to_torch(state, "cpu"))
+    ref_files, port_files = _volume_files(ref_mnt, "/x_both"), _volume_files(port_mnt, "/x_both")
+    assert len(ref_files) > 10 and port_files == ref_files
+
+    _copy_files({p.replace("/x_both", "/x_from_ref"): b for p, b in ref_files.items()},
+                port_mnt)
+    restored, step = CheckpointManager(port_mnt, "/x_from_ref", shards=2).restore(
+        _zeros_like_torch(state))
+    assert step == 5
+    _assert_bit_equal(restored, state)
+    _copy_files({p.replace("/x_both", "/x_from_port"): b for p, b in port_files.items()},
+                ref_mnt)
+    restored, step = JaxCheckpointManager(ref_mnt, "/x_from_port", shards=2).restore(
+        jax.tree.map(np.zeros_like, state))
+    assert step == 5
+    _assert_bit_equal(restored, state)

@@ -1,7 +1,9 @@
 """The port's Trainer and training launcher against the JAX package, on the CPU.
 
-The JAX Trainer trains on a simulated CFS volume, the port's on a local
-directory; both volumes hold the same dataset, written by each package's
+The JAX Trainer trains on a volume of the reference's simulated CFS
+cluster, the port's on a volume of the port's own copy of it (built by
+``repro_torch.launch.train.build_cluster``, as the launcher builds it);
+both volumes hold the same dataset, written by each package's
 ``ShardWriter``.  The port's Trainer starts from the JAX Trainer's initial
 parameters (carried across with ``repro_torch.interop``), assigned after
 construction.
@@ -22,6 +24,7 @@ from repro.train.trainer import TrainerConfig as JaxTrainerConfig
 from repro_torch import interop
 from repro_torch.configs import get_arch as torch_get_arch
 from repro_torch.launch import train as launch_train
+from repro_torch.core import CfsMount
 from repro_torch.storage.datapipe import ShardReader
 from repro_torch.storage.volume import LocalMount
 from repro_torch.train import optimizer as topt
@@ -30,7 +33,7 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 STEPS = 10
 
 
-def test_trainer_matches_jax_over_ten_steps(tmp_path):
+def test_trainer_matches_jax_over_ten_steps():
     """Reduced minicpm-2b, fp32 params with fp32 master weights, WSD: the
     loss and the grad norm of every step within 1e-4 (relative).  Both are
     fp32 and differ only in the order of summation; over 10 AdamW steps
@@ -39,7 +42,7 @@ def test_trainer_matches_jax_over_ten_steps(tmp_path):
     cluster = CfsCluster(n_meta=4, n_data=6, extent_max_size=1024 * 1024,
                          data_disk_capacity=1024 * 1024 * 1024)
     cluster.create_volume("train", n_meta_partitions=3, n_data_partitions=8)
-    jmnt, tmnt = cluster.mount("train"), LocalMount(tmp_path)
+    jmnt, tmnt = cluster.mount("train"), launch_train.build_cluster().mount("train")
     jcfg, tcfg = get_arch("minicpm-2b").reduced(), torch_get_arch("minicpm-2b").reduced()
     jax_write_dataset(jmnt, jcfg.vocab)
     launch_train.write_dataset(tmnt, tcfg.vocab)
@@ -67,6 +70,16 @@ def test_trainer_matches_jax_over_ten_steps(tmp_path):
     assert tt.ckpt.list_steps() == [6, 9] == jt.ckpt.list_steps()
 
 
+def test_build_cluster_is_the_references():
+    """The launcher's cluster is the reference's launcher's, state for state:
+    every raft member, partition, disk and the RM's tables."""
+    import torch_core_parity as tp
+    from repro.launch.train import build_cluster as jax_build_cluster
+    tp.align_serials()
+    tp.assert_same([tp.fingerprint(jax_build_cluster())],
+                   [tp.fingerprint(launch_train.build_cluster())])
+
+
 def test_state_tree_is_the_reference_tree(tmp_path):
     """The checkpointed leaves: params, mu, nu, master and step, by name."""
     cfg = torch_get_arch("minicpm-2b").reduced()
@@ -82,42 +95,47 @@ def test_state_tree_is_the_reference_tree(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "rwkv6-1.6b", "zamba2-7b"])
-def test_launch_train_crash_and_resume_on_cpu(tmp_path, capsys, arch):
+def test_launch_train_crash_and_resume_on_cpu(capsys, arch):
     """``--crash-at 3`` with ``--ckpt-every 2``: the run crashes after step 3,
     resumes from the step-2 checkpoint and finishes; steps 3 to 6 and the
     final params match an uninterrupted run bit for bit.  The default arch, and
     the ssm and hybrid families, whose scans' backward runs here through their
-    plain chunked forms."""
-    (tmp_path / "a").mkdir()
-    (tmp_path / "b").mkdir()
+    plain chunked forms.  Each run has a cluster of its own."""
     common = ["--device", "cpu", "--steps", "6", "--ckpt-every", "2", "--seq", "16",
               "--arch", arch]
-    whole = launch_train.main(common + ["--root", str(tmp_path / "a")])
+    whole = launch_train.main(common)
     capsys.readouterr()
-    resumed = launch_train.main(common + ["--root", str(tmp_path / "b"), "--crash-at", "3"])
+    resumed = launch_train.main(common + ["--crash-at", "3"])
     out = capsys.readouterr().out
     assert f"arch={arch}" in out
     assert "injected trainer crash at step 3" in out and "resumed at step 2" in out
     assert "checkpoints on volume: [4, 6]" in out
     assert resumed.step == whole.step == 6
+    assert resumed.ckpt.mnt is not whole.ckpt.mnt
     assert resumed.history == whole.history[2:]
     for (path, a), (_, b) in zip(topt.flatten_with_paths(resumed.params),
                                  topt.flatten_with_paths(whole.params)):
         assert torch.equal(a, b), path
 
 
-def test_launch_train_default_volume_is_temporary(capsys):
+def test_launch_train_default_volume_is_temporary(capsys, tmp_path, monkeypatch):
+    """The launcher's volume is volume ``train`` of a cluster it builds in
+    memory: nothing is written to the working directory."""
+    monkeypatch.chdir(tmp_path)
     trainer = launch_train.main(["--device", "cpu", "--steps", "2", "--ckpt-every", "1",
                                  "--seq", "8", "--arch", "mixtral-8x22b"])
     out = capsys.readouterr().out
     assert "arch=mixtral-8x22b" in out and "checkpoints on volume: [1, 2]" in out
-    assert not trainer.ckpt.mnt.root.exists()
+    mnt = trainer.ckpt.mnt
+    assert isinstance(mnt, CfsMount) and mnt.client.volume == "train"
+    assert sorted(mnt.readdir("/ckpt")) == ["LATEST", "step_1", "step_2"]
+    assert list(tmp_path.iterdir()) == []
 
 
-def test_cuda_trainer_without_a_card_raises(monkeypatch, tmp_path):
+def test_cuda_trainer_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        launch_train.main(["--root", str(tmp_path), "--steps", "1"])
+        launch_train.main(["--steps", "1"])
 
 
 def test_reduced_config_takes_the_scan_kernels_sizes_on_the_card():
