@@ -132,11 +132,24 @@ Phases, each fatal on failure:
       operator adds to a call, and, after every timed phase,
       ``python -m repro_torch.launch.dryrun`` on two production cells
       (``DRYRUN_CELLS``, 256 fake ranks) in subprocesses that see no card;
+  (l) host work, run first after the build: (l1) the port's determinism lint
+      (``repro_torch.analysis.lint``) over its shipped tree, fatal unless it
+      exits 0 with no grandfathered key; (l2) the paper's seven metadata
+      operations (mdtest's DirCreation, DirStat, DirRemoval, FileCreation,
+      FileRemoval, TreeCreation, TreeRemoval, ``benchmarks/mdtest.py``) on the
+      port's CFS (``CfsVfs`` fd calls) and on its Ceph-like baseline
+      (``repro_torch.baseline.cephlike``), one client, ``MD_PROCS`` procs, each
+      op a timed op on the simulation's virtual clock, every operation's work
+      read back; then an OSD joins after a three-stripe ``write_file`` and must
+      migrate bytes.  The whole of (l2) runs twice with one seed and must give
+      the same trajectory.  Each operation's modeled us per op on both systems
+      and their ratio are printed as virtual-clock figures, not times of the
+      card, and no ratio is asserted;
   (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model
       (mixtral-8x22b's too), a ``training`` and a ``trainer`` JSON line, one
       ``training`` line each for (i)'s models, a ``roofline`` line with (k)'s
-      numbers, a ``parallel`` line with (j)'s, the nvidia-smi line, and last
-      the ``{"ok": true, ...}`` line.
+      numbers, a ``parallel`` line with (j)'s, a ``storage_baseline`` line with
+      (l)'s, the nvidia-smi line, and last the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -145,6 +158,7 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -166,7 +180,11 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis import lint  # noqa: E402
+from repro_torch.baseline.cephlike import CephLikeCluster, CephLikeMount  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_arch  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    O_CREAT, O_TRUNC, O_WRONLY, CfsClient, CfsCluster, EventScheduler, Network)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.checksum import checksum as checksum_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -2058,6 +2076,17 @@ PREFILL_WAVES = 5           # timed waves of each (k) prefill; the shares read t
 # the dry run's production cells run in a subprocess (which imports no JAX), each one
 DRYRUN_CELLS = (("minicpm-2b", "train_4k"), ("mixtral-8x22b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 300
+# (l2): mdtest's seven metadata operations (benchmarks/mdtest.py) on mdtest's smoke
+# clusters of MD_NODES nodes, one client with MD_PROCS procs, MD_ITEMS items a proc,
+# MD_DIR_STATS listings a proc of a directory of MD_STAT_FILES files, a binary tree of
+# MD_TREE_DEPTH levels; then an OSD joins after a three-stripe write_file
+MD_NODES = 4
+MD_PROCS = 4
+MD_ITEMS = 12
+MD_STAT_FILES = 64
+MD_DIR_STATS = 4
+MD_TREE_DEPTH = 4
+MD_STRIPED_BYTES = 9 * 1024 * 1024
 
 
 def _work(count) -> dict:
@@ -2245,6 +2274,179 @@ def dryrun_cells() -> dict:
     return res
 
 
+# ------------------------------------------------------------------ (l) lint and baseline
+
+def phase_lint() -> dict:
+    """(l1): the port's determinism lint over its shipped tree, as
+    ``python -m repro_torch.analysis.lint`` runs it; fatal on a finding or a
+    grandfathered key."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lint.main([])
+    keys = lint.load_baseline(lint.BASELINE_PATH)
+    res = {"rc": rc, "report": out.getvalue().strip(), "grandfathered_keys": len(keys)}
+    log(f"(l1) lint: {json.dumps(res)}")
+    if rc != 0 or keys:
+        raise AssertionError(f"the port's lint is not clean: {res}")
+    return res
+
+
+def _md_systems():
+    """mdtest's smoke clusters (benchmarks/mdtest.py make_cfs(4), make_ceph(4)) and
+    one client's mount of each, as the benchmark spells its ops: CFS through the
+    ``CfsVfs`` fd calls, the Ceph-like system through ``CephLikeMount``."""
+    cfs = CfsCluster(n_meta=MD_NODES, n_data=MD_NODES, meta_mem_capacity=512 * 1024 * 1024,
+                     extent_max_size=8 * 1024 * 1024, seed=42)
+    cfs.create_volume("bench", n_meta_partitions=MD_NODES, n_data_partitions=3 * MD_NODES)
+    ceph = CephLikeCluster(n_mds=MD_NODES, n_osd=MD_NODES, seed=42, mds_cache_entries=3000)
+    return {"cfs": (cfs, cfs.mount("bench", client_id="c0").vfs),
+            "ceph": (ceph, CephLikeMount(ceph, "c0"))}
+
+
+def _md_ops(system: str, mnt):
+    """mdtest's file creation and DirStat as each system spells them."""
+    if system == "cfs":
+        def creat(path):
+            mnt.close(mnt.open(path, O_WRONLY | O_CREAT | O_TRUNC))
+        return creat, mnt.readdir_plus
+    return (lambda path: mnt.write_file(path, b"")), mnt.dir_stat
+
+
+def _md_run(net, streams, rows: list, label: str) -> dict:
+    """One operation's streams on the event scheduler from a fresh timeline, as
+    ``benchmarks/common.py``'s ``run_streams`` runs them (less its FUSE queue):
+    each stream's next op is dispatched, as a timed op, when its last one
+    completes.  Appends each op's (label, stream, start, end, msgs, bytes, disk
+    IOs) to ``rows``; returns the op count, makespan and mean modeled us per op."""
+    net.reset_accounting()
+    sched = EventScheduler()
+    lat = []
+
+    def dispatch(t, si, it):
+        thunk = next(it, None)
+        if thunk is None:
+            return
+        op = net.begin_op(at=t)
+        try:
+            thunk()
+        finally:
+            net.end_op()
+        rows.append((label, si, t, op.now_us, op.msgs, op.bytes, op.disk_ops))
+        lat.append(op.now_us - t)
+        sched.at(op.now_us, dispatch, si, it)
+
+    for si, ops in enumerate(streams):
+        sched.at(0.0, dispatch, si, iter(ops))
+    makespan = sched.run()
+    return {"ops": len(lat), "makespan_us": makespan, "us_per_op": sum(lat) / len(lat)}
+
+
+def _md_tree(root: str) -> list:
+    paths, frontier = [root], [root]
+    for _ in range(MD_TREE_DEPTH):
+        frontier = [f"{p}/t{b}" for p in frontier for b in range(2)]
+        paths += frontier
+    return paths
+
+
+def metadata_run() -> tuple:
+    """(l2)'s workload once: the seven operations on both systems, then a
+    multi-stripe file and an OSD join on the Ceph-like one.  Returns the
+    trajectory (every op's modeled time and counts, the join), each operation's
+    figures and the join's."""
+    rows, figures = [], {}
+    for system, (cluster, mnt) in _md_systems().items():
+        net, creat, dir_stat = cluster.net, *_md_ops(system, mnt)
+        base, procs = "/md", range(MD_PROCS)
+        mnt.mkdir(base)
+        names = [f"{pi}_{i}" for pi in procs for i in range(MD_ITEMS)]
+
+        def listed(prefix):
+            return sorted(n for n in mnt.readdir(base) if n.startswith(prefix))
+
+        def per_proc(fn):
+            return [[lambda pi=pi, i=i: fn(f"{pi}_{i}") for i in range(MD_ITEMS)]
+                    for pi in procs]
+        figures[system] = fig = {}
+        fig["DirCreation"] = _md_run(net, per_proc(lambda n: mnt.mkdir(f"{base}/d{n}")),
+                                     rows, f"{system} DirCreation")
+        assert listed("d") == sorted(f"d{n}" for n in names), system
+        mnt.mkdir(f"{base}/statdir")
+        for i in range(MD_STAT_FILES):
+            creat(f"{base}/statdir/f{i}")
+        counts = []
+        fig["DirStat"] = _md_run(
+            net, [[lambda: counts.append(len(dir_stat(f"{base}/statdir")))] * MD_DIR_STATS
+                  for _ in procs], rows, f"{system} DirStat")
+        assert counts == [MD_STAT_FILES] * (MD_PROCS * MD_DIR_STATS), (system, counts)
+        fig["DirRemoval"] = _md_run(net, per_proc(lambda n: mnt.rmdir(f"{base}/d{n}")),
+                                    rows, f"{system} DirRemoval")
+        assert listed("d") == [], system
+        fig["FileCreation"] = _md_run(net, per_proc(lambda n: creat(f"{base}/f{n}")),
+                                      rows, f"{system} FileCreation")
+        assert listed("f") == sorted(f"f{n}" for n in names), system
+        fig["FileRemoval"] = _md_run(net, per_proc(lambda n: mnt.unlink(f"{base}/f{n}")),
+                                     rows, f"{system} FileRemoval")
+        assert listed("f") == [], system
+        # tree ops are dependent (each mkdir needs its parent): one serial chain
+        tree = _md_tree(f"{base}/tree")
+        fig["TreeCreation"] = _md_run(net, [[lambda p=p: mnt.mkdir(p) for p in tree]],
+                                      rows, f"{system} TreeCreation")
+        assert sorted(mnt.readdir(tree[-1].rsplit("/", 1)[0])) == ["t0", "t1"], system
+        bottom_up = sorted(tree, key=lambda p: -p.count("/"))
+        fig["TreeRemoval"] = _md_run(net, [[lambda p=p: mnt.rmdir(p) for p in bottom_up]],
+                                     rows, f"{system} TreeRemoval")
+        assert mnt.readdir(base) == ["statdir"], (system, mnt.readdir(base))
+        rows.append((system, "net", net.stats.msgs, net.stats.bytes))
+    ceph, mnt = _md_systems()["ceph"]
+    data = bytes(range(256)) * (MD_STRIPED_BYTES // 256)
+    mnt.write_file("/striped", data)
+    op = ceph.net.begin_op(at=0.0)
+    try:
+        osd, moved = ceph.add_osd()
+    finally:
+        ceph.net.end_op()
+    assert moved > 0 and ceph.migrated_bytes == moved, (moved, ceph.migrated_bytes)
+    assert mnt.read_file("/striped") == data
+    join = {"osd": osd, "file_bytes": len(data), "migrated_bytes": moved,
+            "modeled_us": op.now_us, "disk_ios": op.disk_ops}
+    rows.append(("ceph add_osd", join))
+    return rows, figures, join
+
+
+def phase_metadata() -> dict:
+    """(l2): ``metadata_run`` twice with one seed; fatal unless both give the same
+    trajectory.  The process-wide counters that number networks and extents are
+    set back between the runs, so that the second starts where the first did.
+    Prints each operation's modeled us per op on both systems (the simulation's
+    virtual clock, not a time of the card) and their ratio."""
+    t0 = time.perf_counter()
+    counters = (Network._created, CfsClient._extent_counter)
+    first, figures, join = metadata_run()
+    Network._created, CfsClient._extent_counter = counters
+    second = metadata_run()[0]
+    if first != second:
+        diff = next((i for i, (a, b) in enumerate(zip(first, second)) if a != b),
+                    min(len(first), len(second)))
+        raise AssertionError(f"(l2) reruns part at row {diff} of {len(first)} and "
+                             f"{len(second)}")
+    ops = {name: {"cfs_us_per_op": figures["cfs"][name]["us_per_op"],
+                  "ceph_us_per_op": figures["ceph"][name]["us_per_op"],
+                  "ceph_over_cfs": figures["ceph"][name]["us_per_op"]
+                  / figures["cfs"][name]["us_per_op"]} for name in figures["cfs"]}
+    res = {"clock": "modeled us on the simulation's virtual clock, not a time of the card",
+           "procs": MD_PROCS, "items_a_proc": MD_ITEMS, "dir_stat_entries": MD_STAT_FILES,
+           "tree_dirs": len(_md_tree("/")), "ops": ops, "figures": figures, "add_osd": join,
+           "trajectory_rows": len(first), "wall_s": time.perf_counter() - t0}
+    for name, o in ops.items():
+        log(f"(l2) {name}: modeled {o['cfs_us_per_op']:.3f} us/op on CFS, "
+            f"{o['ceph_us_per_op']:.3f} us/op on the Ceph-like baseline, ratio "
+            f"{o['ceph_over_cfs']:.3f} (virtual clock, not a time of the card)")
+    log(f"(l2) add_osd after a {join['file_bytes'] / 2**20:.0f} MiB write_file: "
+        f"{json.dumps(join)}")
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 def kernel_line(name, source, replaces, case, launches_by_path, **extra):
@@ -2300,7 +2502,12 @@ def main() -> None:
 
 
 def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
-    """Phases (c) to (j) and the JSON lines of (e), all but the last two."""
+    """Phases (c) to (l) and the JSON lines of (e), all but the last two."""
+    t0 = time.perf_counter()
+    baseline = {"lint": phase_lint(), "metadata": phase_metadata()}
+    baseline["wall_s"] = time.perf_counter() - t0
+    log(f"(l) the lint and the metadata operations took {baseline['wall_s']:.3f} s wall "
+        f"on the host beside {smi}")
     flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases = phase_kernels()
     peaks = [torch.cuda.max_memory_allocated() / 1e9]
     free_device_memory()
@@ -2430,6 +2637,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                                    "ep_prefill": servings[MOE_ARCH]["ep_prefill"],
                                    "compression": training["compression"]},
                       "device": name, "nvidia_smi": smi}))
+    print(json.dumps({"storage_baseline": baseline, "device": name, "nvidia_smi": smi}))
 
 
 if __name__ == "__main__":

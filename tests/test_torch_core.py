@@ -11,6 +11,7 @@ raft fault schedules) are in ``test_torch_core_props.py``.
 
 import ast
 import dataclasses
+import re
 import sys
 from pathlib import Path
 
@@ -47,20 +48,48 @@ def test_knobs_tables_are_equal():
         tp.PORT.knobs.get_int("CFS_NOT_A_KNOB")
 
 
+# the constants that name the reference's own package in the reference and
+# the port's in the port
+RENAMED = {"analysis.lint": ("SIM_SCOPE", "BASELINE_PATH")}
+
+
+def _as_port(v):
+    """``repro.x`` or ``repro/x``, or a tuple of them, under the port's name."""
+    if isinstance(v, tuple):
+        return tuple(_as_port(x) for x in v)
+    assert v.startswith(("repro.", "repro/")), v
+    return "repro_torch" + v[len("repro"):]
+
+
 @pytest.mark.parametrize("module", tp.MODULES)
 def test_module_constants_and_public_names_are_the_references(module):
     """Each module's upper-case constants (the knob values read at import
     among them) and its ``__all__``; the knobs module leaves out the
-    reference's README table sync (its renderer and markers)."""
+    reference's README table sync (its renderer and markers).  The lint's
+    scope and baseline file name the port's package where the reference's
+    name its own (``RENAMED``); a path is compared below ``src/``, a pattern
+    by its text, a tuple of names as it is."""
     ref, port = (sys.modules[f"{P.root}.{module}"] for P in (tp.REF, tp.PORT))
     readme_sync = {"render_markdown_table", "BEGIN_MARK", "END_MARK"}
 
+    def value(v):
+        if isinstance(v, Path):
+            return v.relative_to(ROOT / "src").as_posix()
+        if isinstance(v, re.Pattern):
+            return v.pattern
+        if isinstance(v, tuple) and all(isinstance(x, str) for x in v):
+            return v
+        return tp.norm(v)
+
     def consts(mod):
-        return {k: tp.norm(v) for k, v in vars(mod).items()
+        return {k: value(v) for k, v in vars(mod).items()
                 if k.lstrip("_").isupper() and not isinstance(v, type(sys))
                 and k not in readme_sync}
 
-    assert consts(port) == consts(ref)
+    want = consts(ref)
+    for k in RENAMED.get(module, ()):
+        want[k] = _as_port(want[k])
+    assert consts(port) == want
     names = set(getattr(ref, "__all__", ())) - readme_sync
     assert set(getattr(port, "__all__", ())) == names
 
@@ -73,9 +102,9 @@ def test_packages_export_the_references_names():
 def test_storage_plane_imports_only_the_standard_library():
     """No torch, numpy or anything outside the standard library: the copies
     run on the host, as the reference's do."""
-    files = [f for pkg in ("core", "cache", "analysis")
+    files = [f for pkg in ("core", "cache", "analysis", "baseline")
              for f in sorted((ROOT / "src" / "repro_torch" / pkg).glob("*.py"))]
-    assert len(files) == 20
+    assert len(files) == 23
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):

@@ -1,7 +1,8 @@
 """One scripted workload through two copies of the CFS storage plane.
 
 The reference's storage plane (``repro.core``, ``repro.cache``,
-``repro.analysis``) and the port's copy of it (``repro_torch.core``, ...)
+``repro.analysis``, and the Ceph-like comparison system of
+``repro.baseline``) and the port's copy of it (``repro_torch.core``, ...)
 are deterministic simulations on a virtual clock, so the same script must
 give the same trajectory in both, bit for bit.  A scenario is a function of
 a package namespace (``REF`` or ``PORT``, from :func:`package`) that drives
@@ -33,15 +34,16 @@ MODULES = ("analysis.knobs", "analysis.sanitizer", "core.types", "core.simnet",
            "core.raft", "core.multiraft", "core.btree", "core.extent_store",
            "core.meta_node", "core.meta_session", "core.data_node",
            "core.resource_manager", "cache.extent_cache", "core.client", "core.fs",
-           "core.vfs", "core.fsck")
+           "core.vfs", "core.fsck", "analysis.lint", "baseline.cephlike")
 
 
 def package(root: str) -> SimpleNamespace:
     """The storage plane of ``root`` ("repro" or "repro_torch"): ``P.core``,
-    ``P.cache``, ``P.analysis`` and each module of :data:`MODULES` by its
-    last name (``P.client``, ``P.fsck``, ...)."""
+    ``P.cache``, ``P.analysis``, ``P.baseline`` and each module of
+    :data:`MODULES` by its last name (``P.client``, ``P.fsck``,
+    ``P.cephlike``, ...)."""
     ns = SimpleNamespace(root=root)
-    for pkg in ("core", "cache", "analysis"):
+    for pkg in ("core", "cache", "analysis", "baseline"):
         setattr(ns, pkg, importlib.import_module(f"{root}.{pkg}"))
     for m in MODULES:
         setattr(ns, m.split(".")[1], importlib.import_module(f"{root}.{m}"))
@@ -677,3 +679,254 @@ def racy(P) -> List[Any]:
         t.at(10_000.0, "later write", _creat, P, vfs, "/later.bin", b"L" * 1000)
         t.note("violations after", san.violations)
         return finish(t, P, c, "v", [vfs.client])
+
+
+# ------------------------------------------------------------------ the Ceph-like baseline
+
+def ceph_fingerprint(c) -> Any:
+    """Everything a Ceph-like cluster holds: each MDS's dentries, inodes,
+    cache keys in order and disk counters, each OSD's objects and disk, the
+    placement state, and the network's counters and service queues."""
+    return norm({"net": state(c.net, skip=("model",)),
+                 "resources": {k: state(r) for k, r in sorted(c.net.resources.items())},
+                 "mds": [(m.node_id, m.dentries, m.inodes, list(m.cache), m.cache_entries,
+                          state(m.disk)) for m in c.mds],
+                 "osds": [(o.node_id, o.objects, state(o.disk)) for o in c.osds],
+                 "migrated_bytes": c.migrated_bytes, "fragmented": c.fragmented,
+                 "next_ino": c._next_ino, "replicas": c.replicas})
+
+
+def ceph_finish(t: Trace, c) -> List[Any]:
+    t.note("fingerprint", ceph_fingerprint(c))
+    return t.rows
+
+
+def tree_paths(root: str, depth: int, branch: int = 2) -> List[str]:
+    """mdtest's tree below ``root``, parents before children
+    (``benchmarks/mdtest.py``'s ``tree_paths``)."""
+    paths, frontier = [], [root]
+    for _ in range(depth):
+        frontier = [f"{p}/t{b}" for p in frontier for b in range(branch)]
+        paths += frontier
+    return paths
+
+
+def ceph_metadata(P) -> List[Any]:
+    """The paper's seven metadata operations as ``benchmarks/mdtest.py``
+    spells them for the Ceph-like system (DirCreation, DirStat, DirRemoval,
+    FileCreation through ``write_file``, FileRemoval, TreeCreation,
+    TreeRemoval), timed and untimed, with ``Exists`` and ``NotFound``."""
+    B = P.cephlike
+    c = B.CephLikeCluster(n_mds=4, n_osd=4, seed=42, mds_cache_entries=3000)
+    m = B.CephLikeMount(c, "c0")
+    t = Trace(c.net)
+    t.at(0.0, "mkdir base", m.mkdir, "/md")
+    clock = 100.0
+    for i in range(8):
+        t.at(clock, f"mkdir d{i}", m.mkdir, f"/md/d{i}")
+        clock += 40.0
+    t("mkdir exists", m.mkdir, "/md/d3")
+    t("mkdir under missing", m.mkdir, "/md/nope/x")
+    t.at(clock, "mkdir statdir", m.mkdir, "/md/s")
+    for i in range(16):
+        t(f"creat f{i}", m.write_file, f"/md/s/f{i}", b"")
+    t("create file", m._create_file, "/md/s/g")
+    t("create exists", m._create_file, "/md/s/g")
+    for k in range(2):
+        t.at(clock, f"dir_stat {k}", m.dir_stat, "/md/s")
+        t(f"dir_stat untimed {k}", m.dir_stat, "/md/s")
+        clock += 500.0
+    t("readdir", m.readdir, "/md")
+    t("readdir root", m.readdir, "/")
+    t.at(clock, "stat f3", m.stat, "/md/s/f3")
+    t("stat missing", m.stat, "/md/s/nope")
+    t("read empty", m.read_file, "/md/s/f5")
+    t("unlink missing", m.unlink, "/md/s/nope")
+    for i in range(8):
+        t.at(clock, f"rmdir d{i}", m.rmdir, f"/md/d{i}")
+        clock += 40.0
+    t("rmdir again", m.rmdir, "/md/d0")
+    for i in range(16):
+        t(f"unlink f{i}", m.unlink, f"/md/s/f{i}")
+    paths = ["/md/tree"] + tree_paths("/md/tree", 3)
+    for p in paths:
+        t.at(clock, f"tree mkdir {p}", m.mkdir, p)
+        clock += 25.0
+    t("tree readdir", m.readdir, "/md/tree/t1")
+    for p in sorted(paths, key=lambda p: -p.count("/")):
+        t.at(clock, f"tree rmdir {p}", m.rmdir, p)
+        clock += 25.0
+    t("readdir after", m.readdir, "/md")
+    t("dir_stat after", m.dir_stat, "/md/s")
+    return ceph_finish(t, c)
+
+
+def ceph_large_file(P) -> List[Any]:
+    """A 9 MiB file in three 4 MiB stripes: a read across a stripe border,
+    a read-modify-write overwrite across it, the whole file read back, and
+    an unlink that deletes every stripe of every replica."""
+    B = P.cephlike
+    c = B.CephLikeCluster(n_mds=3, n_osd=5, seed=3)
+    m = B.CephLikeMount(c, "c0")
+    t = Trace(c.net)
+    data = bytes(range(256)) * (9 * 1024 * 1024 // 256)
+    t.at(0.0, "mkdir", m.mkdir, "/big")
+    t.at(10.0, "write", m.write_file, "/big/f", data)
+    ino = m.stat("/big/f")["inode"]
+    t.note("stripes", [(o.node_id, sorted(k for k in o.objects)) for o in c.osds])
+    border = B.OBJECT_SIZE
+    t.at(50_000.0, "read across", m.read_range, "/big/f", border - 100, 300)
+    t("read tail", m.read_range, "/big/f", 2 * border, 1000)
+    t.at(60_000.0, "overwrite across", m.overwrite, "/big/f", border - 50, b"Z" * 100)
+    t("overwrite untimed", m.overwrite, "/big/f", 10, b"Y" * 10)
+    t("read across again", m.read_range, "/big/f", border - 60, 120)
+    t.at(70_000.0, "read whole", m.read_file, "/big/f")
+    t("stat", m.stat, "/big/f")
+    t.at(80_000.0, "unlink", m.unlink, "/big/f")
+    t.note("objects left", [len(o.objects) for o in c.osds])
+    t.note("crush", [[o.node_id for o in c.crush(ino, s)] for s in range(3)])
+    t("read gone", m.read_file, "/big/f")
+    return ceph_finish(t, c)
+
+
+def ceph_add_osd(P) -> List[Any]:
+    """Capacity expansion by rebalancing: OSDs join with objects present,
+    with no op, under an untimed op and under a timed op (backfill queued
+    on the OSDs' disks); every file reads back after each join."""
+    B = P.cephlike
+    c = B.CephLikeCluster(n_mds=2, n_osd=4, seed=5)
+    m = B.CephLikeMount(c, "c0")
+    t = Trace(c.net)
+    files = {f"/f{i}": bytes([i + 1]) * (B.OBJECT_SIZE // 2 * (i % 3) + 1000 * i + 1)
+             for i in range(8)}
+    for k, (path, data) in enumerate(files.items()):
+        t.at(100.0 * k, f"write {path}", m.write_file, path, data)
+    for how in ("bare", "untimed", "timed"):
+        call = {"bare": t.bare, "untimed": t,
+                "timed": lambda *a: t.at(200_000.0, *a)}[how]
+        call(f"add_osd {how}", c.add_osd)
+        t.note(f"migrated after {how}", c.migrated_bytes)
+        t.note(f"snapshot after {how}", c.crush_snapshot())
+        for path in files:
+            t(f"read {path} after {how}", m.read_file, path)
+    return ceph_finish(t, c)
+
+
+def ceph_small_cache(P) -> List[Any]:
+    """An MDS cache of 8 entries: creates and stats evict a quarter of it
+    at a time, and lookups that miss read the MDS's disk."""
+    B = P.cephlike
+    c = B.CephLikeCluster(n_mds=3, n_osd=4, seed=9, mds_cache_entries=8)
+    m = B.CephLikeMount(c, "c0")
+    t = Trace(c.net)
+    t.at(0.0, "mkdir a", m.mkdir, "/a")
+    t.at(0.0, "mkdir b", m.mkdir, "/b")
+    for i in range(15):
+        t.at(10.0 * i, f"create a/{i}", m.write_file, f"/a/{i}", b"x" * i)
+        t(f"create b/{i}", m._create_file, f"/b/{i}")
+        t.note(f"cache sizes {i}", [len(s.cache) for s in c.mds])
+    for rnd in range(2):
+        for i in range(0, 15, 2):
+            t.at(5_000.0 + 100.0 * i, f"stat a/{i} {rnd}", m.stat, f"/a/{i}")
+            t(f"read a/{i} {rnd}", m.read_file, f"/a/{i}")
+        t.at(9_000.0, f"dir_stat b {rnd}", m.dir_stat, "/b")
+        t.note(f"disk reads {rnd}", [s.disk.reads for s in c.mds])
+    return ceph_finish(t, c)
+
+
+def ceph_dead_osd(P) -> List[Any]:
+    """An OSD killed: the unlink's delete to it fails and is swallowed,
+    leaving its copy behind; a write whose primary is down raises; after a
+    revive the survivors read back."""
+    B = P.cephlike
+    c = B.CephLikeCluster(n_mds=2, n_osd=5, seed=11)
+    m = B.CephLikeMount(c, "c0")
+    t = Trace(c.net)
+    for i in range(4):
+        t.at(100.0 * i, f"write f{i}", m.write_file, f"/f{i}",
+             bytes([65 + i]) * (B.OBJECT_SIZE + 500 * i))
+    inos = {i: m.stat(f"/f{i}")["inode"] for i in range(4)}
+    replica = c.crush(inos[0], 0)[1]
+    t.note("victim", replica.node_id)
+    t("kill replica", c.net.kill, replica.node_id)
+    t.at(10_000.0, "unlink f0", m.unlink, "/f0")
+    t.note("left on victim", sorted(replica.objects))
+    primary = c.crush(inos[1], 0)[0]
+    t("kill primary", c.net.kill, primary.node_id)
+    t("unlink f1", m.unlink, "/f1")
+    t.at(20_000.0, "rewrite f2", m.write_file, "/f2", b"new")
+    t("read f3", m.read_file, "/f3")
+    t("revive", c.net.revive, primary.node_id)
+    t("revive replica", c.net.revive, replica.node_id)
+    for i in (2, 3):
+        t.at(30_000.0, f"read f{i}", m.read_file, f"/f{i}")
+    t("unlink f2", m.unlink, "/f2")
+    return ceph_finish(t, c)
+
+
+def ceph_fragment(P) -> List[Any]:
+    """A directory past ``FRAGMENT_THRESHOLD`` children fragments: later
+    entries go to the MDS their name hashes to, through the directory's
+    authority (the proxy hop).  Entries made before the split stay where
+    they were, so a later lookup of one can reach the wrong MDS and raise
+    ``NotFound`` (the reference's behaviour, kept)."""
+    B = P.cephlike
+    c = B.CephLikeCluster(n_mds=4, n_osd=4, seed=0)
+    m = B.CephLikeMount(c, "c0")
+    t = Trace(c.net)
+    n = B.FRAGMENT_THRESHOLD
+    t("mkdir", m.mkdir, "/d")
+    t("create below threshold", lambda: [m._create_file(f"/d/f{i}") for i in range(n)])
+    t.note("fragmented below", c.fragmented)
+    t.note("proxy hops below", c.net.stats.per_kind.get("ceph.proxy", 0))
+    for i in range(n, n + 3):
+        t(f"create f{i}", m._create_file, f"/d/f{i}")
+        t.note(f"fragmented after f{i}", c.fragmented)
+    for i in range(4):
+        t.at(1_000.0 * i, f"create new n{i}", m._create_file, f"/d/n{i}")
+        t.at(1_000.0 * i + 500.0, f"stat new n{i}", m.stat, f"/d/n{i}")
+    t.note("proxy hops", c.net.stats.per_kind.get("ceph.proxy", 0))
+    t.at(10_000.0, "write new", m.write_file, "/d/w", b"w" * 10)
+    t("read new", m.read_file, "/d/w")
+    for i in range(8):
+        t(f"stat old f{i}", m.stat, f"/d/f{i}")
+    t("readdir", lambda: len(m.readdir("/d")))
+    t("dir_stat", m.dir_stat, "/d")
+    t.at(20_000.0, "dir_stat timed", m.dir_stat, "/d")
+    t("unlink old f1", m.unlink, "/d/f1")
+    t("unlink new n0", m.unlink, "/d/n0")
+    return ceph_finish(t, c)
+
+
+def ceph_sequence(P, ops) -> List[Any]:
+    """A drawn sequence of ``CephLikeMount`` ops on one cluster that holds a
+    directory ``/x``, a small file ``/a`` and a two-stripe ``/x/a``; every
+    odd op runs timed, every even op untimed."""
+    B = P.cephlike
+    c = B.CephLikeCluster(n_mds=3, n_osd=5, seed=1, mds_cache_entries=16)
+    m = B.CephLikeMount(c, "c0")
+    t = Trace(c.net)
+    t("mkdir /x", m.mkdir, "/x")
+    t("write /a", m.write_file, "/a", b"a" * 1000)
+    t("write /x/a", m.write_file, "/x/a", bytes(range(256)) * (B.OBJECT_SIZE // 256 + 1))
+    for i, op in enumerate(ops):
+        kind, args = op[0], op[1:]
+        path = "/" + args[0] if args and isinstance(args[0], str) else None
+        call = {"mkdir": lambda: m.mkdir(path),
+                "create": lambda: m._create_file(path),
+                "write": lambda: m.write_file(path, bytes([args[2]]) * args[1]),
+                "overwrite": lambda: m.overwrite(path, args[1], args[2]),
+                "read": lambda: m.read_file(path),
+                "read_range": lambda: m.read_range(path, args[1], args[2]),
+                "stat": lambda: m.stat(path),
+                "unlink": lambda: m.unlink(path),
+                "readdir": lambda: m.readdir(path),
+                "dir_stat": lambda: m.dir_stat(path),
+                "add_osd": lambda: c.add_osd(),
+                "kill": lambda: c.net.kill(f"osd{args[0]}"),
+                "revive": lambda: c.net.revive(f"osd{args[0]}")}[kind]
+        if i % 2:
+            t.at(1_000.0 * i, repr(op), call)
+        else:
+            t(repr(op), call)
+    return ceph_finish(t, c)
