@@ -27,7 +27,10 @@ Phases, each fatal on failure:
       version's, one library call's where there is one, and its bound; for the
       scans' backward also each CUDA kernel's device time (profiler), threads,
       shared memory a block and blocks an SM, and the workspace's bytes beside
-      the I/O bound;
+      the I/O bound; then the four scan kernels again at the reduced configs'
+      sizes (K = V = 32; (P, N) = (32, 16)), timed at the full models' widths
+      with those head sizes, and at the launchers' shapes, a ragged T, a T
+      shorter than one chunk, 11 heads and strong decays;
   (d) serving, one model after another, each at full published width with
       random bf16 weights from a seed: codeqwen1.5-7b, zamba2-7b and
       rwkv6-1.6b each serve 8 requests through ``BatchServer``.  Every
@@ -36,7 +39,13 @@ Phases, each fatal on failure:
       prefill logits, on the bf16 weights and on an fp32 copy of them
       (``SERVE_TOL``, ``FP32_TOL``); last, one wave's prefill and decode steps run under
       torch.profiler for device time by kernel.  Each model's weights and
-      caches are freed before the next one is made;
+      caches are freed before the next one is made; (d2) after (h), the five
+      archs served nowhere else (phi3-medium-14b, qwen1.5-32b, musicgen-large,
+      chameleon-34b, arctic-480b), each at full width in bf16, cut to the layers
+      that fit beside ``MOE_HEADROOM_BYTES`` (reckoned from param_count()), one
+      wave of ``EXTRA_REQUESTS`` shorter requests, its launches checked, then
+      decode vs prefill and kernel path vs plain path (arctic-480b on shared
+      expert choices);
   (f) training: minicpm-2b at full published width, random bf16 weights with
       fp32 master weights and moments, takes ``TRAIN_STEPS`` steps of
       ``make_train_step`` at B=2, T=2048 on the arithmetic token sequences of
@@ -145,11 +154,16 @@ Phases, each fatal on failure:
       the same trajectory.  Each operation's modeled us per op on both systems
       and their ratio are printed as virtual-clock figures, not times of the
       card, and no ratio is asserted;
+  (m) the launchers: ``repro_torch.launch.train`` (4 steps, a crash and the
+      resume) and ``repro_torch.launch.serve`` for rwkv6-1.6b and zamba2-7b on
+      the card, at the reference's reduced configs (scan head 32, SSD state
+      16), their scan kernels' launches counted;
   (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model
       (mixtral-8x22b's too), a ``training`` and a ``trainer`` JSON line, one
       ``training`` line each for (i)'s models, a ``roofline`` line with (k)'s
       numbers, a ``parallel`` line with (j)'s, a ``storage_baseline`` line with
-      (l)'s, the nvidia-smi line, and last the ``{"ok": true, ...}`` line.
+      (l)'s, a ``launchers`` line with (m)'s, the nvidia-smi line, and last the
+      ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -236,9 +250,16 @@ SCAN_TOL = 3e-3     # fp32 WKV6 / SSD scans, tests/test_kernels_pallas.py:57,76-
 # bounds that.  Its fp32 copy, at 2 layers, decodes twice: against the bf16
 # cache, whose rounding alone moves its logits by 9.8e-3, held to the bf16
 # SERVE_TOL; and against an fp32 cache (fp32_kv_cache), which leaves 1.2e-5
-# (both on an H100 80GB HBM3 at 700 W), held to FP32_TOL.
+# (both on an H100 80GB HBM3 at 700 W), held to FP32_TOL.  (d2)'s archs, in bf16 at
+# their cuts (H100 80GB HBM3, 700 W): kernel vs plain and decode vs prefill within
+# 1.51e-2 and 1.48e-2 for phi3-medium-14b's 40 layers, 1.39e-2 and 1.30e-2 for
+# qwen1.5-32b's 55 and 2.33e-2 and 2.23e-2 for chameleon-34b's 42, hence 5e-2 as for
+# codeqwen1.5-7b; 3.36e-2 and 3.95e-2 for musicgen-large's 48 layers of 32 heads of
+# 64, hence 0.1; arctic-480b's 1 layer, on shared expert choices as mixtral-8x22b,
+# 1.71e-2 and 2.77e-2, hence 5e-2.
 SERVE_TOL = {"codeqwen1.5-7b": 5e-2, "zamba2-7b": 0.25, "rwkv6-1.6b": 0.15,
-             "mixtral-8x22b": 5e-2}
+             "mixtral-8x22b": 5e-2, "phi3-medium-14b": 5e-2, "qwen1.5-32b": 5e-2,
+             "musicgen-large": 0.1, "chameleon-34b": 5e-2, "arctic-480b": 5e-2}
 FP32_TOL = 1e-3
 # Training, kernel path vs plain path at 4 layers of minicpm-2b, bf16 weights:
 # the loss, each gradient leaf (against its largest value) and the params
@@ -275,6 +296,21 @@ TRAINER_DISK_BYTES, TRAINER_DATA_BYTES = 4 << 30, 1 << 20
 # (h): mixtral-8x22b keeps as many layers as fit the card beside this much
 # for the serving wave's activations, MoE buffers and checks
 MOE_ARCH, MOE_HEADROOM_BYTES = "mixtral-8x22b", 24e9
+# (d2): the five archs that (d) and (h) do not serve, each at full width in bf16, cut to
+# the most layers that fit the card beside MOE_HEADROOM_BYTES (reckoned from
+# param_count()) and whose init fits it (depth_cut): one wave of EXTRA_REQUESTS
+# requests, prompts drawn from EXTRA_PROMPT_LENGTHS, EXTRA_MAX_NEW new tokens each
+# (fewer, shorter and shorter-lived than (d)'s 8 requests of 1024-2048 tokens and 32 new
+# ones, to keep the script within its time limit), then (d)'s consistency checks in
+# bf16 at T=512
+EXTRA_SERVE = ("phi3-medium-14b", "qwen1.5-32b", "musicgen-large", "chameleon-34b",
+               "arctic-480b")
+EXTRA_REQUESTS, EXTRA_PROMPT_LENGTHS, EXTRA_MAX_NEW = 4, (256, 513), 8
+# the init's own room: at 2 layers arctic-480b's init held 3 (81.7 GB) and ran out of
+# memory on an H100 80GB HBM3 (700 W)
+INIT_SPARE_BYTES = 4e9
+# (m): the launchers at the reference's reduced configs, on the card
+LAUNCH_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
 # (j): the mesh train step's steps (params compared after the second); the
 # rendezvous's and every collective's time limit; the bytes a value that
 # compress_tree must move at least (read bf16 g and fp32 r, write bf16 deq
@@ -566,17 +602,23 @@ SCAN_BWD = {"wkv6_bwd": ("rwkv6_scan_bwd", ("wkv6_bwd_state_kernel", "wkv6_bwd_c
                                            "ssd_bwd_reduce_kernel", "ssd_bwd_dA_reduce_kernel"))}
 
 
-def bwd_occupancy(name: str) -> dict:
-    """Per CUDA kernel of a scan's backward: its threads and dynamic shared memory a block
-    and the blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+def scan_sizes(name: str, shape: dict) -> tuple:
+    """The compiled sizes a scan kernel's call takes: (K,) for WKV6, (P, N) for SSD."""
+    return (shape["K"],) if name.startswith("wkv6") else (shape["P"], shape["N"])
+
+
+def bwd_occupancy(name: str, sizes: tuple) -> dict:
+    """Per CUDA kernel of a scan's backward at its compiled ``sizes``: its threads and
+    dynamic shared memory a block and the blocks an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     source, kernels = SCAN_BWD[name]
     fn = getattr(_build.load(source), f"{name}_occupancy")
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.argtypes = [ctypes.c_int] * (1 + len(sizes)) + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int
     out = {}
     for i, kernel in enumerate(kernels):
         vals = [ctypes.c_int() for _ in range(3)]
-        rc = fn(i, *(ctypes.byref(v) for v in vals))
+        rc = fn(*sizes, i, *(ctypes.byref(v) for v in vals))
         if rc:
             raise RuntimeError(f"{name}_occupancy({i}) failed: cudaError {rc}")
         out[kernel] = dict(zip(("threads", "smem_bytes", "blocks_per_sm"),
@@ -584,20 +626,22 @@ def bwd_occupancy(name: str) -> dict:
     return out
 
 
-def bwd_workspace(name: str, b: int, t: int, h: int, d: int = 64) -> dict:
+def bwd_workspace(name: str, b: int, t: int, h: int, sizes: tuple) -> dict:
     """A scan backward's workspace (the size its wrapper allocates) and the bytes it adds
     to the inputs and outputs: each chunk's state gradient written and read once, the
     forward's chunk states read once, and the partial sums written and read once (the
-    state is saved every 64 rows, K = V = P = N = d)."""
+    state, K x V = sizes[0]^2 or P x N, is saved every 64 rows)."""
     source, _ = SCAN_BWD[name]
     fn = getattr(_build.load(source), f"{name}_workspace_floats")
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * (3 + len(sizes))
     fn.restype = ctypes.c_longlong
     nc = -(-t // 64)
-    states = 4 * b * nc * h * d * d
-    parts = (4 * b * nc * h * d if name == "wkv6_bwd"
-             else 4 * (2 * b * -(-h // 8) * t * d + b * nc * h))
-    return {"workspace_bytes": 4 * fn(b, t, h), "workspace_traffic_bytes": 3 * states + 2 * parts}
+    rows, cols = (sizes[0], sizes[0]) if name == "wkv6_bwd" else sizes
+    states = 4 * b * nc * h * rows * cols
+    parts = (4 * b * nc * h * rows if name == "wkv6_bwd"
+             else 4 * (2 * b * -(-h // 8) * t * cols + b * nc * h))
+    return {"workspace_bytes": 4 * fn(b, t, h, *sizes),
+            "workspace_traffic_bytes": 3 * states + 2 * parts}
 
 
 def scan_bwd_case(name, fwd, bwd, plain_bwd, inputs, shape, work=None, note=None, seed=0,
@@ -652,8 +696,9 @@ def scan_bwd_case(name, fwd, bwd, plain_bwd, inputs, shape, work=None, note=None
         call = lambda: bwd(*inputs[:5], states, dy, ds)
         case["ms"] = cuda_ms(call, 10)
         case["sub_kernel_device_ms"] = device_ms_by_kernel(call, 10)
-        case["occupancy"] = bwd_occupancy(name)
-        case.update(bwd_workspace(name, shape.get("B", shape.get("Bt")), shape["T"], shape["H"]))
+        case["occupancy"] = bwd_occupancy(name, scan_sizes(name, shape))
+        case.update(bwd_workspace(name, shape.get("B", shape.get("Bt")), shape["T"], shape["H"],
+                                  scan_sizes(name, shape)))
         case["bound_ms_with_workspace"] = ((nbytes + case["workspace_traffic_bytes"])
                                            / HBM_BYTES_S * 1e3)
         case["plain_ms"] = cuda_ms(lambda: plain_bwd(*inputs, dy, ds), 2, warmup=1)
@@ -821,6 +866,7 @@ def phase_kernels():
                                  {"Bt": 2, "T": 300, "H": 112, "P": 64, "N": 64,
                                   "chunk": 128}, note="strong decays: A scaled by 50",
                                  seed=72)]}
+    reduced = phase_scan_reduced()
     # minicpm-2b's training shape (36 heads of 64, bf16, causal), then fp32 at
     # hd 128 with G=2 and a ragged T, a window with a q offset, and hd 112
     flash_bwd = {"main": flash_bwd_case(TRAIN_B, TRAIN_T, 36, 1, 64, 0, 0, torch.bfloat16, 40,
@@ -836,7 +882,66 @@ def phase_kernels():
                                       timed=True),
                 "others": [checksum_case(n, block, 51 + i) for i, (n, block) in
                            enumerate(((1000, 256), (4096, 4096), (10000, 512), (0, 4096)))]}
-    return flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases
+    return flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases, reduced
+
+
+def phase_scan_reduced() -> dict:
+    """The scan kernels, forward and backward, at the reduced configs' sizes, which the
+    launchers run: rwkv6-1.6b's K = V = 32 and zamba2-7b's (P, N) = (32, 16).  Timed at the
+    full models' widths with these sizes (rwkv6-1.6b: 64 heads of 32; zamba2-7b: 224 heads
+    of 32), then at the launchers' own shapes (B=2, T=32; 4 and 8 heads), a ragged T, a T
+    shorter than one chunk, a head count that is not a multiple of K3-bwd's group of 8
+    and strong decays."""
+    strong_w = "strong decays: w = e^-U(0,69), w = 0 in every 16th column"
+    wkv = lambda b, t, h: {"B": b, "T": t, "H": h, "K": 32, "V": 32, "chunk": 64}  # noqa: E731
+    ssdp = lambda b, t, h: {"Bt": b, "T": t, "H": h, "P": 32, "N": 16, "chunk": 128}  # noqa: E731
+    small = ((2, 32, None), (2, 1000, None), (2, 37, None))
+    out = {
+        "wkv6_fwd": {
+            "main": scan_case("wkv6", wkv6_fwd, ref.rwkv6_chunked,
+                              wkv6_inputs(80, 4, 2048, 64, d=32), wkv(4, 2048, 64),
+                              wkv6_work(4, 2048, 64, 32, 64)),
+            "others": [scan_case("wkv6", wkv6_fwd, ref.rwkv6_chunked,
+                                 wkv6_inputs(81 + t, b, t, 4, d=32), wkv(b, t, 4))
+                       for b, t, _ in small]
+            + [scan_case("wkv6", wkv6_fwd, ref.rwkv6_chunked,
+                         wkv6_inputs(85, 2, 300, 4, d=32, strong=True), wkv(2, 300, 4),
+                         note=strong_w)]},
+        "ssd_fwd": {
+            "main": scan_case("ssd", ssd_fwd, ref.mamba2_ssd,
+                              ssd_inputs(90, 4, 2048, 224, p=32, n=16), ssdp(4, 2048, 224),
+                              ssd_work(4, 2048, 224, 32, 16, 128)),
+            "others": [scan_case("ssd", ssd_fwd, ref.mamba2_ssd,
+                                 ssd_inputs(91 + t, b, t, 8, p=32, n=16), ssdp(b, t, 8))
+                       for b, t, _ in small]
+            + [scan_case("ssd", ssd_fwd, ref.mamba2_ssd,
+                         ssd_inputs(95, 2, 300, 8, p=32, n=16, strong=True), ssdp(2, 300, 8),
+                         note="strong decays: A scaled by 50")]},
+        "wkv6_bwd": {
+            "main": scan_bwd_case("wkv6_bwd", wkv6_fwd, wkv6_bwd, ref.rwkv6_chunked_bwd,
+                                  wkv6_inputs(100, TRAIN_B, TRAIN_T, 64, d=32),
+                                  wkv(TRAIN_B, TRAIN_T, 64),
+                                  wkv6_bwd_work(TRAIN_B, TRAIN_T, 64, 32, 64), seed=100),
+            "others": [scan_bwd_case("wkv6_bwd", wkv6_fwd, wkv6_bwd, ref.rwkv6_chunked_bwd,
+                                     wkv6_inputs(101 + t, b, t, 4, d=32), wkv(b, t, 4),
+                                     seed=101 + t) for b, t, _ in small]
+            + [scan_bwd_case("wkv6_bwd", wkv6_fwd, wkv6_bwd, ref.rwkv6_chunked_bwd,
+                             wkv6_inputs(105, 2, 300, 4, d=32, strong=True), wkv(2, 300, 4),
+                             note=strong_w, seed=105, w_index=3)]},
+        "ssd_bwd": {
+            "main": scan_bwd_case("ssd_bwd", ssd_fwd, ssd_bwd, ref.mamba2_ssd_bwd,
+                                  ssd_inputs(110, TRAIN_B, TRAIN_T, 224, p=32, n=16),
+                                  ssdp(TRAIN_B, TRAIN_T, 224),
+                                  ssd_bwd_work(TRAIN_B, TRAIN_T, 224, 32, 16, 128), seed=110),
+            "others": [scan_bwd_case("ssd_bwd", ssd_fwd, ssd_bwd, ref.mamba2_ssd_bwd,
+                                     ssd_inputs(111 + t, b, t, h, p=32, n=16), ssdp(b, t, h),
+                                     seed=111 + t)
+                       for b, t, h in ((2, 32, 8), (2, 1000, 8), (2, 37, 8), (2, 129, 11))]
+            + [scan_bwd_case("ssd_bwd", ssd_fwd, ssd_bwd, ref.mamba2_ssd_bwd,
+                             ssd_inputs(115, 2, 300, 8, p=32, n=16, strong=True),
+                             ssdp(2, 300, 8), note="strong decays: A scaled by 50", seed=115)]},
+    }
+    return out
 
 
 # ------------------------------------------------------------------ (d) serving
@@ -1932,17 +2037,25 @@ def placed_wave(cfg, api, params, prompts, mesh, smax: int, steps: int):
 
 # ------------------------------------------------------------------ (h) MoE serving
 
-def _bf16_layer_bytes(cfg) -> tuple:
-    """Bytes of one layer and of the embeddings of an moe config in bf16 (the
-    router is fp32), from the parameter shapes."""
-    d, hd, fe = cfg.d_model, cfg.hd, cfg.d_expert or cfg.d_ff
-    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-    layer = 2 * (attn + 3 * cfg.n_experts * d * fe + 2 * d) + 4 * d * cfg.n_experts
-    if cfg.dense_residual:
-        layer += 2 * 3 * d * cfg.d_ff
-    vocab = (cfg.vocab + 255) // 256 * 256
-    emb = 2 * (vocab * d * (1 if cfg.tie_embeddings else 2) + d)
-    return layer, emb
+def depth_cut(full, headroom: float) -> tuple:
+    """``full`` cut to the most layers whose bf16 weights fit the card beside ``headroom``
+    bytes, reckoned from param_count(), and whose init fits it: ``layers.init_stacked``
+    holds the first layer's draw beside the stacked leaves, so n + 1 layers and the
+    embeddings, with INIT_SPARE_BYTES to spare; and the cut stated with its bytes."""
+    emb_bytes = 2 * dataclasses.replace(full, n_layers=0).param_count()
+    layer_bytes = 2 * dataclasses.replace(full, n_layers=1).param_count() - emb_bytes
+    total = torch.cuda.get_device_properties(0).total_memory
+    serve_fit = int((total - headroom - emb_bytes) // layer_bytes)
+    init_fit = int((total - INIT_SPARE_BYTES - emb_bytes) // layer_bytes) - 1
+    n_layers = min(full.n_layers, serve_fit, init_fit)
+    if n_layers < 1:
+        raise AssertionError(f"{full.name}: not one layer fits beside {headroom / 1e9} GB")
+    cut = (f"{n_layers} of {full.n_layers} layers, full width: {layer_bytes / 1e9:.3f} GB of "
+           f"bf16 a layer and {emb_bytes / 1e9:.3f} GB of embeddings (param_count()); "
+           f"{serve_fit} fit beside {headroom / 1e9:.0f} GB left free of the card's "
+           f"{total / 1e9:.1f} GB, {init_fit} beside the init's extra layer and "
+           f"{INIT_SPARE_BYTES / 1e9:.0f} GB")
+    return dataclasses.replace(full, n_layers=n_layers), cut, layer_bytes, emb_bytes
 
 
 MOE_NAMED_OPS = ("index", "gather", "scatter", "sort", "cumsum", "topk", "nvjet", "gemm")
@@ -2015,14 +2128,7 @@ def ep_prefill(cfg, api, params, mesh, b: int, t: int, smax: int, tol: float):
 def phase_moe_serving(mesh):
     """(h): mixtral-8x22b at full width, cut to the layers the card holds; and
     (j2) on ``mesh``."""
-    full = get_arch(MOE_ARCH)
-    layer_bytes, emb_bytes = _bf16_layer_bytes(full)
-    total = torch.cuda.get_device_properties(0).total_memory
-    n_layers = min(full.n_layers, int((total - MOE_HEADROOM_BYTES - emb_bytes) // layer_bytes))
-    cfg = dataclasses.replace(full, n_layers=n_layers)
-    cut = (f"{n_layers} of {full.n_layers} layers, full width: {layer_bytes / 1e9:.3f} GB of "
-           f"bf16 a layer and {emb_bytes / 1e9:.3f} GB of embeddings, with "
-           f"{MOE_HEADROOM_BYTES / 1e9:.0f} GB of the card's {total / 1e9:.1f} GB left free")
+    cfg, cut, _, _ = depth_cut(get_arch(MOE_ARCH), MOE_HEADROOM_BYTES)
     log(f"(h) serving {MOE_ARCH}, cut to {cut}: {json.dumps(dataclasses.asdict(cfg))}")
     torch.cuda.reset_peak_memory_stats()
     api = get_model(cfg)
@@ -2063,6 +2169,74 @@ def phase_moe_serving(mesh):
     serving["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return serving
 
+
+
+# ------------------------------------------------------------------ (d2) the other archs
+
+def phase_serving_extra(arch: str):
+    """(d2) for ``arch``: one wave through ``BatchServer`` at full width in bf16 (cut in
+    depth where the card requires), its launches checked, then decode vs prefill and
+    kernel path vs plain path (an MoE model on shared expert choices, at a capacity
+    factor with no drops)."""
+    full = get_arch(arch)
+    cfg, cut, layer_bytes, emb_bytes = depth_cut(full, MOE_HEADROOM_BYTES)
+    log(f"(d2) serving {arch}, {cut}: {json.dumps(dataclasses.asdict(cfg))}")
+    torch.cuda.reset_peak_memory_stats()
+    api = get_model(cfg)
+    params, n_params = init_serving_params(api)
+    gen = torch.Generator().manual_seed(1)
+    lengths = torch.randint(*EXTRA_PROMPT_LENGTHS, (EXTRA_REQUESTS,), generator=gen).tolist()
+    serving = serve_requests(arch, cfg, api, params, n_params, draw_prompts(cfg, lengths, gen),
+                             smax=1024, batch=EXTRA_REQUESTS, max_new=EXTRA_MAX_NEW)
+    serving.update(cut=cut, full_layers=full.n_layers, layer_bytes=layer_bytes,
+                   embedding_bytes=emb_bytes)
+    checked = cfg
+    if cfg.n_experts:   # no token can drop at capacity_factor = E / k
+        checked = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    serving["consistency"] = check_consistency(checked, get_model(checked), params,
+                                               SERVE_TOL[arch])
+    del params
+    free_device_memory()
+    serving["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return serving
+
+
+# ------------------------------------------------------------------ (m) the launchers
+
+def phase_launchers() -> dict:
+    """(m): ``python -m repro_torch.launch.train`` (4 steps, a crash after step 3 and the
+    resume) and ``python -m repro_torch.launch.serve`` for each of ``LAUNCH_ARCHS`` on
+    the card, in this process: the reference's reduced configs (scan head size 32,
+    zamba2-7b's SSD state 16) through the scan kernels, forward and backward."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    out = {}
+    for arch in LAUNCH_ARCHS:
+        t0 = time.perf_counter()
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            trainer = launch_train.main(["--arch", arch, "--steps", "4", "--ckpt-every", "2",
+                                         "--crash-at", "3"])
+        train_counts = launches()
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as served:
+            launch_serve.main(["--arch", arch])
+        serve_counts = launches()
+        cfg = trainer.cfg
+        fwd, bwd = ("wkv6_fwd", "wkv6_bwd") if cfg.family == "ssm" else ("ssd_fwd", "ssd_bwd")
+        res = {"arch": arch, "config": dataclasses.asdict(cfg), "steps": trainer.step,
+               "losses": [h["loss"] for h in trainer.history],
+               "train_launches": train_counts, "serve_launches": serve_counts,
+               "served": served.getvalue().strip().splitlines()[-1],
+               "wall_s": time.perf_counter() - t0}
+        log(f"(m) launchers: {json.dumps(res)}")
+        if not (cfg == get_arch(arch).reduced() and trainer.step == 4
+                and all(math.isfinite(x) for x in res["losses"])
+                and train_counts[fwd] > 0 and train_counts[bwd] > 0 and serve_counts[fwd] > 0
+                and "resumed at step" in printed.getvalue()):
+            raise AssertionError(f"{arch}: the launchers on the card: {res}")
+        out[arch] = res
+    return out
 
 
 # ------------------------------------------------------------------ (k) counts against the card
@@ -2508,7 +2682,8 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
     baseline["wall_s"] = time.perf_counter() - t0
     log(f"(l) the lint and the metadata operations took {baseline['wall_s']:.3f} s wall "
         f"on the host beside {smi}")
-    flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases = phase_kernels()
+    flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases, reduced = \
+        phase_kernels()
     peaks = [torch.cuda.max_memory_allocated() / 1e9]
     free_device_memory()
     servings = {}
@@ -2527,6 +2702,14 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
     free_device_memory()
     servings[MOE_ARCH] = phase_moe_serving(mesh)
     peaks.append(servings[MOE_ARCH]["phase_peak_mem_gb"])
+    free_device_memory()
+    for arch in EXTRA_SERVE:
+        servings[arch] = phase_serving_extra(arch)
+        peaks.append(servings[arch]["phase_peak_mem_gb"])
+        free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    launched = phase_launchers()
+    peaks.append(torch.cuda.max_memory_allocated() / 1e9)
     free_device_memory()
     ssm_training = {}
     ssm_mesh_train = {}
@@ -2552,7 +2735,9 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
              **{f"{a}-{name}": run["launches"] for a in PLACED_STEPS for name, run in
                 servings[a]["placed"]["runs"].items() if name != "mesh_free"},
              **{f"{a}-train": t["launches"] for a, t in ssm_training.items()},
-             **{f"{a}-mesh-train": t["launches"] for a, t in ssm_mesh_train.items()}}
+             **{f"{a}-mesh-train": t["launches"] for a, t in ssm_mesh_train.items()},
+             **{f"{a}-reduced-launch.train": r["train_launches"] for a, r in launched.items()},
+             **{f"{a}-reduced-launch.serve": r["serve_launches"] for a, r in launched.items()}}
 
     def by_path(kernel):
         return {a: n[kernel] for a, n in paths.items() if n[kernel]}
@@ -2588,13 +2773,13 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                     dtype="float32 (3xTF32 on the tensor cores)", exps=wkv6["main"]["exps"],
                     library=None, max_rel_err=wkv6["main"]["max_rel_err"],
                     **_scan_extra(wkv6["main"], tensor_cores, "rwkv6_scan"),
-                    other_cases=wkv6["others"]),
+                    other_cases=wkv6["others"], reduced_sizes=reduced["wkv6_fwd"]),
         kernel_line("ssd_fwd", "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
                     "src/repro/kernels/mamba2_ssd.py:65", ssd["main"], by_path("ssd_fwd"),
                     dtype="float32 (3xTF32 on the tensor cores)", exps=ssd["main"]["exps"],
                     library=None, max_rel_err=ssd["main"]["max_rel_err"],
                     **_scan_extra(ssd["main"], tensor_cores, "mamba2_ssd"),
-                    other_cases=ssd["others"]),
+                    other_cases=ssd["others"], reduced_sizes=reduced["ssd_fwd"]),
         kernel_line("wkv6_bwd", "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
                     "src/repro/kernels/ref.py:285", wkv6_bwd_cases["main"], by_path("wkv6_bwd"),
                     replaces_note="no Pallas kernel: the reference differentiates "
@@ -2604,7 +2789,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                     max_rel_err=wkv6_bwd_cases["main"]["max_rel_err"],
                     **_scan_extra(wkv6_bwd_cases["main"], tensor_cores, "rwkv6_scan_bwd"),
                     **_bwd_extra(wkv6_bwd_cases["main"]),
-                    other_cases=wkv6_bwd_cases["others"]),
+                    other_cases=wkv6_bwd_cases["others"], reduced_sizes=reduced["wkv6_bwd"]),
         kernel_line("ssd_bwd", "src/repro_torch/kernels/csrc/mamba2_ssd_bwd.cu",
                     "src/repro/kernels/ref.py:366", ssd_bwd_cases["main"], by_path("ssd_bwd"),
                     replaces_note="no Pallas kernel: the reference differentiates "
@@ -2614,7 +2799,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                     max_rel_err=ssd_bwd_cases["main"]["max_rel_err"],
                     **_scan_extra(ssd_bwd_cases["main"], tensor_cores, "mamba2_ssd_bwd"),
                     **_bwd_extra(ssd_bwd_cases["main"]),
-                    other_cases=ssd_bwd_cases["others"]),
+                    other_cases=ssd_bwd_cases["others"], reduced_sizes=reduced["ssd_bwd"]),
     ]
     for k in kernels:
         if k["launches"] == 0:
@@ -2638,6 +2823,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                                    "compression": training["compression"]},
                       "device": name, "nvidia_smi": smi}))
     print(json.dumps({"storage_baseline": baseline, "device": name, "nvidia_smi": smi}))
+    print(json.dumps({"launchers": launched, "device": name, "nvidia_smi": smi}))
 
 
 if __name__ == "__main__":

@@ -40,6 +40,12 @@
 //     are not written), which keeps the final state exact without padding in memory;
 //   * for the backward (mamba2_ssd_bwd.cu) it also writes, when asked, the state before
 //     every 64 rows to S_chunks [Bt, ceil(T / 64), H, P, N].
+// The head and state sizes (P, N) are template parameters, instantiated for (64, 64) and
+// for the reduced configs' (32, 16) and chosen by the extern "C" entry: a scan block has a
+// warp for every 16 head columns (two at P = 32), and at N = 16 the Gram product's depth
+// and the state's width are two 8-column tiles.  Shared rows are max(P, N) + 8 floats
+// (8 t + g: no bank conflict) and the Gram kernel's max(N, 32) + 4 (4 g + t), since its
+// tile holds [32][N] rows of C and then the [32][32] G.
 
 #include <cuda_runtime.h>
 
@@ -49,13 +55,22 @@
 
 namespace {
 
-constexpr int NTHREADS = 128;   // 4 warps
 constexpr int CH = 32;          // rows per chunk
 constexpr int RPL = CH / 32;    // cumsum rows per lane
-constexpr int P = 64, N = 64;   // head and state sizes
-constexpr int LD = 72;          // shared row stride, floats: conflict-free fragments
-constexpr int LDG = 68;         // the Gram kernel's rows (row-major A and B fragments)
 constexpr int G_TILES = (CH / 16) * (CH / 8);   // A fragments of one chunk's G: 2 x 4
+
+template <int N>
+constexpr int LDG = (N > CH ? N : CH) + 4;    // the Gram kernel's rows
+
+template <int P, int N>
+struct Shape {
+  static_assert(P % 16 == 0 && N % 8 == 0 && P <= 64 && N <= 64, "(P, N) up to (64, 64)");
+  static constexpr int NTHREADS = 2 * P;                  // a warp per 16 head columns
+  static constexpr int LD = (P > N ? P : N) + 8;          // shared row stride, floats
+  static constexpr int STAGE = 3 * CH * LD + CH;          // x, B, C, dt
+  static constexpr size_t SCAN_SMEM =                     // two stages; per-warp cl, w
+      (2 * STAGE + (NTHREADS / 32) * 2 * CH) * sizeof(float);
+};
 
 struct Params {
   const float* x;
@@ -75,7 +90,9 @@ struct Params {
 // tile (mi, kj), lane (g, t) holds G[16mi + g (+8)][8kj + t (+4)] as a float4.
 constexpr int GRAM_THREADS = 32 * (CH / 16);   // a warp per 16 rows of G
 
+template <int N>
 __global__ void __launch_bounds__(GRAM_THREADS) ssd_gram_kernel(const Params p) {
+  constexpr int LDG = ::LDG<N>;
   __shared__ __align__(16) float C_s[CH * LDG];
   __shared__ __align__(16) float B_s[CH * LDG];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -123,10 +140,10 @@ __global__ void __launch_bounds__(GRAM_THREADS) ssd_gram_kernel(const Params p) 
   }
 }
 
-constexpr int STAGE = 3 * CH * LD + CH;                        // x, B, C, dt
-constexpr size_t SCAN_SMEM = (2 * STAGE + 4 * 2 * CH) * sizeof(float);   // + per-warp cl, w
-
-__global__ void __launch_bounds__(NTHREADS, 4) ssd_scan_kernel(const Params p) {
+template <int P, int N>
+__global__ void __launch_bounds__(Shape<P, N>::NTHREADS, 4) ssd_scan_kernel(const Params p) {
+  constexpr int NTHREADS = Shape<P, N>::NTHREADS, LD = Shape<P, N>::LD;
+  constexpr int STAGE = Shape<P, N>::STAGE;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -305,6 +322,20 @@ __global__ void __launch_bounds__(NTHREADS, 4) ssd_scan_kernel(const Params p) {
   }
 }
 
+
+template <int P, int N>
+int launch(const Params& p, cudaStream_t st) {
+  using Sh = Shape<P, N>;
+  ssd_gram_kernel<N><<<dim3(p.n_chunks, p.Bt), GRAM_THREADS, 0, st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ssd_scan_kernel<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Sh::SCAN_SMEM);
+  if (err != cudaSuccess) return err;
+  ssd_scan_kernel<P, N><<<p.Bt * p.H, Sh::NTHREADS, Sh::SCAN_SMEM, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -315,25 +346,21 @@ long long ssd_workspace_floats(int Bt, int T) {
 }
 
 // Returns a cudaError_t: 0 when both kernels were launched.  All tensors are contiguous
-// fp32; P = N = 64 and chunk 128 are the compiled sizes (the kernel walks the chunk in
-// four quarters); `work` holds ssd_workspace_floats(Bt, T) floats; s_chunks, if not
-// null, receives the state before every 64 rows [Bt, ceil(T / 64), H, P, N].
+// fp32; (P, N) = (64, 64) or (32, 16) and chunk 128 are the compiled sizes (the kernel
+// walks the chunk in four quarters), any other is refused; `work` holds
+// ssd_workspace_floats(Bt, T) floats; s_chunks, if not null, receives the state before
+// every 64 rows [Bt, ceil(T / 64), H, P, N].
 int ssd_fwd(const float* x, const float* dt, const float* A, const float* Bm, const float* Cm,
             const float* s0, float* y, float* s_out, float* s_chunks, int Bt, int T, int H,
             int P_, int N_, int chunk, void* work, void* stream) {
-  if (P_ != P || N_ != N || chunk != 128 || T <= 0) return cudaErrorInvalidValue;
+  if (chunk != 128 || T <= 0) return cudaErrorInvalidValue;
   const int n_chunks = (T + CH - 1) / CH;
   const Params p{x,  dt,      A,  Bm, Cm, s0, y, s_out, s_chunks, static_cast<float4*>(work),
                  Bt, T, H, n_chunks};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ssd_gram_kernel<<<dim3(n_chunks, Bt), GRAM_THREADS, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SCAN_SMEM);
-  if (err != cudaSuccess) return err;
-  ssd_scan_kernel<<<Bt * H, NTHREADS, SCAN_SMEM, st>>>(p);
-  return cudaGetLastError();
+  if (P_ == 64 && N_ == 64) return launch<64, 64>(p, st);
+  if (P_ == 32 && N_ == 16) return launch<32, 16>(p, st);
+  return cudaErrorInvalidValue;
 }
 
 const char* ssd_error_string(int err) {

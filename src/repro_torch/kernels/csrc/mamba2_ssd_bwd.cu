@@ -65,6 +65,14 @@
 //     for A < 0 and dt >= 0, so nothing overflows where a decay underflows;
 //   * the ragged last chunk is masked (rows past T read as x = dt = B = C = dy = 0) and not
 //     written.
+// The head and state sizes (P, N) are template parameters, instantiated for (64, 64) and
+// for the reduced configs' (32, 16) and chosen by the extern "C" entry.  The state pass has
+// a warp for every 16 head columns; the chunk pass keeps its 64 x 68 tiles (G, M^T and dG
+// are [64][64] whatever P and N are) and its 16 warps, and a warp's column quarter takes
+// part in a product over head columns (dx) or state columns (dB, dC) only where that
+// quarter exists: at (32, 16) two warps of a row block form dx and one dB and dC, the
+// others adding zeros to the row sums.  A head count that is not a multiple of HG leaves
+// the last group short (h_end).
 
 #include <cuda_runtime.h>
 
@@ -73,12 +81,18 @@
 namespace {
 
 constexpr int CH = 64;          // rows per chunk
-constexpr int P = 64, N = 64;   // head and state sizes
 constexpr int HG = 8;           // heads of one chunk-pass block
-constexpr int ST_THREADS = 128;
 constexpr int CT = 512;         // chunk-pass threads: 16 warps
-constexpr int LDK = 72;
-constexpr int LD = 68;
+constexpr int LD = CH + 4;      // the chunk pass's rows
+
+template <int P, int N>
+struct Shape {
+  static_assert(P % 16 == 0 && N % 16 == 0 && P <= 64 && N <= 64, "(P, N) up to (64, 64)");
+  static constexpr int ST_THREADS = 2 * P;                // a warp per 16 head columns
+  static constexpr int LDK = (P > N ? P : N) + 8;         // the state pass's rows
+  static constexpr int ST_STAGE = 2 * CH * LDK + CH;      // dy, C, dt
+  static constexpr size_t ST_SMEM = (2 * ST_STAGE + CH) * sizeof(float);   // two stages; e^cl
+};
 
 struct Params {
   const float* x;
@@ -137,10 +151,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ------------------------------------------------------------------ (a) reverse state pass
 
-constexpr int ST_STAGE = 2 * CH * LDK + CH;                  // dy, C, dt
-constexpr size_t ST_SMEM = (2 * ST_STAGE + CH) * sizeof(float);   // two stages; e^cl
-
-__global__ void __launch_bounds__(ST_THREADS, 2) ssd_bwd_state_kernel(const Params p) {
+template <int P, int N>
+__global__ void __launch_bounds__(Shape<P, N>::ST_THREADS, 2) ssd_bwd_state_kernel(const Params p) {
+  constexpr int ST_THREADS = Shape<P, N>::ST_THREADS, LDK = Shape<P, N>::LDK;
+  constexpr int ST_STAGE = Shape<P, N>::ST_STAGE;
   extern __shared__ __align__(16) float smem[];
   float* e_s = smem + 2 * ST_STAGE;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -240,6 +254,7 @@ __device__ __forceinline__ void row_sums(float lo, float hi, float* out, int m0,
   }
 }
 
+template <int P, int N>
 __global__ void __launch_bounds__(CT, 1) ssd_bwd_chunk_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   float* B_s = smem;                // [j][n]
@@ -263,6 +278,7 @@ __global__ void __launch_bounds__(CT, 1) ssd_bwd_chunk_kernel(const Params p) {
   const long long row = (long long)p.H * P;
   // this warp: rows mi .. mi+15 (row block rb) and columns n0 .. n0+15 (quarter cq)
   const int rb = warp >> 2, mi = 16 * rb, cq = warp & 3, n0 = 16 * cq;
+  const bool p_cols = n0 < P, n_cols = n0 < N;   // this quarter's head and state columns
   const int h_first = grp * HG, h_end = min(p.H, h_first + HG);
   // this warp's 8-column tiles n0 + 8 nt with nt < n_tri lie on or below the diagonal blocks
   const int n_tri = min(2, max(0, (mi + 16 - n0) / 8));
@@ -306,11 +322,14 @@ __global__ void __launch_bounds__(CT, 1) ssd_bwd_chunk_kernel(const Params p) {
     if (h + 1 < h_end) load_head(h + 1, stage ^ 1);
     if (warp == 0) chunk_cumsum(dt_s, A, cl_s, e_s, dec_s, lane);
     {
-      // the sum of S * dS: thread (row, half, q) takes columns 32 half + q + 4 i
-      const int r = (tid >> 2) & (P - 1), q = 32 * (tid >> 8) + (tid & 3);
+      // the sum of S * dS, element e = tid + CT i at (e / N, e % N)
+      static_assert(P * N % CT == 0, "the [P, N] state is a whole number of block passes");
       float x = 0.f;
 #pragma unroll
-      for (int i = 0; i < N / 8; ++i) x += S_s[r * LD + q + 4 * i] * dS_s[r * LD + q + 4 * i];
+      for (int i = 0; i < P * N / CT; ++i) {
+        const int e = tid + CT * i, o = (e / N) * LD + e % N;
+        x += S_s[o] * dS_s[o];
+      }
       x = warp_sum(x);
       if (lane == 0) ss_part[warp] = x;
     }
@@ -363,7 +382,7 @@ __global__ void __launch_bounds__(CT, 1) ssd_bwd_chunk_kernel(const Params p) {
 
     // (2) dxs = M^T dy (over i >= mi) + dec * (B dS^T): dx, and the rows' x . dxs and
     //     x . dxs_state (which dt turns into xs . dxs_state)
-    {
+    if (p_cols) {
       float acc[2][4] = {}, st[2][4] = {};
       scan::gemm<2>(acc, scan::RowsA(MT_s, LD, mi),
                     scan::elem_b([&](int i, int n) { return dy_s[i * LD + n0 + n]; }), mi, CH);
@@ -387,11 +406,14 @@ __global__ void __launch_bounds__(CT, 1) ssd_bwd_chunk_kernel(const Params p) {
       }
       row_sums(sx[0], sx[1], ddt_part + cq * CH, mi, lane);
       row_sums(sq[0], sq[1], q_part + cq * CH, mi, lane);
+    } else {
+      row_sums(0.f, 0.f, ddt_part + cq * CH, mi, lane);
+      row_sums(0.f, 0.f, q_part + cq * CH, mi, lane);
     }
 
     // (3) dC += e^cl * (dy S) + dG B (over j < mi + 16), and the rows' C . e^cl (dy S),
     //     added to this warp's row sums of dG * G
-    {
+    if (n_cols) {
       float acc[2][4] = {};
       scan::gemm<2>(acc, scan::RowsA(dy_s, LD, mi),
                     scan::elem_b([&](int pp, int n) { return S_s[pp * LD + n0 + n]; }), 0, P);
@@ -411,7 +433,7 @@ __global__ void __launch_bounds__(CT, 1) ssd_bwd_chunk_kernel(const Params p) {
     }
 
     // (4) dB += dG^T C (over i >= mi) + dec * (xs dS)
-    {
+    if (n_cols) {
       scan::gemm<2>(dB_acc, scan::elem_a([&](int m, int i) { return dG_s[i * LD + mi + m]; }),
                     scan::elem_b([&](int i, int n) { return C_s[i * LD + n0 + n]; }), mi, CH);
       float acc[2][4] = {};
@@ -468,6 +490,7 @@ __global__ void __launch_bounds__(CT, 1) ssd_bwd_chunk_kernel(const Params p) {
   }
 
   // this group's dB and dC rows
+  if (!n_cols) return;
   const long long pb = (((long long)b * p.n_groups + grp) * p.T + t0) * N;
   const long long pc = pb + (long long)p.Bt * p.n_groups * p.T * N;
   scan::for_each_acc<2>(dB_acc, [&](int m, int n, float v) {
@@ -480,10 +503,11 @@ __global__ void __launch_bounds__(CT, 1) ssd_bwd_chunk_kernel(const Params p) {
 
 // ------------------------------------------------------------------ (c) sums over groups
 
-// dB[b][t][n], dC[b][t][n] = sums over the head groups, in a fixed order; a block per
-// (4 rows, batch)
+// dB[b][t][n], dC[b][t][n] = sums over the head groups, in a fixed order; a block of 256
+// threads per (256 / N rows, batch)
+template <int N>
 __global__ void ssd_bwd_reduce_kernel(const Params p) {
-  const int t = blockIdx.x * 4 + (threadIdx.x >> 6), n = threadIdx.x & 63, b = blockIdx.y;
+  const int t = blockIdx.x * (256 / N) + threadIdx.x / N, n = threadIdx.x % N, b = blockIdx.y;
   if (t >= p.T) return;
   const long long stride = (long long)p.T * N, half = (long long)p.Bt * p.n_groups * stride;
   const float* src = p.dBC_part + (long long)b * p.n_groups * stride + (long long)t * N + n;
@@ -503,35 +527,23 @@ __global__ void ssd_bwd_dA_reduce_kernel(const Params p) {
   p.dA[h] = acc;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Floats of the workspace ssd_bwd needs: dS at every 64-row chunk, dB and dC summed per
-// group of 8 heads, and dA's partials.
-long long ssd_bwd_workspace_floats(int Bt, int T, int H) {
-  const long long nc = (T + CH - 1) / CH, groups = (H + HG - 1) / HG;
-  return (long long)Bt * nc * H * P * N + 2LL * Bt * groups * T * N + (long long)Bt * nc * H;
-}
-
-// Per kernel of ssd_bwd (0 the state pass, 1 the chunk pass, 2 the dB and dC sums, 3 dA's
-// sum): the threads of a block, the dynamic shared memory a block takes, and how many
-// blocks an SM holds.  Returns a cudaError_t.
-int ssd_bwd_occupancy(int kernel, int* threads, int* smem, int* blocks_per_sm) {
+template <int P, int N>
+int occupancy(int kernel, int* threads, int* smem, int* blocks_per_sm) {
+  using Sh = Shape<P, N>;
   cudaError_t err = cudaErrorInvalidValue;
   if (kernel == 0) {
-    *threads = ST_THREADS, *smem = (int)ST_SMEM;
-    if ((err = scan::prepare_smem(ssd_bwd_state_kernel, ST_SMEM)) == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, ssd_bwd_state_kernel,
-                                                          ST_THREADS, ST_SMEM);
+    *threads = Sh::ST_THREADS, *smem = (int)Sh::ST_SMEM;
+    if ((err = scan::prepare_smem(ssd_bwd_state_kernel<P, N>, Sh::ST_SMEM)) == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, ssd_bwd_state_kernel<P, N>, Sh::ST_THREADS, Sh::ST_SMEM);
   } else if (kernel == 1) {
     *threads = CT, *smem = (int)CHUNK_SMEM;
-    if ((err = scan::prepare_smem(ssd_bwd_chunk_kernel, CHUNK_SMEM)) == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, ssd_bwd_chunk_kernel,
-                                                          CT, CHUNK_SMEM);
+    if ((err = scan::prepare_smem(ssd_bwd_chunk_kernel<P, N>, CHUNK_SMEM)) == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, ssd_bwd_chunk_kernel<P, N>, CT, CHUNK_SMEM);
   } else if (kernel == 2) {
     *threads = 256, *smem = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, ssd_bwd_reduce_kernel,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, ssd_bwd_reduce_kernel<N>,
                                                         256, 0);
   } else if (kernel == 3) {
     *threads = 128, *smem = 0;
@@ -541,15 +553,53 @@ int ssd_bwd_occupancy(int kernel, int* threads, int* smem, int* blocks_per_sm) {
   return err;
 }
 
+template <int P, int N>
+int launch(const Params& p, cudaStream_t st) {
+  using Sh = Shape<P, N>;
+  cudaError_t err = scan::prepare_smem(ssd_bwd_state_kernel<P, N>, Sh::ST_SMEM);
+  if (err != cudaSuccess) return err;
+  ssd_bwd_state_kernel<P, N><<<p.Bt * p.H, Sh::ST_THREADS, Sh::ST_SMEM, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = scan::prepare_smem(ssd_bwd_chunk_kernel<P, N>, CHUNK_SMEM)) != cudaSuccess)
+    return err;
+  ssd_bwd_chunk_kernel<P, N><<<dim3(p.n_chunks, p.Bt, p.n_groups), CT, CHUNK_SMEM, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_reduce_kernel<N><<<dim3((p.T + 256 / N - 1) / (256 / N), p.Bt), 256, 0, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_dA_reduce_kernel<<<(p.H + 127) / 128, 128, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of the workspace ssd_bwd needs: dS at every 64-row chunk, dB and dC summed per
+// group of 8 heads, and dA's partials.
+long long ssd_bwd_workspace_floats(int Bt, int T, int H, int P, int N) {
+  const long long nc = (T + CH - 1) / CH, groups = (H + HG - 1) / HG;
+  return (long long)Bt * nc * H * P * N + 2LL * Bt * groups * T * N + (long long)Bt * nc * H;
+}
+
+// Per kernel of ssd_bwd at sizes (P, N) (0 the state pass, 1 the chunk pass, 2 the dB and
+// dC sums, 3 dA's sum): the threads of a block, the dynamic shared memory a block takes,
+// and how many blocks an SM holds.  Returns a cudaError_t.
+int ssd_bwd_occupancy(int P, int N, int kernel, int* threads, int* smem, int* blocks_per_sm) {
+  if (P == 64 && N == 64) return occupancy<64, 64>(kernel, threads, smem, blocks_per_sm);
+  if (P == 32 && N == 16) return occupancy<32, 16>(kernel, threads, smem, blocks_per_sm);
+  return cudaErrorInvalidValue;
+}
+
 // Returns a cudaError_t: 0 when the four kernels were launched.  All tensors are contiguous
-// fp32; P = N = 64 and chunk 128 (the forward's; this walks 64 rows at a time) are the
-// compiled sizes; S_chunks is what ssd_fwd writes to s_chunks; ds_out may be null (zero);
-// `work` holds ssd_bwd_workspace_floats(Bt, T, H) floats.
+// fp32; (P, N) = (64, 64) or (32, 16) and chunk 128 (the forward's; this walks 64 rows at
+// a time) are the compiled sizes, any other is refused; S_chunks is what ssd_fwd writes
+// to s_chunks; ds_out may be null (zero); `work` holds ssd_bwd_workspace_floats(Bt, T, H,
+// P, N) floats.
 int ssd_bwd(const float* x, const float* dt, const float* A, const float* Bm, const float* Cm,
             const float* S_chunks, const float* dy, const float* ds_out, float* dx, float* ddt,
-            float* dA, float* dB, float* dC, float* ds0, int Bt, int T, int H, int P_, int N_,
+            float* dA, float* dB, float* dC, float* ds0, int Bt, int T, int H, int P, int N,
             int chunk, void* work, void* stream) {
-  if (P_ != P || N_ != N || chunk != 128 || T <= 0) return cudaErrorInvalidValue;
+  if (chunk != 128 || T <= 0) return cudaErrorInvalidValue;
   const int n_chunks = (T + CH - 1) / CH, n_groups = (H + HG - 1) / HG;
   float* ws = static_cast<float*>(work);
   float* dS_chunks = ws;
@@ -559,17 +609,9 @@ int ssd_bwd(const float* x, const float* dt, const float* A, const float* Bm, co
                  dA, dB,  dC, ds0,       dS_chunks, dBC_part, dA_part, Bt, T, H, n_chunks,
                  n_groups};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = scan::prepare_smem(ssd_bwd_state_kernel, ST_SMEM);
-  if (err != cudaSuccess) return err;
-  ssd_bwd_state_kernel<<<Bt * H, ST_THREADS, ST_SMEM, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = scan::prepare_smem(ssd_bwd_chunk_kernel, CHUNK_SMEM)) != cudaSuccess) return err;
-  ssd_bwd_chunk_kernel<<<dim3(n_chunks, Bt, n_groups), CT, CHUNK_SMEM, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_reduce_kernel<<<dim3((T + 3) / 4, Bt), 256, 0, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_dA_reduce_kernel<<<(H + 127) / 128, 128, 0, st>>>(p);
-  return cudaGetLastError();
+  if (P == 64 && N == 64) return launch<64, 64>(p, st);
+  if (P == 32 && N == 16) return launch<32, 16>(p, st);
+  return cudaErrorInvalidValue;
 }
 
 const char* ssd_bwd_error_string(int err) {

@@ -45,6 +45,11 @@
 //   * the ragged last chunk is masked here (rows past T read as r = k = v = 0, w = 1),
 //     which keeps the final state exact without padding in device memory;
 //   * no atomics and a fixed order of every sum: reruns are bit-identical.
+// The head size D = K = V is a template parameter: one instance for each size the repo's
+// configs give (64, and 32 in their reduced forms), the extern "C" entry dispatching on it.
+// At D = 32 a state-pass block's four warps split its 32 value columns in two halves over
+// the two 16-row key blocks, and the shared rows keep their bank-conflict-free strides
+// (D + 8 for rows read as [k][m] fragments, D + 4 for [m][k]).
 
 #include <cuda_runtime.h>
 
@@ -56,13 +61,24 @@ namespace {
 
 constexpr int NTHREADS = 128;                   // 4 warps
 constexpr int CH = 64;                          // rows per chunk
-constexpr int D = 64;                           // K = V
 constexpr int VT = 32;                          // value columns of one state-pass block
-constexpr int LDK = 72;                         // state pass: rows read as [k][m] fragments
-constexpr int LDV = VT + 8;
-constexpr int LDR = 68;                         // output pass: rows read as [m][k] fragments
-constexpr int LDS = 72;
 constexpr float CLAMP2 = 30.f * scan::LOG2E;    // the reference's exponent clamp (30), in log2
+
+// The strides and the state pass's warp split of head size D = K = V.
+template <int D>
+struct Shape {
+  static_assert(D % 32 == 0 && D <= 64, "D is 32 or 64");
+  static constexpr int LDK = D + 8;             // state pass: rows read as [k][m] fragments
+  static constexpr int LDV = VT + 8;
+  static constexpr int LDR = D + 4;             // output pass: rows read as [m][k] fragments
+  static constexpr int LDS = D + 8;
+  static constexpr int KR = D / 16;             // state pass: 16-row key blocks, one a warp,
+  static constexpr int WV = VT * KR / 4;        // and each warp's value columns of the block's VT
+  static constexpr int ST_STAGE = 2 * CH * LDK + CH * LDV;    // k, w (then cl), v tile
+  static constexpr size_t ST_SMEM = 2 * ST_STAGE * sizeof(float);
+  static constexpr int DG = 2 * 8 * 8;          // a warp's two 8 x 8 diagonal sub-blocks
+  static constexpr size_t OUT_SMEM = (4 * CH * LDR + D * LDS + D + 4 * DG) * sizeof(float);
+};
 
 struct Params {
   const float* r;
@@ -81,17 +97,18 @@ __device__ __forceinline__ float exp2c(float x) { return scan::ex2(fminf(x, CLAM
 
 // ------------------------------------------------------------------ (a) state pass
 
-constexpr int ST_STAGE = 2 * CH * LDK + CH * LDV;    // k, w (then cl), v tile
-constexpr size_t ST_SMEM = 2 * ST_STAGE * sizeof(float);
-
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 2) wkv6_state_kernel(const Params p) {
+  using Sh = Shape<D>;
+  constexpr int LDK = Sh::LDK, LDV = Sh::LDV, ST_STAGE = Sh::ST_STAGE, NTW = Sh::WV / 8;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int v0 = blockIdx.x * VT, bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const long long row = (long long)p.H * D;
   const long long base = (long long)b * p.T * row + (long long)h * D;
-  const int m0 = 16 * warp;                    // this warp's key rows
+  const int m0 = 16 * (warp % Sh::KR);         // this warp's key rows
+  const int vw = Sh::WV * (warp / Sh::KR);     // and its value columns, from v0
 
   auto load_chunk = [&](int c, int stage) {
     float* k_s = smem + stage * ST_STAGE;
@@ -103,11 +120,11 @@ __global__ void __launch_bounds__(NTHREADS, 2) wkv6_state_kernel(const Params p)
     scan::cp_async_commit();
   };
 
-  // S[m0 .. m0+15][v0 .. v0+VT) as VT/8 accumulator tiles
-  float S[VT / 8][4];
-  const long long sidx = (long long)bh * D * D + v0;
+  // S[m0 .. m0+15][v0 + vw .. v0 + vw + WV) as NTW accumulator tiles
+  float S[NTW][4];
+  const long long sidx = (long long)bh * D * D + v0 + vw;
 #pragma unroll
-  for (int nt = 0; nt < VT / 8; ++nt) {
+  for (int nt = 0; nt < NTW; ++nt) {
     const float* s = p.s0 + sidx + (m0 + g) * D + 8 * nt + 2 * t;
     const float2 a = *reinterpret_cast<const float2*>(s);
     const float2 c = *reinterpret_cast<const float2*>(s + 8 * D);
@@ -120,9 +137,9 @@ __global__ void __launch_bounds__(NTHREADS, 2) wkv6_state_kernel(const Params p)
     float* cl_s = k_s + CH * LDK;
     const float* v_s = cl_s + CH * LDK;
     {
-      float* out = p.S_chunks + (((long long)b * p.n_chunks + c) * p.H + h) * D * D + v0;
+      float* out = p.S_chunks + (((long long)b * p.n_chunks + c) * p.H + h) * D * D + v0 + vw;
 #pragma unroll
-      for (int nt = 0; nt < VT / 8; ++nt) {
+      for (int nt = 0; nt < NTW; ++nt) {
         float* s = out + (m0 + g) * D + 8 * nt + 2 * t;
         *reinterpret_cast<float2*>(s) = make_float2(S[nt][0], S[nt][1]);
         *reinterpret_cast<float2*>(s + 8 * D) = make_float2(S[nt][2], S[nt][3]);
@@ -131,14 +148,14 @@ __global__ void __launch_bounds__(NTHREADS, 2) wkv6_state_kernel(const Params p)
     scan::cp_async_wait<0>();
     __syncthreads();            // chunk c has landed; every warp is done with chunk c-1
     if (c + 1 < p.n_chunks) load_chunk(c + 1, (c + 1) & 1);
-    scan::log2_cumsum<LDK, NTHREADS>(cl_s, p.T - c * CH, tid);
+    scan::log2_cumsum<LDK, NTHREADS, D>(cl_s, p.T - c * CH, tid);
     __syncthreads();
 
     // S' = 2^cl_last S + kd^T v, kd_jk = k_jk 2^(cl_last,k - cl_jk); A = kd^T [k rows][j]
     const float last0 = cl_s[(CH - 1) * LDK + m0 + g], last1 = cl_s[(CH - 1) * LDK + m0 + g + 8];
     const float d0 = scan::ex2(last0), d1 = scan::ex2(last1);
 #pragma unroll
-    for (int nt = 0; nt < VT / 8; ++nt) {
+    for (int nt = 0; nt < NTW; ++nt) {
       S[nt][0] *= d0, S[nt][1] *= d0;
       S[nt][2] *= d1, S[nt][3] *= d1;
     }
@@ -149,15 +166,15 @@ __global__ void __launch_bounds__(NTHREADS, 2) wkv6_state_kernel(const Params p)
                                          k_s[o0 + 8] * exp2c(last1 - cl_s[o0 + 8]),
                                          k_s[o1] * exp2c(last0 - cl_s[o1]),
                                          k_s[o1 + 8] * exp2c(last1 - cl_s[o1 + 8]));
-      const float* vr = v_s + (8 * kj + t) * LDV + g;
+      const float* vr = v_s + (8 * kj + t) * LDV + vw + g;
 #pragma unroll
-      for (int nt = 0; nt < VT / 8; ++nt)
+      for (int nt = 0; nt < NTW; ++nt)
         scan::mma(S[nt], a, scan::frag_b(vr[8 * nt], vr[4 * LDV + 8 * nt]));
     }
   }
 
 #pragma unroll
-  for (int nt = 0; nt < VT / 8; ++nt) {
+  for (int nt = 0; nt < NTW; ++nt) {
     float* s = p.s_out + sidx + (m0 + g) * D + 8 * nt + 2 * t;
     *reinterpret_cast<float2*>(s) = make_float2(S[nt][0], S[nt][1]);
     *reinterpret_cast<float2*>(s + 8 * D) = make_float2(S[nt][2], S[nt][3]);
@@ -166,10 +183,10 @@ __global__ void __launch_bounds__(NTHREADS, 2) wkv6_state_kernel(const Params p)
 
 // ------------------------------------------------------------------ (b) output pass
 
-constexpr int DG = 2 * 8 * 8;                   // a warp's two 8 x 8 diagonal sub-blocks
-constexpr size_t OUT_SMEM = (4 * CH * LDR + D * LDS + D + 4 * DG) * sizeof(float);
-
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 3) wkv6_out_kernel(const Params p) {
+  using Sh = Shape<D>;
+  constexpr int LDR = Sh::LDR, LDS = Sh::LDS, DG = Sh::DG;
   extern __shared__ __align__(16) float smem[];
   float* r_s = smem;                  // [CH][LDR]
   float* k_s = r_s + CH * LDR;
@@ -195,7 +212,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) wkv6_out_kernel(const Params p) {
   if (tid < D) u_s[tid] = p.u[(long long)h * D + tid];
   scan::cp_async_wait<0>();
   __syncthreads();
-  scan::log2_cumsum<LDR, NTHREADS>(cl_s, valid, tid);
+  scan::log2_cumsum<LDR, NTHREADS, D>(cl_s, valid, tid);
   __syncthreads();
 
   const int i0 = 16 * warp;           // this warp's rows: i0 .. i0+15
@@ -317,35 +334,46 @@ __global__ void __launch_bounds__(NTHREADS, 3) wkv6_out_kernel(const Params p) {
   }
 }
 
+template <int D>
+int launch(const Params& p, cudaStream_t st) {
+  using Sh = Shape<D>;
+  cudaError_t err = cudaFuncSetAttribute(wkv6_state_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Sh::ST_SMEM);
+  if (err != cudaSuccess) return err;
+  wkv6_state_kernel<D><<<dim3(D / VT, p.B * p.H), NTHREADS, Sh::ST_SMEM, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wkv6_out_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Sh::OUT_SMEM);
+  if (err != cudaSuccess) return err;
+  wkv6_out_kernel<D><<<dim3(p.n_chunks, p.B * p.H), NTHREADS, Sh::OUT_SMEM, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Floats of the workspace wkv6_fwd needs: the state at every 64-row chunk's start.
-long long wkv6_workspace_floats(int B, int T, int H) {
-  return (long long)B * ((T + CH - 1) / CH) * H * D * D;
+long long wkv6_workspace_floats(int B, int T, int H, int head) {
+  return (long long)B * ((T + CH - 1) / CH) * H * head * head;
 }
 
 // Returns a cudaError_t: 0 when both kernels were launched.  All tensors are contiguous
-// fp32; K = V = head (64) and chunk (64) are the compiled sizes; `work` holds
-// wkv6_workspace_floats(B, T, H) floats.
+// fp32; K = V = head (32 or 64) and chunk (64) are the compiled sizes, any other is
+// refused; `work` holds wkv6_workspace_floats(B, T, H, head) floats.
 int wkv6_fwd(const float* r, const float* k, const float* v, const float* w, const float* u,
              const float* s0, float* y, float* s_out, int B, int T, int H, int head, int chunk,
              void* work, void* stream) {
-  if (head != D || chunk != CH || T <= 0) return cudaErrorInvalidValue;
+  if (chunk != CH || T <= 0) return cudaErrorInvalidValue;
   const int n_chunks = (T + CH - 1) / CH;
   const Params p{r, k, v, w, u, s0, y, s_out, static_cast<float*>(work), B, T, H, n_chunks};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(wkv6_state_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ST_SMEM);
-  if (err != cudaSuccess) return err;
-  wkv6_state_kernel<<<dim3(D / VT, B * H), NTHREADS, ST_SMEM, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wkv6_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)OUT_SMEM);
-  if (err != cudaSuccess) return err;
-  wkv6_out_kernel<<<dim3(n_chunks, B * H), NTHREADS, OUT_SMEM, st>>>(p);
-  return cudaGetLastError();
+  switch (head) {
+    case 32: return launch<32>(p, st);
+    case 64: return launch<64>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* wkv6_error_string(int err) {

@@ -71,6 +71,11 @@
 //   * the ragged last chunk is masked (rows past T read as r = k = v = dy = 0, w = 1) and
 //     not written;
 //   * no atomics and a fixed order of every sum: reruns are bit-identical.
+// The head size D = K = V is a template parameter, instantiated for 64 and for the reduced
+// configs' 32 and chosen by the extern "C" entry.  At D = 32 the state pass splits its
+// warps as the forward's does, and each chunk-pass warp holds 16 keys (two 8-column tiles)
+// in place of 32; the chunk pass's tiles keep rows of 68 floats, since datt and att^T are
+// [64][64] whatever D is.
 
 #include <cuda_runtime.h>
 
@@ -79,13 +84,28 @@
 namespace {
 
 constexpr int CH = 64;                          // rows per chunk
-constexpr int D = 64;                           // K = V
 constexpr int VT = 32;                          // value columns of one state-pass block
 constexpr int ST_THREADS = 128;
 constexpr int CT = 256;                         // chunk-pass threads: 8 warps
-constexpr int LDK = 72;
 constexpr int LDV = VT + 8;
-constexpr int LD = 68;
+constexpr int LD = CH + 4;                      // chunk pass: [64][D] and [64][64] tiles
+
+// The state pass's strides and warp split for head size D = K = V (32 or 64), as in the
+// forward: KR 16-row key blocks, each warp WV of the block's VT value columns; the chunk
+// pass's keys (or value columns) a warp, NTW 8-column tiles.
+template <int D>
+struct Shape {
+  static_assert(D % 32 == 0 && D <= 64, "D is 32 or 64");
+  static constexpr int LDK = D + 8;
+  static constexpr int KR = D / 16;
+  static constexpr int WV = VT * KR / 4;
+  static constexpr int ST_STAGE = 2 * CH * LDK + CH * LDV;    // r, w (then cl), dy
+  static constexpr size_t ST_SMEM = 2 * ST_STAGE * sizeof(float);
+  static constexpr int NTW = D / 16;
+  // u, S.dS; k.x2; att's diagonal
+  static constexpr int SMALL = 2 * D + 4 * D + 2 * CH * 8 + 2 * CH;
+  static constexpr size_t CHUNK_SMEM = (6 * CH * LD + SMALL) * sizeof(float);
+};
 
 struct Params {
   const float* r;
@@ -109,17 +129,18 @@ struct Params {
 
 // ------------------------------------------------------------------ (a) reverse state pass
 
-constexpr int ST_STAGE = 2 * CH * LDK + CH * LDV;    // r, w (then cl), dy
-constexpr size_t ST_SMEM = 2 * ST_STAGE * sizeof(float);
-
+template <int D>
 __global__ void __launch_bounds__(ST_THREADS, 2) wkv6_bwd_state_kernel(const Params p) {
+  using Sh = Shape<D>;
+  constexpr int LDK = Sh::LDK, ST_STAGE = Sh::ST_STAGE, NTW = Sh::WV / 8;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int v0 = blockIdx.x * VT, bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const long long row = (long long)p.H * D;
   const long long base = (long long)b * p.T * row + (long long)h * D;
-  const int m0 = 16 * warp;                    // this warp's key rows
+  const int m0 = 16 * (warp % Sh::KR);         // this warp's key rows
+  const int vw = Sh::WV * (warp / Sh::KR);     // and its value columns, from v0
 
   auto load_chunk = [&](int c, int stage) {
     float* r_s = smem + stage * ST_STAGE;
@@ -131,11 +152,11 @@ __global__ void __launch_bounds__(ST_THREADS, 2) wkv6_bwd_state_kernel(const Par
     scan::cp_async_commit();
   };
 
-  // dS[m0 .. m0+15][v0 .. v0+VT) as VT/8 accumulator tiles
-  float dS[VT / 8][4];
-  const long long sidx = (long long)bh * D * D + v0;
+  // dS[m0 .. m0+15][v0 + vw .. v0 + vw + WV) as NTW accumulator tiles
+  float dS[NTW][4];
+  const long long sidx = (long long)bh * D * D + v0 + vw;
 #pragma unroll
-  for (int nt = 0; nt < VT / 8; ++nt) {
+  for (int nt = 0; nt < NTW; ++nt) {
     float2 a = make_float2(0.f, 0.f), c = a;
     if (p.ds_out) {
       const float* s = p.ds_out + sidx + (m0 + g) * D + 8 * nt + 2 * t;
@@ -151,9 +172,9 @@ __global__ void __launch_bounds__(ST_THREADS, 2) wkv6_bwd_state_kernel(const Par
     float* cl_s = r_s + CH * LDK;
     const float* dy_s = cl_s + CH * LDK;
     {
-      float* out = p.dS_chunks + (((long long)b * p.n_chunks + c) * p.H + h) * D * D + v0;
+      float* out = p.dS_chunks + (((long long)b * p.n_chunks + c) * p.H + h) * D * D + v0 + vw;
 #pragma unroll
-      for (int nt = 0; nt < VT / 8; ++nt) {
+      for (int nt = 0; nt < NTW; ++nt) {
         float* s = out + (m0 + g) * D + 8 * nt + 2 * t;
         *reinterpret_cast<float2*>(s) = make_float2(dS[nt][0], dS[nt][1]);
         *reinterpret_cast<float2*>(s + 8 * D) = make_float2(dS[nt][2], dS[nt][3]);
@@ -162,26 +183,26 @@ __global__ void __launch_bounds__(ST_THREADS, 2) wkv6_bwd_state_kernel(const Par
     scan::cp_async_wait<0>();
     __syncthreads();            // chunk c has landed; every warp is done with chunk c+1
     if (c > 0) load_chunk(c - 1, (p.n_chunks - c) & 1);
-    scan::log2_cumsum<LDK, ST_THREADS>(cl_s, p.T - c * CH, tid);
+    scan::log2_cumsum<LDK, ST_THREADS, D>(cl_s, p.T - c * CH, tid);
     __syncthreads();
 
     // dS = 2^cl_last * dS + Q^T dy, Q_ik = r_ik 2^clp_ik; A = Q^T [key rows][i]
     const float d0 = scan::ex2(cl_s[(CH - 1) * LDK + m0 + g]);
     const float d1 = scan::ex2(cl_s[(CH - 1) * LDK + m0 + g + 8]);
 #pragma unroll
-    for (int nt = 0; nt < VT / 8; ++nt) {
+    for (int nt = 0; nt < NTW; ++nt) {
       dS[nt][0] *= d0, dS[nt][1] *= d0;
       dS[nt][2] *= d1, dS[nt][3] *= d1;
     }
-    scan::gemm<VT / 8>(dS, scan::elem_a([&](int m, int i) {
+    scan::gemm<NTW>(dS, scan::elem_a([&](int m, int i) {
                          const int kk = m0 + m;
                          return r_s[i * LDK + kk] * (i ? scan::ex2(cl_s[(i - 1) * LDK + kk]) : 1.f);
                        }),
-                       scan::elem_b([&](int i, int n) { return dy_s[i * LDV + n]; }), 0, CH);
+                       scan::elem_b([&](int i, int n) { return dy_s[i * LDV + vw + n]; }), 0, CH);
   }
 
 #pragma unroll
-  for (int nt = 0; nt < VT / 8; ++nt) {
+  for (int nt = 0; nt < NTW; ++nt) {
     float* s = p.ds0 + sidx + (m0 + g) * D + 8 * nt + 2 * t;
     *reinterpret_cast<float2*>(s) = make_float2(dS[nt][0], dS[nt][1]);
     *reinterpret_cast<float2*>(s + 8 * D) = make_float2(dS[nt][2], dS[nt][3]);
@@ -191,10 +212,10 @@ __global__ void __launch_bounds__(ST_THREADS, 2) wkv6_bwd_state_kernel(const Par
 // ------------------------------------------------------------------ (b) chunk pass
 
 constexpr int TILE = CH * LD;
-constexpr int SMALL = 2 * D + 4 * D + 2 * CH * 8 + 2 * CH;   // u, S.dS; k.x2; att's diagonal
-constexpr size_t CHUNK_SMEM = (6 * TILE + SMALL) * sizeof(float);
 
+template <int D>
 __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
+  constexpr int NTW = Shape<D>::NTW, X = 2 * NTW;   // a warp's key tiles, and keys a lane
   extern __shared__ __align__(16) float smem[];
   float* dy_s = smem;                // [i][v], then dclp [i][k]
   float* v_s = dy_s + TILE;          // [j][v], then r [i][k]
@@ -220,8 +241,8 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
   const long long row = (long long)p.H * D;
   const long long base = (long long)b * p.T * row + (long long)h * D;
   const long long sbase = (((long long)b * p.n_chunks + c) * p.H + h) * D * D;
-  // this warp: rows i0 .. i0+15 (row block R) and keys (or value columns) n0 .. n0+31
-  const int R = warp >> 1, hf = warp & 1, i0 = 16 * R, n0 = 32 * hf;
+  // this warp: rows i0 .. i0+15 (row block R) and keys (or value columns) n0 .. n0+D/2-1
+  const int R = warp >> 1, hf = warp & 1, i0 = 16 * R, n0 = (D / 2) * hf;
 
   scan::load_rows<CH, D, LD, CT>(dy_s, p.dy + base, row, t0, p.T, tid);
   scan::load_rows<CH, D, LD, CT>(v_s, p.v + base, row, t0, p.T, tid);
@@ -236,7 +257,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
   // (1) datt = dy v^T on and below the diagonal blocks (this warp: the 8-column tiles
   //     2q + hf, q <= R, of row block R), x1 = dy S^T and x2 = v dS^T (keys n0..), the
   //     row sums of S * dS
-  float x1[4][4] = {}, x2[4][4] = {};
+  float x1[NTW][4] = {}, x2[NTW][4] = {};
   {
     float acc[4][4] = {};
     const scan::RowsA dy_rows(dy_s, LD, i0);
@@ -248,7 +269,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
       for (int q = 0; q < 4; ++q)
         if (q <= R) scan::mma(acc[q], a, vt(k0, 2 * q));
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) scan::mma(x1[nt], a, st(k0, nt));
+      for (int nt = 0; nt < NTW; ++nt) scan::mma(x1[nt], a, st(k0, nt));
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -258,8 +279,8 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
       *reinterpret_cast<float2*>(o + 8 * LD) = make_float2(acc[q][2], acc[q][3]);
     }
   }
-  scan::gemm<4>(x2, scan::RowsA(v_s, LD, i0), scan::ColsB(dS_s, LD, n0), 0, D);
-  {
+  scan::gemm<NTW>(x2, scan::RowsA(v_s, LD, i0), scan::ColsB(dS_s, LD, n0), 0, D);
+  if (tid < 4 * D) {                 // warp-uniform
     const int kk = tid >> 2, q = tid & 3;
     float x = 0.f;
 #pragma unroll
@@ -272,7 +293,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
   scan::load_rows<CH, D, LD, CT>(r_s, p.r + base, row, t0, p.T, tid);
   scan::load_rows<CH, D, LD, CT>(k_s, p.k + base, row, t0, p.T, tid);
   scan::cp_async_commit();
-  scan::log2_cumsum<LD, CT>(cl_s, valid, tid);
+  scan::log2_cumsum<LD, CT, D>(cl_s, valid, tid);
   scan::cp_async_wait<0>();
   __syncthreads();
 
@@ -283,7 +304,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
 
   // (2) x1 = 2^clp * (dy S^T), x2 = 2^(cl_last - cl) * (v dS^T); the column sums of k * x2
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int i = i0 + g + 8 * (q >> 1), kk = key_of(nt, q);
@@ -291,7 +312,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
       x2[nt][q] *= scan::ex2(clL[kk] - cl_s[i * LD + kk]);
     }
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int kk = key_of(nt, e);
@@ -305,14 +326,14 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
   // (3) the two 8 x 8 diagonal sub-blocks of row block R, one exponential per (i, j < i,
   //     key): a lane's row rho takes datt's terms of dr from the rows j < rho of its
   //     sub-block and of dk from the rows i > rho, into x1 and x2; att's pairs and the u
-  //     bonus are summed over this warp's 32 keys
+  //     bonus are summed over this warp's D/2 keys
 #pragma unroll
   for (int hb = 0; hb < 2; ++hb) {
     const int s0 = i0 + 8 * hb, rho = s0 + g;
-    float own_cl[8], own_clp[8], own_r[8];
+    float own_cl[X], own_clp[X], own_r[X];
     float bonus = 0.f;
 #pragma unroll
-    for (int x = 0; x < 8; ++x) {
+    for (int x = 0; x < X; ++x) {
       const int kk = key_of(x >> 1, x);
       own_cl[x] = cl_s[rho * LD + kk];
       own_clp[x] = clp(rho, kk);
@@ -327,7 +348,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
       const float cdk = hi ? datt_s[sig * LD + rho] : 0.f;
       float pair = 0.f;
 #pragma unroll
-      for (int x = 0; x < 8; ++x) {
+      for (int x = 0; x < X; ++x) {
         const int kk = key_of(x >> 1, x);
         const float ks = k_s[sig * LD + kk];
         const float ex = scan::ex2(
@@ -384,8 +405,8 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
   }
 
   // (5) dv = (k 2^(cl_last - cl)) dS (value columns n0..)
-  float dv[4][4] = {};
-  scan::gemm<4>(dv, scan::elem_a([&](int m, int kk) {
+  float dv[NTW][4] = {};
+  scan::gemm<NTW>(dv, scan::elem_a([&](int m, int kk) {
                   const int j = i0 + m;
                   return k_s[j * LD + kk] * scan::ex2(clL[kk] - cl_s[j * LD + kk]);
                 }),
@@ -418,7 +439,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
   __syncthreads();
 
   // (7) dv += att^T dy over i >= i0 (att_ij = 0 for i < j); dv out
-  scan::gemm<4>(dv, scan::RowsA(attT_s, LD, i0),
+  scan::gemm<NTW>(dv, scan::RowsA(attT_s, LD, i0),
                 scan::elem_b([&](int i, int n) { return dy_s[i * LD + n0 + n]; }), i0, CH);
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
@@ -426,7 +447,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
     if (j >= valid) continue;
     float* o = p.dv + base + (long long)(t0 + j) * row + n0 + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NTW; ++nt)
       *reinterpret_cast<float2*>(o + 8 * nt) = make_float2(dv[nt][2 * x], dv[nt][2 * x + 1]);
   }
 
@@ -434,14 +455,14 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
   //     then rows i0+8.. from rows i0 .. i0+7 through clp at row i0+8
   if (R > 0) {
     const float* ref = cl_s + (i0 - 1) * LD;
-    float acc[4][4] = {};
-    scan::gemm<4>(acc, scan::RowsA(datt_s, LD, i0), scan::elem_b([&](int j, int n) {
+    float acc[NTW][4] = {};
+    scan::gemm<NTW>(acc, scan::RowsA(datt_s, LD, i0), scan::elem_b([&](int j, int n) {
                     const int kk = n0 + n;
                     return k_s[j * LD + kk] * scan::ex2(ref[kk] - cl_s[j * LD + kk]);
                   }),
                   0, i0);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int i = i0 + g + 8 * (q >> 1), kk = key_of(nt, q);
@@ -452,15 +473,15 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
     const float* ref = cl_s + (i0 + 7) * LD;
     const float* da = datt_s + (i0 + 8 + g) * LD + i0 + t;
     const scan::FragA a = scan::frag_a(0.f, da[0], 0.f, da[4]);
-    float acc[4][4] = {};
+    float acc[NTW][4] = {};
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int nt = 0; nt < NTW; ++nt) {
       const int kk = n0 + 8 * nt + g, o0 = (i0 + t) * LD + kk, o1 = o0 + 4 * LD;
       scan::mma(acc[nt], a, scan::frag_b(k_s[o0] * scan::ex2(ref[kk] - cl_s[o0]),
                                          k_s[o1] * scan::ex2(ref[kk] - cl_s[o1])));
     }
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
       for (int q = 2; q < 4; ++q) {
         const int i = i0 + 8 + g, kk = key_of(nt, q);
@@ -472,15 +493,15 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
   //     then rows i0 .. i0+7 from rows i0+8 .. i0+15 through cl at row i0+7
   if (R < 3) {
     const float* ref = cl_s + (i0 + 15) * LD;
-    float acc[4][4] = {};
-    scan::gemm<4>(acc, scan::elem_a([&](int m, int i) { return datt_s[i * LD + i0 + m]; }),
+    float acc[NTW][4] = {};
+    scan::gemm<NTW>(acc, scan::elem_a([&](int m, int i) { return datt_s[i * LD + i0 + m]; }),
                   scan::elem_b([&](int i, int n) {
                     const int kk = n0 + n;
                     return r_s[i * LD + kk] * scan::ex2(cl_s[(i - 1) * LD + kk] - ref[kk]);
                   }),
                   i0 + 16, CH);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int j = i0 + g + 8 * (q >> 1), kk = key_of(nt, q);
@@ -491,15 +512,15 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
     const float* ref = cl_s + (i0 + 7) * LD;
     const float* da = datt_s + (i0 + 8 + t) * LD + i0 + g;
     const scan::FragA a = scan::frag_a(da[0], 0.f, da[4 * LD], 0.f);
-    float acc[4][4] = {};
+    float acc[NTW][4] = {};
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int nt = 0; nt < NTW; ++nt) {
       const int kk = n0 + 8 * nt + g, o0 = (i0 + 8 + t) * LD + kk, o1 = o0 + 4 * LD;
       scan::mma(acc[nt], a, scan::frag_b(r_s[o0] * scan::ex2(cl_s[o0 - LD] - ref[kk]),
                                          r_s[o1] * scan::ex2(cl_s[o1 - LD] - ref[kk])));
     }
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int j = i0 + g, kk = key_of(nt, q);
@@ -516,7 +537,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
     float* odr = p.dr + base + (long long)(t0 + i) * row + n0 + 2 * t;
     float* odk = p.dk + base + (long long)(t0 + i) * row + n0 + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int nt = 0; nt < NTW; ++nt) {
       const int kk = n0 + 8 * nt + 2 * t;
       const float2 rr = *reinterpret_cast<const float2*>(r_s + i * LD + kk);
       const float2 kq = *reinterpret_cast<const float2*>(k_s + i * LD + kk);
@@ -539,7 +560,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
   //      last = 2^cl_last sum_v S dS + sum_j k_j x2_j (the terms of the chunk's last
   //      row); dw, and du's partial.  Lane (rg, cs) of a warp takes rows 16 rg .. 16 rg +
   //      15 of column 8 warp + cs; a shuffle scan joins the four row groups
-  {
+  if (8 * warp < D) {                // warp-uniform
     const int rg = lane >> 3, kk = 8 * warp + (lane & 7), r0 = 16 * rg;
     float a_cl[16], a_clp[16];
     float tot_cl = 0.f, tot_clp = 0.f, du = 0.f;
@@ -583,6 +604,7 @@ __global__ void __launch_bounds__(CT, 2) wkv6_bwd_chunk_kernel(const Params p) {
 // ------------------------------------------------------------------ (c) du
 
 // du[h][k] = sum over batch and chunks of du_part, in a fixed order
+template <int D>
 __global__ void wkv6_bwd_du_reduce_kernel(const Params p) {
   const int h = blockIdx.x, kk = threadIdx.x;
   float acc = 0.f;
@@ -592,61 +614,83 @@ __global__ void wkv6_bwd_du_reduce_kernel(const Params p) {
   p.du[h * D + kk] = acc;
 }
 
+template <int D>
+int occupancy(int kernel, int* threads, int* smem, int* blocks_per_sm) {
+  using Sh = Shape<D>;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kernel == 0) {
+    *threads = ST_THREADS, *smem = (int)Sh::ST_SMEM;
+    if ((err = scan::prepare_smem(wkv6_bwd_state_kernel<D>, Sh::ST_SMEM)) == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wkv6_bwd_state_kernel<D>,
+                                                          ST_THREADS, Sh::ST_SMEM);
+  } else if (kernel == 1) {
+    *threads = CT, *smem = (int)Sh::CHUNK_SMEM;
+    if ((err = scan::prepare_smem(wkv6_bwd_chunk_kernel<D>, Sh::CHUNK_SMEM)) == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wkv6_bwd_chunk_kernel<D>,
+                                                          CT, Sh::CHUNK_SMEM);
+  } else if (kernel == 2) {
+    *threads = D, *smem = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
+                                                        wkv6_bwd_du_reduce_kernel<D>, D, 0);
+  }
+  return err;
+}
+
+template <int D>
+int launch(const Params& p, cudaStream_t st) {
+  using Sh = Shape<D>;
+  cudaError_t err = scan::prepare_smem(wkv6_bwd_state_kernel<D>, Sh::ST_SMEM);
+  if (err != cudaSuccess) return err;
+  wkv6_bwd_state_kernel<D><<<dim3(D / VT, p.B * p.H), ST_THREADS, Sh::ST_SMEM, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = scan::prepare_smem(wkv6_bwd_chunk_kernel<D>, Sh::CHUNK_SMEM)) != cudaSuccess)
+    return err;
+  wkv6_bwd_chunk_kernel<D><<<dim3(p.n_chunks, p.B * p.H), CT, Sh::CHUNK_SMEM, st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wkv6_bwd_du_reduce_kernel<D><<<p.H, D, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Floats of the workspace wkv6_bwd needs: dS at every 64-row chunk, and du's partials.
-long long wkv6_bwd_workspace_floats(int B, int T, int H) {
+long long wkv6_bwd_workspace_floats(int B, int T, int H, int head) {
   const long long nc = (T + CH - 1) / CH;
-  return (long long)B * nc * H * D * D + (long long)B * nc * H * D;
+  return (long long)B * nc * H * head * head + (long long)B * nc * H * head;
 }
 
-// Per kernel of wkv6_bwd (0 the state pass, 1 the chunk pass, 2 du's sum): the threads of a
-// block, the dynamic shared memory a block takes, and how many blocks an SM holds.
-// Returns a cudaError_t.
-int wkv6_bwd_occupancy(int kernel, int* threads, int* smem, int* blocks_per_sm) {
-  cudaError_t err = cudaErrorInvalidValue;
-  if (kernel == 0) {
-    *threads = ST_THREADS, *smem = (int)ST_SMEM;
-    if ((err = scan::prepare_smem(wkv6_bwd_state_kernel, ST_SMEM)) == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wkv6_bwd_state_kernel,
-                                                          ST_THREADS, ST_SMEM);
-  } else if (kernel == 1) {
-    *threads = CT, *smem = (int)CHUNK_SMEM;
-    if ((err = scan::prepare_smem(wkv6_bwd_chunk_kernel, CHUNK_SMEM)) == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wkv6_bwd_chunk_kernel,
-                                                          CT, CHUNK_SMEM);
-  } else if (kernel == 2) {
-    *threads = D, *smem = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wkv6_bwd_du_reduce_kernel,
-                                                        D, 0);
+// Per kernel of wkv6_bwd at head size `head` (0 the state pass, 1 the chunk pass, 2 du's
+// sum): the threads of a block, the dynamic shared memory a block takes, and how many
+// blocks an SM holds.  Returns a cudaError_t.
+int wkv6_bwd_occupancy(int head, int kernel, int* threads, int* smem, int* blocks_per_sm) {
+  switch (head) {
+    case 32: return occupancy<32>(kernel, threads, smem, blocks_per_sm);
+    case 64: return occupancy<64>(kernel, threads, smem, blocks_per_sm);
+    default: return cudaErrorInvalidValue;
   }
-  return err;
 }
 
 // Returns a cudaError_t: 0 when the three kernels were launched.  All tensors are contiguous
-// fp32; K = V = head (64) and chunk (64) are the compiled sizes; S_chunks is wkv6_fwd's
-// workspace; ds_out may be null (zero); `work` holds wkv6_bwd_workspace_floats(B, T, H).
+// fp32; K = V = head (32 or 64) and chunk (64) are the compiled sizes, any other is
+// refused; S_chunks is wkv6_fwd's workspace; ds_out may be null (zero); `work` holds
+// wkv6_bwd_workspace_floats(B, T, H, head).
 int wkv6_bwd(const float* r, const float* k, const float* v, const float* w, const float* u,
              const float* S_chunks, const float* dy, const float* ds_out, float* dr, float* dk,
              float* dv, float* dw, float* du, float* ds0, int B, int T, int H, int head,
              int chunk, void* work, void* stream) {
-  if (head != D || chunk != CH || T <= 0) return cudaErrorInvalidValue;
+  if (chunk != CH || T <= 0) return cudaErrorInvalidValue;
   const int n_chunks = (T + CH - 1) / CH;
   float* ws = static_cast<float*>(work);
   const Params p{r,  k,  v,  w,  u,   S_chunks, dy, ds_out, dr, dk, dv, dw, du, ds0,
-                 ws, ws + (long long)B * n_chunks * H * D * D, B, T, H, n_chunks};
+                 ws, ws + (long long)B * n_chunks * H * head * head, B, T, H, n_chunks};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = scan::prepare_smem(wkv6_bwd_state_kernel, ST_SMEM);
-  if (err != cudaSuccess) return err;
-  wkv6_bwd_state_kernel<<<dim3(D / VT, B * H), ST_THREADS, ST_SMEM, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = scan::prepare_smem(wkv6_bwd_chunk_kernel, CHUNK_SMEM)) != cudaSuccess) return err;
-  wkv6_bwd_chunk_kernel<<<dim3(n_chunks, B * H), CT, CHUNK_SMEM, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  wkv6_bwd_du_reduce_kernel<<<H, D, 0, st>>>(p);
-  return cudaGetLastError();
+  switch (head) {
+    case 32: return launch<32>(p, st);
+    case 64: return launch<64>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* wkv6_bwd_error_string(int err) {

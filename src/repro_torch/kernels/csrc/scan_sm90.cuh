@@ -101,15 +101,17 @@ __device__ __forceinline__ void mma(float (&d)[4], const FragA& a, const FragB& 
 
 // ---------------------------------------------------------------- WKV6 log-decay cumsum
 
-// In place: s[i][c] (64 x 64, row stride LD) holds w; afterwards the inclusive cumsum of
-// log2(max(w, 1e-30)) down each column.  Rows at or past `valid` count as w = 1.  A warp
-// takes 8 columns at a time: lane (rg, cs) sums rows 16rg..16rg+15 of column cs, then a
-// shuffle scan across the four row groups.  The caller synchronises before and after.
-template <int LD, int NTHREADS>
+// In place: s[i][c] (64 x W, row stride LD; W a multiple of 8) holds w; afterwards the
+// inclusive cumsum of log2(max(w, 1e-30)) down each column.  Rows at or past `valid`
+// count as w = 1.  A warp takes 8 columns at a time: lane (rg, cs) sums rows
+// 16rg..16rg+15 of column cs, then a shuffle scan across the four row groups.  The caller
+// synchronises before and after.
+template <int LD, int NTHREADS, int W>
 __device__ __forceinline__ void log2_cumsum(float* s, int valid, int tid) {
   const int warp = tid >> 5, lane = tid & 31, rg = lane >> 3, cs = lane & 7;
 #pragma unroll
-  for (int c0 = 0; c0 < 64; c0 += 8 * (NTHREADS / 32)) {
+  for (int c0 = 0; c0 < W; c0 += 8 * (NTHREADS / 32)) {
+    if (c0 + 8 * warp >= W) continue;      // warp-uniform: the shuffles below see all lanes
     float* col = s + 16 * rg * LD + c0 + 8 * warp + cs;
     float v[16];
     float run = 0.f;

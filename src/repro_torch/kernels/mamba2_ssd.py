@@ -31,7 +31,8 @@ import torch
 from . import _build, work
 from .rwkv6_scan import aligned
 
-SHAPES = ((64, 64),)  # (P, N), the compiled head and state sizes
+SHAPES = ((32, 16), (64, 64))  # (P, N), the compiled head and state sizes: every
+                               # config's, full and reduced
 CHUNKS = (128,)
 STATE_ROWS = 64       # rows between the chunk states the forward keeps for the backward
 
@@ -55,7 +56,7 @@ def _bwd_kernel():
     fn = lib.ssd_bwd
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
-    lib.ssd_bwd_workspace_floats.argtypes = [ctypes.c_int] * 3
+    lib.ssd_bwd_workspace_floats.argtypes = [ctypes.c_int] * 5
     lib.ssd_bwd_workspace_floats.restype = ctypes.c_longlong
     lib.ssd_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_bwd_error_string.restype = ctypes.c_char_p
@@ -155,7 +156,7 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     dx, ddt, dA, dB, dC = (torch.empty_like(a) for a in (x, dt, A, B, C))
     ds0 = torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
     fn, workspace_floats, err_str = _bwd_kernel()
-    work = torch.empty(workspace_floats(bt, t, h), dtype=torch.float32, device=x.device)
+    work = torch.empty(workspace_floats(bt, t, h, p, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),

@@ -32,7 +32,7 @@ from torch._subclasses.fake_tensor import is_fake
 
 from . import _build, work
 
-HEAD_DIMS = (64,)     # K = V, the compiled head size
+HEAD_DIMS = (32, 64)  # K = V, the compiled head sizes: every config's, full and reduced
 CHUNKS = (64,)
 
 
@@ -42,7 +42,7 @@ def _kernel():
     fn = lib.wkv6_fwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
-    lib.wkv6_workspace_floats.argtypes = [ctypes.c_int] * 3
+    lib.wkv6_workspace_floats.argtypes = [ctypes.c_int] * 4
     lib.wkv6_workspace_floats.restype = ctypes.c_longlong
     lib.wkv6_error_string.argtypes = [ctypes.c_int]
     lib.wkv6_error_string.restype = ctypes.c_char_p
@@ -55,7 +55,7 @@ def _bwd_kernel():
     fn = lib.wkv6_bwd
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
-    lib.wkv6_bwd_workspace_floats.argtypes = [ctypes.c_int] * 3
+    lib.wkv6_bwd_workspace_floats.argtypes = [ctypes.c_int] * 4
     lib.wkv6_bwd_workspace_floats.restype = ctypes.c_longlong
     lib.wkv6_bwd_error_string.argtypes = [ctypes.c_int]
     lib.wkv6_bwd_error_string.restype = ctypes.c_char_p
@@ -116,7 +116,7 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     y = torch.empty_like(v)
     s_out = torch.empty_like(state)
     fn, workspace_floats, err_str = _kernel()
-    work = torch.empty(workspace_floats(b, t, h), dtype=torch.float32, device=r.device)
+    work = torch.empty(workspace_floats(b, t, h, kd), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
@@ -148,7 +148,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     du = torch.empty_like(u)
     ds0 = torch.empty((b, h, kd, kd), dtype=torch.float32, device=r.device)
     fn, workspace_floats, err_str = _bwd_kernel()
-    work = torch.empty(workspace_floats(b, t, h), dtype=torch.float32, device=r.device)
+    work = torch.empty(workspace_floats(b, t, h, kd), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),

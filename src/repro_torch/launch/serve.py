@@ -1,9 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [--device cuda|cpu]``.
 
 Random-initialises the reduced configuration of ``--arch`` in fp32 from a
-fixed seed (there is no checkpoint restore; on the card the scans' head
-size and SSD state are raised to 64, see ``train.reduced_config``), then
-serves a batch of synthetic requests through prefill + cached decode and
+fixed seed, the reference's on either device (there is no checkpoint
+restore), then serves a batch of synthetic requests through prefill + cached decode and
 prints the generated tokens.  Every family is served (``--arch mixtral-8x22b``,
 ``--arch arctic-480b``, ``--arch rwkv6-1.6b``, ``--arch zamba2-7b``, the
 dense ones)."""
@@ -15,10 +14,9 @@ from typing import List, Optional
 
 import torch
 
-from ..configs import ARCH_NAMES
+from ..configs import ARCH_NAMES, get_arch
 from ..models import get_model
 from ..serve.server import BatchServer, Request
-from .train import reduced_config
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -30,7 +28,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    cfg = reduced_config(args.arch, args.device)
+    cfg = get_arch(args.arch).reduced()
     api = get_model(cfg)
     params = api.init(0, torch.float32, args.device)
     srv = BatchServer(cfg, params, batch=args.batch, smax=96, device=args.device)

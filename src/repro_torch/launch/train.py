@@ -7,36 +7,24 @@ deployment: 4 meta nodes, 6 data nodes, 1 MiB extents, volume ``train`` of
 trains through ``Trainer`` with its checkpoints on that volume and its
 shards read by hedged reads, and, with ``--crash-at``, injects a crash and
 resumes from the last checkpoint.  The same flags as
-``repro.launch.train``, plus ``--device``.  Every family trains
-(``--arch rwkv6-1.6b`` and ``--arch zamba2-7b`` through their scans'
-backward kernels on the card).
+``repro.launch.train``, plus ``--device``.  Every family trains, on either
+device at the reference's reduced configuration (``--arch rwkv6-1.6b`` and
+``--arch zamba2-7b`` through their scans' kernels on the card, at scan head
+size 32 and SSD state 16).
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 from typing import List, Optional
 
 import numpy as np
 
 from ..configs import ARCH_NAMES, get_arch
-from ..configs.base import ArchConfig
 from ..core import CfsCluster
 from ..storage.datapipe import ShardReader, ShardWriter
 from ..train import optimizer as opt
 from ..train.trainer import Trainer, TrainerConfig
-
-
-def reduced_config(arch: str, device: str) -> ArchConfig:
-    """The reduced configuration of ``arch``, as the reference's launchers run it.
-    On the card, the ssm and hybrid families' scan head size (32) and SSD state
-    (16) are raised to 64: the only sizes the WKV6 and SSD kernels are compiled for."""
-    cfg = get_arch(arch).reduced()
-    if device == "cuda" and cfg.family in ("ssm", "hybrid"):
-        cfg = dataclasses.replace(cfg, ssm_head_dim=64,
-                                  ssm_state=64 if cfg.family == "hybrid" else cfg.ssm_state)
-    return cfg
 
 
 def build_cluster(data_disk_capacity: int = 4 * 1024 * 1024 * 1024) -> CfsCluster:
@@ -60,7 +48,7 @@ def write_dataset(mnt, vocab: int, n_docs: int = 8) -> None:
 
 
 def run(args) -> Trainer:
-    cfg = reduced_config(args.arch, args.device)
+    cfg = get_arch(args.arch).reduced()
     print(f"arch={cfg.name} (reduced: {cfg.n_layers}L d={cfg.d_model}) on {args.device}, "
           f"volume train of a CFS cluster")
     mnt = build_cluster().mount("train")

@@ -17,6 +17,7 @@ fp32 on the CUDA cores, so each feature is tested in both dtypes.
 """
 
 import ctypes
+import math
 
 import pytest
 import torch
@@ -181,7 +182,7 @@ def test_ssd_kernel_matches_plain(cuda, b, t, h):
 
 @pytest.mark.cuda
 def test_scan_kernels_reject_what_they_do_not_take(cuda):
-    xs = _wkv6_inputs(9, 1, 64, 2, cuda, d=32)
+    xs = _wkv6_inputs(9, 1, 64, 2, cuda, d=48)
     with pytest.raises(ValueError, match="head size"):
         wkv6_fwd(*xs)
     xs = _wkv6_inputs(9, 1, 64, 2, cuda)
@@ -213,18 +214,18 @@ def test_scan_ops_on_cuda_launch_their_kernels(cuda, monkeypatch):
     _close(state, ref.mamba2_ssd(*xs)[1], SCAN_TOL)
 
 
-def _wkv6_strong(seed, b, t, h, device):
+def _wkv6_strong(seed, b, t, h, device, d=64):
     """Decays spread down to the reference's 1e-30 clamp (w = e^-U(0, 69)), and w = 0
     in every 16th key column: a chunk's decay factors underflow."""
-    r, k, v, w, u, s = _wkv6_inputs(seed, b, t, h, "cpu")
+    r, k, v, w, u, s = _wkv6_inputs(seed, b, t, h, "cpu", d)
     w = torch.exp(-69.0 * torch.rand(w.shape, generator=torch.Generator().manual_seed(seed)))
     w[..., ::16] = 0.0
     return tuple(x.to(device) for x in (r, k, v, w, u, s))
 
 
-def _ssd_strong(seed, b, t, h, device):
+def _ssd_strong(seed, b, t, h, device, p=64, n=64):
     """A scaled by 50: e^cl and the pairwise decays underflow within a chunk."""
-    x, dt, A, B, C, s = _ssd_inputs(seed, b, t, h, "cpu")
+    x, dt, A, B, C, s = _ssd_inputs(seed, b, t, h, "cpu", p, n)
     return tuple(a.to(device) for a in (x, dt, A * 50.0, B, C, s))
 
 
@@ -284,17 +285,22 @@ def test_scan_kernels_run_on_the_tensor_cores(cuda):
 @pytest.mark.cuda
 def test_scan_bwd_kernels_hold_their_blocks_per_sm(cuda):
     """The backward kernels' designs count on their occupancy (``<name>_occupancy`` in
-    each source): both reverse state passes and K4-bwd's chunk pass hold two blocks an SM,
-    K3-bwd's chunk pass, whose head tiles are double-buffered in 230.7 KB, one."""
-    for name, source, blocks in (("wkv6_bwd", "rwkv6_scan_bwd", {0: 2, 1: 2}),
-                                 ("ssd_bwd", "mamba2_ssd_bwd", {0: 2, 1: 1})):
+    each source, at each compiled size): both reverse state passes and K4-bwd's chunk
+    pass hold two blocks an SM, K3-bwd's chunk pass, whose head tiles are
+    double-buffered in 230.7 KB, one; an uncompiled size is refused."""
+    for name, source, sizes, blocks in (
+            ("wkv6_bwd", "rwkv6_scan_bwd", ((64,), (32,)), {0: 2, 1: 2}),
+            ("ssd_bwd", "mamba2_ssd_bwd", ((64, 64), (32, 16)), {0: 2, 1: 1})):
         fn = getattr(_build.load(source), f"{name}_occupancy")
-        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.argtypes = [ctypes.c_int] * (1 + len(sizes[0])) + [ctypes.POINTER(ctypes.c_int)] * 3
         fn.restype = ctypes.c_int
-        for kernel, want in blocks.items():
-            vals = [ctypes.c_int() for _ in range(3)]
-            assert fn(kernel, *(ctypes.byref(v) for v in vals)) == 0
-            assert vals[2].value >= want, (name, kernel, [v.value for v in vals])
+        for size in sizes:
+            for kernel, want in blocks.items():
+                vals = [ctypes.c_int() for _ in range(3)]
+                assert fn(*size, kernel, *(ctypes.byref(v) for v in vals)) == 0
+                assert vals[2].value >= want, (name, size, kernel, [v.value for v in vals])
+        vals = [ctypes.c_int() for _ in range(3)]
+        assert fn(*(48,) * len(sizes[0]), 0, *(ctypes.byref(v) for v in vals)) != 0
 
 
 def _offset_copy(x):
@@ -378,6 +384,73 @@ def test_ssd_bwd_kernel_matches_plain(cuda, b, t, h, ds_out):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h", [
+    (2, 1, 4), (2, 32, 4),     # launch.train's reduced rwkv6-1.6b: 4 heads of 32, T=32
+    (2, 37, 4), (1, 200, 4), (2, 1000, 4), (2, 2049, 4), (2, 129, 5),
+])
+def test_wkv6_kernels_at_the_reduced_head_size(cuda, b, t, h):
+    """K4 and K4-bwd at K = V = 32 (rwkv6-1.6b's reduced config), against the plain
+    forward and backward, and with decays down to the 1e-30 clamp."""
+    xs = _wkv6_inputs(150 + t, b, t, h, cuda, d=32)
+    y, state = wkv6_fwd(*xs)
+    torch.cuda.synchronize()
+    for a, w in zip((y, state), ref.rwkv6_chunked(*xs, chunk=64)):
+        _close(a, w, SCAN_TOL)
+    got, want, _ = _bwd_case("wkv6", xs, seed=t)
+    _close_grads(got, want, xs)
+    xs = _wkv6_strong(160 + t, b, t, h, cuda, d=32)
+    got, want, _ = _bwd_case("wkv6", xs, seed=t)
+    _close_grads(got, want, xs, w_index=3)
+    assert (got[3][xs[3] < 1e-30] == 0).all()
+    for a, w in zip(wkv6_fwd(*xs), ref.rwkv6_chunked(*xs, chunk=64)):
+        _close(a, w, SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h", [
+    (2, 1, 8), (2, 32, 8),     # launch.train's reduced zamba2-7b: 8 heads of 32, N=16
+    (2, 33, 8), (1, 200, 8), (2, 1000, 8), (2, 129, 11), (2, 2049, 3),
+])
+def test_ssd_kernels_at_the_reduced_sizes(cuda, b, t, h):
+    """K3 and K3-bwd at (P, N) = (32, 16) (zamba2-7b's reduced config), against the plain
+    forward and backward, with a head count that is not a multiple of the backward's
+    group of 8, and with decays that underflow within a chunk."""
+    for xs in (_ssd_inputs(170 + t, b, t, h, cuda, p=32, n=16),
+               _ssd_strong(180 + t, b, t, h, cuda, p=32, n=16)):
+        y, state = ssd_fwd(*xs)
+        torch.cuda.synchronize()
+        for a, w in zip((y, state), ref.mamba2_ssd(*xs, chunk=128)):
+            _close(a, w, SCAN_TOL)
+        got, want, _ = _bwd_case("ssd", xs, seed=t)
+        _close_grads(got, want, xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_launchers_run_the_reduced_ssm_configs_on_the_card(cuda, arch, monkeypatch,
+                                                           tmp_path):
+    """``launch.train`` and ``launch.serve`` on the card take the reference's reduced
+    config (scan head 32; zamba2-7b's SSD state 16) through the scan kernels: their
+    forward and backward launches rise, and the trained config is the reduced one."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    monkeypatch.chdir(tmp_path)
+    fwd, bwd = (wkv6_fwd, wkv6_bwd) if arch == "rwkv6-1.6b" else (ssd_fwd, ssd_bwd)
+    monkeypatch.setattr(fwd, "launches", 0)
+    monkeypatch.setattr(bwd, "launches", 0)
+    trainer = launch_train.main(["--arch", arch, "--steps", "3", "--ckpt-every", "1",
+                                 "--crash-at", "2"])
+    assert trainer.cfg == get_arch(arch).reduced()
+    assert trainer.cfg.ssm_head_dim == 32 and trainer.step == 3
+    assert all(math.isfinite(h["loss"]) for h in trainer.history)
+    assert fwd.launches >= 2 * trainer.cfg.n_layers and bwd.launches >= trainer.cfg.n_layers
+    before = fwd.launches
+    launch_serve.main(["--arch", arch, "--requests", "2", "--max-new", "3"])
+    assert fwd.launches > before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("t", [64, 300])
 def test_scan_bwd_kernels_with_strong_decays(cuda, t):
     """dw is exactly 0 where w < 1e-30, the forward's clamp, and w * dw agrees."""
@@ -453,7 +526,7 @@ def test_scan_ops_backward_on_cuda_launch_their_kernels(cuda, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
 def test_ssm_and_hybrid_loss_and_grads_on_cuda(cuda, arch, monkeypatch):
-    """fp32 reduced rwkv6 / zamba2 at the kernels' head size of 64 (zamba2 with 7
+    """fp32 reduced rwkv6 / zamba2 at the full configs' scan sizes of 64 (zamba2 with 7
     layers: a tail after its 3 sites): the loss and every gradient leaf on the card
     (scans forward twice a layer with the recompute, backward once) within 2e-3 of
     their largest value against the CPU's plain path."""
@@ -915,12 +988,12 @@ def test_counts_on_the_card_equal_fake_counts(cuda, arch, kind):
     lowering's peak of live bytes within 1%, and the fake lowerings launch nothing."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from repro_torch.configs import get_arch
     from repro_torch.launch import dryrun, roofline
-    from repro_torch.launch.train import reduced_config
     from repro_torch.models import get_model
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import make_train_step
-    cfg = reduced_config(arch, "cuda")
+    cfg = get_arch(arch).reduced()
     api = get_model(cfg)
     params = api.init(0, torch.bfloat16, "cuda")
     gen = torch.Generator().manual_seed(5)

@@ -71,6 +71,10 @@ def test_interop_round_trip_is_bit_exact(dtype):
     ("codeqwen1.5-7b", "bfloat16", 0), ("codeqwen1.5-7b", "int8", 0),
     ("minicpm-2b", "bfloat16", 0), ("minicpm-2b", "int8", 0),
     ("codeqwen1.5-7b", "bfloat16", 16),      # ring-buffer cache, prompt > window
+    ("phi3-medium-14b", "bfloat16", 0),      # GQA, 4 query heads a kv head
+    ("qwen1.5-32b", "bfloat16", 0),          # qkv bias, MHA
+    ("musicgen-large", "bfloat16", 0),       # audio backbone
+    ("chameleon-34b", "bfloat16", 0),        # qk_norm
 ])
 def test_prefill_and_decode_match_jax(arch, kv, swa):
     cfg = dataclasses.replace(get_arch(arch).reduced(), swa_window=swa)

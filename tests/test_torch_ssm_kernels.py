@@ -231,3 +231,22 @@ def test_plain_mamba2_ssd_bwd_matches_jax_vjp(t, chunk, strong):
     for g, wnt in zip(tref.mamba2_ssd_bwd(x, dt, A, B, C, s, dy, None, chunk=chunk),
                       vjp_y(jdy)):
         _close_grad(g, wnt)
+
+
+def test_scan_kernels_are_compiled_for_every_configs_sizes():
+    """The WKV6 kernels take the scan head size K = V, and the SSD kernels the head and
+    state sizes (P, N), of every arch of the reference's registry, at its full and its
+    reduced config: so the launchers run the reference's configs unchanged on the card."""
+    from repro.configs import ARCH_NAMES, get_arch
+    from repro_torch.kernels import mamba2_ssd, rwkv6_scan
+    seen = set()
+    for arch in ARCH_NAMES:
+        for cfg in (get_arch(arch), get_arch(arch).reduced()):
+            if cfg.family == "ssm":
+                assert cfg.ssm_head_dim in rwkv6_scan.HEAD_DIMS, (arch, cfg.ssm_head_dim)
+                seen.add(("K", cfg.ssm_head_dim))
+            elif cfg.family == "hybrid":
+                shape = (cfg.ssm_head_dim, cfg.ssm_state)
+                assert shape in mamba2_ssd.SHAPES, (arch, shape)
+                seen.add(("PN", shape))
+    assert seen == {("K", 32), ("K", 64), ("PN", (32, 16)), ("PN", (64, 64))}

@@ -208,6 +208,8 @@ def _path_name(path):
 @pytest.mark.parametrize("arch,n_layers", [
     ("minicpm-2b", None), ("codeqwen1.5-7b", None), ("rwkv6-1.6b", None), ("zamba2-7b", None),
     ("zamba2-7b", 5),      # two shared-block sites and one mamba layer after the last
+    ("phi3-medium-14b", None), ("qwen1.5-32b", None), ("musicgen-large", None),
+    ("chameleon-34b", None),
 ])
 @pytest.mark.parametrize("remat", [True, False])
 def test_loss_and_grads_match_jax(arch, n_layers, remat):

@@ -138,19 +138,32 @@ def test_cuda_trainer_without_a_card_raises(monkeypatch):
         launch_train.main(["--steps", "1"])
 
 
-def test_reduced_config_takes_the_scan_kernels_sizes_on_the_card():
-    """On the CPU the launchers run the reference's reduced configs; on the card the
-    ssm and hybrid families' scan head size and SSD state become 64, the sizes the
-    WKV6 and SSD kernels are compiled for, and nothing else changes."""
+def test_reduced_config_takes_the_scan_kernels_sizes_on_the_card(monkeypatch):
+    """Both launchers run the reference's reduced config of every arch, unchanged, on
+    either device: the config that reaches ``Trainer`` and ``get_model`` equals
+    ``repro``'s ``get_arch(arch).reduced()`` field for field, scan head size 32 and
+    SSD state 16 included (the sizes the WKV6 and SSD kernels take besides 64)."""
     import dataclasses
     from repro_torch.configs import ARCH_NAMES
+    from repro_torch.launch import serve as launch_serve
+
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def record(cfg, *args, **kwargs):
+        seen.append(cfg)
+        raise Stop
+
+    monkeypatch.setattr(launch_train, "write_dataset", lambda *a, **k: None)
+    monkeypatch.setattr(launch_train, "ShardReader", lambda *a, **k: None)
+    monkeypatch.setattr(launch_train, "Trainer", record)
+    monkeypatch.setattr(launch_serve, "get_model", record)
     for arch in ARCH_NAMES:
-        reduced = torch_get_arch(arch).reduced()
-        assert launch_train.reduced_config(arch, "cpu") == reduced
-        on_card = launch_train.reduced_config(arch, "cuda")
-        if reduced.family == "ssm":
-            assert on_card == dataclasses.replace(reduced, ssm_head_dim=64)
-        elif reduced.family == "hybrid":
-            assert on_card == dataclasses.replace(reduced, ssm_head_dim=64, ssm_state=64)
-        else:
-            assert on_card == reduced
+        want = dataclasses.asdict(get_arch(arch).reduced())
+        for device in ("cpu", "cuda"):
+            for main in (launch_train.main, launch_serve.main):
+                with pytest.raises(Stop):
+                    main(["--arch", arch, "--device", device])
+                assert dataclasses.asdict(seen.pop()) == want, (arch, device, main)
