@@ -16,7 +16,8 @@ Phases, each fatal on failure:
       the shapes the serving and training paths give it (flash attention
       forward at hd 128, 112 and minicpm-2b's 64, and at mixtral-8x22b's
       serving shape with its 4096 window biting, its backward at minicpm-2b's
-      training shape, the checksum bit for bit at the size of minicpm-2b's
+      training shape and in bf16 at hd 128 with (f2)'s group sizes 6 and 8, the
+      checksum bit for bit at the size of minicpm-2b's
       largest parameter, the WKV6 and SSD scans, with ragged, windowed, offset
       and nonzero-state cases, T at the scans' tile borders, WKV6 decays down to
       the reference's 1e-30 clamp and SSD decays that underflow within a chunk),
@@ -56,6 +57,17 @@ Phases, each fatal on failure:
       Then, at 4 layers and full width, the kernel path against the plain
       path (loss, every gradient, the params after 2 steps) in fp32 and bf16
       (``FP32_TOL``, ``TRAIN_TOL``);
+  (f2) training the other attention archs (``F2_ARCHS``: codeqwen1.5-7b,
+      phi3-medium-14b, musicgen-large, qwen1.5-32b, chameleon-34b, mixtral-8x22b) as
+      (f) trains minicpm-2b, each at full width with bf16 params and its config's own
+      optimizer (mixtral-8x22b: bf16 moments, no master weights), cut in depth only
+      to the most layers whose step fits the card by a rule reckoned from
+      param_count() (``train_depth_cut``, logged with its bytes); the kernel path
+      against the plain one in fp32 and bf16 at ``CHECK_LAYERS`` layers or fewer
+      (``check_depth_cut``), both paths on the kernel path's expert choices (MoE)
+      and loss argmax, the plain path's own noise floor (half its flash blocks)
+      beside the bf16 gradients (``BF16_GRAD_TOL``).  arctic-480b has no (f2) run:
+      one layer's training state (13.611 B params at 8 bytes) is 108.9 GB;
   (g) the trainer: minicpm-2b at full width cut to ``TRAINER_LAYERS`` layers
       (stated in the JSON), bf16 params with fp32 master weights and moments,
       B=2, T=2048, trains through ``Trainer`` on volume ``train`` of the port's
@@ -126,14 +138,14 @@ Phases, each fatal on failure:
       decode tok/s and peak GB;
   (k) counts against the card (``repro_torch.launch.roofline``): in (d), one
       prefill wave (B=4, the longest of the 8 prompts) of each served model on
-      its weights, and in (f) and (i), one more train step of each trained
+      its weights, and in (f), (i) and (f2), one more train step of each trained
       model, each counted twice by ``roofline.Count``: on the card (the
       kernels launch, their counters checked) and on fake CPU twins through
       the kernels' operators (``ops.kernel_path``, the dry run's lowering);
       fatal if the lowering's flops or bytes differ from the card's count at
       all, if its peak of live bytes differs from the card's count by more
       than 1%, or if it launches a kernel.  Beside the call's measured ms (the
-      median of 5 timed waves; of (f)'s and (i)'s steps after the first): its
+      median of 5 timed waves; of (f)'s, (i)'s and (f2)'s steps after the first): its
       bound on the H100's published peaks and the term that sets it,
       ``roofline_share`` (bound / measured), ``mfu`` (6 or 2 x params x
       tokens / (measured s x 989e12)), and the dry run's peak of live device
@@ -155,12 +167,12 @@ Phases, each fatal on failure:
       and their ratio are printed as virtual-clock figures, not times of the
       card, and no ratio is asserted;
   (m) the launchers: ``repro_torch.launch.train`` (4 steps, a crash and the
-      resume) and ``repro_torch.launch.serve`` for rwkv6-1.6b and zamba2-7b on
-      the card, at the reference's reduced configs (scan head 32, SSD state
-      16), their scan kernels' launches counted;
+      resume) and ``repro_torch.launch.serve`` for every arch on the card, at the
+      reference's reduced configs (scan head 32, SSD state 16; head 32 and
+      mixtral-8x22b's window 64), the scan or flash kernels' launches checked;
   (e) output: a ``kernels`` JSON line, one ``serving`` JSON line per model
       (mixtral-8x22b's too), a ``training`` and a ``trainer`` JSON line, one
-      ``training`` line each for (i)'s models, a ``roofline`` line with (k)'s
+      ``training`` line each for (i)'s and (f2)'s models, a ``roofline`` line with (k)'s
       numbers, a ``parallel`` line with (j)'s, a ``storage_baseline`` line with
       (l)'s, a ``launchers`` line with (m)'s, the nvidia-smi line, and last the
       ``{"ok": true, ...}`` line.
@@ -196,7 +208,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.analysis import lint  # noqa: E402
 from repro_torch.baseline.cephlike import CephLikeCluster, CephLikeMount  # noqa: E402
-from repro_torch.configs import ShapeConfig, get_arch  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, ShapeConfig, get_arch  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     O_CREAT, O_TRUNC, O_WRONLY, CfsClient, CfsCluster, EventScheduler, Network)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -212,7 +224,7 @@ from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import init_process_group, make_host_mesh  # noqa: E402
 from repro_torch.core.fsck import fsck  # noqa: E402
 from repro_torch.launch.train import build_cluster, write_dataset  # noqa: E402
-from repro_torch.models import get_model, moe, transformer  # noqa: E402
+from repro_torch.models import get_model, layers, moe, transformer  # noqa: E402
 from repro_torch.parallel import compress, ctx, spmd  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.serve.server import (  # noqa: E402
@@ -270,15 +282,18 @@ FP32_TOL = 1e-3
 # (a step is about +-lr, 5e-4 then 1e-3, for a gradient near zero whichever
 # rounding put it there); the loss by 7.5e-6 (measured on an H100; PERF.md).
 TRAIN_TOL = 2e-2
-# (i) in bf16: rwkv6's and zamba2's gradients are far more sensitive to rounding than
-# minicpm-2b's.  The plain path differs from itself, with its scans run at half the
-# chunk (the same function, other rounding), by 7.1e-2 (rwkv6-1.6b, 2 layers) and
-# 4.0e-2 (zamba2-7b, 6 layers) of a gradient leaf's largest value, and the kernel path
-# from the plain one by 1.03e-1 and 9.6e-2 (H100 80GB HBM3, 700 W; PERF.md), largest in
-# emb.out; in fp32 all three agree within 4.1e-6.  So there the gradients are held to
-# SSM_BF16_GRAD_TOL, the check reports that noise floor beside them, and the loss, the
-# params after 2 steps and the fp32 check keep TRAIN_TOL and FP32_TOL.
-SSM_BF16_GRAD_TOL = 0.25
+# (i) and (f2) in bf16, both paths on the kernel path's loss argmax (and expert choices,
+# check_train_consistency): the plain path differs from itself, with its scans at half
+# the chunk and its flash blocks halved, by 5.7e-3 to 1.59e-2 (rwkv6-1.6b) of a gradient
+# leaf's largest value, and the kernel path from the plain one by 1.14e-2 to 1.98e-2
+# (rwkv6-1.6b; zamba2-7b 1.95e-2, phi3-medium-14b 1.89e-2), largest in an embedding (H100
+# 80GB HBM3, 700 W; PERF.md).  So their gradients are held to BF16_GRAD_TOL, about three
+# times the largest noise floor, which the check reports beside them; the loss, the params after
+# 2 steps and the fp32 check keep TRAIN_TOL and FP32_TOL.  With each path's own argmax,
+# 53-108 of 4,096 rows flip in bf16 (0-1 in fp32, where one flip moved phi3-medium-14b's
+# gradients by 2.4e-3), and rwkv6-1.6b's and zamba2-7b's gradients differed by 1.03e-1
+# and 9.6e-2, their floors 7.1e-2 and 4.0e-2
+BF16_GRAD_TOL = 5e-2
 TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "minicpm-2b", 2, 2048, 4
 # (g): run C checkpoints every 2 steps and crashes after step 3; minicpm-2b cut
 # to TRAINER_LAYERS of its 40 layers at full width (a 7.4 GB checkpoint: the
@@ -309,8 +324,19 @@ EXTRA_REQUESTS, EXTRA_PROMPT_LENGTHS, EXTRA_MAX_NEW = 4, (256, 513), 8
 # the init's own room: at 2 layers arctic-480b's init held 3 (81.7 GB) and ran out of
 # memory on an H100 80GB HBM3 (700 W)
 INIT_SPARE_BYTES = 4e9
-# (m): the launchers at the reference's reduced configs, on the card
-LAUNCH_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
+# (m): the launchers at the reference's reduced configs, on the card: every arch
+LAUNCH_ARCHS = tuple(ARCH_NAMES)
+# (f2): the attention archs that (f) does not train, each at full width in bf16 with its
+# config's own optimizer, cut in depth only to the layers whose training state fits the
+# card (train_depth_cut), then held to the plain path at CHECK_LAYERS layers or fewer
+# (check_depth_cut).  arctic-480b has no (f2) run: one layer is 13.611 B params at 8
+# bytes each (bf16 param, grad and two moments, no master weights), 108.9 GB
+F2_ARCHS = ("codeqwen1.5-7b", "phi3-medium-14b", "musicgen-large", "qwen1.5-32b",
+            "chameleon-34b", "mixtral-8x22b")
+CHECK_LAYERS = 4
+# room the depth rules leave for one layer's working set under remat (its recompute,
+# its activations' gradients) and the allocator's blocks
+TRAIN_SPARE_BYTES = 8e9
 # (j): the mesh train step's steps (params compared after the second); the
 # rendezvous's and every collective's time limit; the bytes a value that
 # compress_tree must move at least (read bf16 g and fp32 r, write bf16 deq
@@ -352,8 +378,13 @@ def _half_chunk(fn, default: int):
     return call
 
 
-PLAIN_HALF_CHUNK = {**PLAIN_OPS, "mamba2_ssd": _half_chunk(ref.mamba2_ssd, 128),
-                    "wkv6": _half_chunk(ref.rwkv6_chunked, 64)}
+# the plain forms summed in another order: the scans at half the chunk, the flash
+# attention at half its query and key blocks
+PLAIN_HALF_CHUNK = {
+    **PLAIN_OPS, "mamba2_ssd": _half_chunk(ref.mamba2_ssd, 128),
+    "wkv6": _half_chunk(ref.rwkv6_chunked, 64),
+    "flash_attention": lambda q, k, v, window=0, q_offset=0: ref.flash_attention(
+        q, k, v, q_offset=q_offset, window=window, block_q=256, block_k=512)}
 
 
 def log(msg: str) -> None:
@@ -868,13 +899,17 @@ def phase_kernels():
                                  seed=72)]}
     reduced = phase_scan_reduced()
     # minicpm-2b's training shape (36 heads of 64, bf16, causal), then fp32 at
-    # hd 128 with G=2 and a ragged T, a window with a q offset, and hd 112
+    # hd 128 with G=2 and a ragged T, a window with a q offset, hd 112, and bf16 at hd 128
+    # with the group sizes (f2) trains: G=6 (mixtral-8x22b, 48 heads over 8) and, at a
+    # ragged T, G=8 (chameleon-34b, 64 over 8)
     flash_bwd = {"main": flash_bwd_case(TRAIN_B, TRAIN_T, 36, 1, 64, 0, 0, torch.bfloat16, 40,
                                         timed=True),
                  "others": [flash_bwd_case(1, 1000, 4, 2, 128, 0, 0, torch.float32, 41),
                             flash_bwd_case(1, 777, 2, 4, 64, 256, 323, torch.bfloat16, 42,
                                            tk=1100),
-                            flash_bwd_case(2, 333, 4, 1, 112, 0, 0, torch.bfloat16, 43)]}
+                            flash_bwd_case(2, 333, 4, 1, 112, 0, 0, torch.bfloat16, 43),
+                            flash_bwd_case(1, 1024, 8, 6, 128, 0, 0, torch.bfloat16, 44),
+                            flash_bwd_case(1, 1100, 8, 8, 128, 0, 0, torch.bfloat16, 45)]}
     # the int32 view of minicpm-2b's largest stacked bf16 leaf (layers.mlp.w1,
     # [40, 2304, 5760]), then tests/test_kernels_pallas.py's sizes and blocks
     cfg = get_arch(TRAIN_ARCH)
@@ -1108,6 +1143,39 @@ def moe_routing(forced=()):
 
 
 @contextlib.contextmanager
+def loss_argmax(forced=()):
+    """``layers.cross_entropy`` for the block with the row max it adds back (with its
+    gradient: a one-hot at the argmax, ROADMAP §3) gathered at each row's argmax;
+    yields (chosen, flipped): each call's argmax, and for each forced call how many
+    rows' own argmax differs from ``forced[i]``, which replaces it.  The value is
+    the reference's; the gradient is too but where a row's largest logits tie
+    exactly (``amax`` splits it among them)."""
+    chosen, flipped = [], []
+    saved = layers.cross_entropy
+
+    def cross_entropy(logits, labels, vocab):
+        logits = logits.float()
+        if logits.shape[-1] > vocab:
+            cols = torch.arange(logits.shape[-1], device=logits.device)
+            logits = logits.masked_fill(cols >= vocab, -1e30)
+        idx = logits.detach().argmax(-1, keepdim=True)
+        if len(chosen) < len(forced):
+            flipped.append(int((idx != forced[len(chosen)]).sum()))
+            idx = forced[len(chosen)]
+        chosen.append(idx)
+        m = torch.gather(logits, -1, idx)
+        logz = torch.log(torch.exp(logits - m.detach()).sum(-1)) + m[..., 0]
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return (logz - gold).mean()
+
+    layers.cross_entropy = cross_entropy
+    try:
+        yield chosen, flipped
+    finally:
+        layers.cross_entropy = saved
+
+
+@contextlib.contextmanager
 def fp32_kv_cache():
     """The transformer's prefill allocates its KV cache in fp32, not bf16,
     for the block; decode writes and reads it in the cache's dtype."""
@@ -1259,27 +1327,108 @@ SCAN_KERNEL_NAMES = {"ssm": ("wkv6_state_kernel", "wkv6_out_kernel", "wkv6_bwd_"
                      "hybrid": ("ssd_gram_kernel", "ssd_scan_kernel", "ssd_bwd_")}
 
 
-def phase_training(arch: str = TRAIN_ARCH, n_layers: int = 0, check_layers: int = 4):
-    """(f), and (i) for the ssm and hybrid families: ``arch`` at full width (cut
-    to ``n_layers`` if given), TRAIN_STEPS steps of ``make_train_step`` and one
-    under the profiler, every trained leaf digested by K2, then the kernel path
-    against the plain one at ``check_layers`` layers in fp32 and bf16."""
+def train_oc(cfg):
+    """The config's own optimizer (``opt_config_for``) at the smoke run's schedule."""
+    return opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS + 1)
+
+
+def train_bytes(cfg, oc, param_bytes: int = 2, kept_grad_bytes: int = 0) -> dict:
+    """The device bytes one train step of ``cfg`` (B=TRAIN_B, T=TRAIN_T, remat) holds at
+    most, reckoned from param_count(), for an attention family: each param's state (the
+    param and its gradient at ``param_bytes``, two moments at the moment dtype's bytes,
+    4 bytes of fp32 master weights where kept, and ``kept_grad_bytes`` for gradients
+    kept beside the step's, as check_train_consistency keeps them); AdamW's fp32
+    temporaries of the largest stacked leaf (``optimizer._update_leaf`` holds 3 whole
+    fp32 copies of a leaf with fp32 moments: the update, nu / c2 and its square root; 5
+    with bf16 moments, whose fp32 copies join them); under remat each layer's bf16
+    input and the logits (fp32, their softmax and gradient: 3 copies); and
+    TRAIN_SPARE_BYTES."""
+    moment = torch.finfo(oc.moment_dtype).bits // 8
+    per_param = 2 * param_bytes + 2 * moment + 4 * oc.master_weights + kept_grad_bytes
+    emb = dataclasses.replace(cfg, n_layers=0).param_count()
+    layer = dataclasses.replace(cfg, n_layers=1).param_count() - emb
+    d, n, tokens = cfg.d_model, cfg.n_layers, TRAIN_B * TRAIN_T
+    layer_leaf = max(d * cfg.n_heads * cfg.hd, d * cfg.d_ff,
+                     cfg.n_experts * d * (cfg.d_expert or cfg.d_ff))
+    largest = max(n * layer_leaf, cfg.vocab * d)
+    out = {"state": (emb + n * layer) * per_param,
+           "adamw_fp32_temporaries": (3 if moment == 4 else 5) * 4 * largest,
+           "activations": n * tokens * d * 2 + 3 * tokens * cfg.vocab * 4,
+           "spare": TRAIN_SPARE_BYTES}
+    return {"bytes_per_param": per_param, "layer_params": layer, "embedding_params": emb,
+            "largest_leaf": largest, **out, "total": sum(out.values())}
+
+
+def _most_layers(full, fits) -> int:
+    n = full.n_layers
+    while n and not fits(dataclasses.replace(full, n_layers=n)):
+        n -= 1
+    return n
+
+
+def train_depth_cut(full) -> tuple:
+    """``full`` cut in depth only to the most layers whose bf16 train step, with the
+    config's own optimizer, fits the card by ``train_bytes``; the cut stated with its
+    bytes.  (The init holds one layer's bf16 draw beside the stacked leaves,
+    ``layers.init_stacked``: 2 bytes a param of one layer, far under the step's.)"""
+    total = torch.cuda.get_device_properties(0).total_memory
+    oc = train_oc(full)
+    n = _most_layers(full, lambda c: train_bytes(c, oc)["total"] <= total)
+    if n < 1:
+        one = train_bytes(dataclasses.replace(full, n_layers=1), oc)
+        raise AssertionError(f"{full.name}: one layer's train step needs "
+                             f"{one['total'] / 1e9:.1f} GB of the card's {total / 1e9:.1f}")
+    cfg = dataclasses.replace(full, n_layers=n)
+    b = train_bytes(cfg, oc)
+    cut = (f"{n} of {full.n_layers} layers, full width: {b['layer_params'] / 1e9:.3f} B "
+           f"params a layer and {b['embedding_params'] / 1e9:.3f} B of embeddings "
+           f"(param_count()) at {b['bytes_per_param']} bytes a param of state, "
+           f"{b['state'] / 1e9:.2f} GB, beside AdamW's fp32 temporaries "
+           f"{b['adamw_fp32_temporaries'] / 1e9:.2f} GB, activations "
+           f"{b['activations'] / 1e9:.2f} GB and {TRAIN_SPARE_BYTES / 1e9:.0f} GB: "
+           f"{b['total'] / 1e9:.2f} GB of the card's {total / 1e9:.1f} GB")
+    return cfg, cut, b
+
+
+def check_depth_cut(cfg) -> int:
+    """The layers check_train_consistency runs ``cfg`` at: at most CHECK_LAYERS and
+    ``cfg``'s own, and no more than the fp32 run fits the card by ``train_bytes`` (fp32
+    params and gradients, the gradients at the init kept beside the step's; one path's
+    run on the card at a time, the other's results held on the host)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    oc = train_oc(cfg)
+    capped = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, CHECK_LAYERS))
+    n = _most_layers(capped, lambda c: train_bytes(c, oc, 4, 4)["total"] <= total)
+    if n < 1:
+        raise AssertionError(f"{cfg.name}: not one layer's fp32 check fits the card")
+    return n
+
+
+def phase_training(arch: str = TRAIN_ARCH, n_layers: int = 0, check_layers: int = 4,
+                   label: str = "(f)", cut: str = None, bf16_grad_tol: float = None):
+    """(f), (i) for the ssm and hybrid families and (f2) for the other attention
+    archs: ``arch`` at full width (cut to ``n_layers`` if given, as ``cut`` states),
+    TRAIN_STEPS steps of ``make_train_step`` and one under the profiler, every trained
+    leaf digested by K2, then the kernel path against the plain one at
+    ``check_layers`` layers in fp32 and bf16 (its gradients held to
+    ``bf16_grad_tol`` where given, beside the plain path's own noise floor)."""
     full = get_arch(arch)
     cfg = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
-    phase = "(f)" if arch == TRAIN_ARCH else "(i)"
-    cut = f"{cfg.n_layers} of {full.n_layers} layers, full width" if n_layers else None
-    log(f"{phase} training {arch} {f'cut to {cut}' if cut else 'at full width'}: "
+    if n_layers and cut is None:
+        cut = f"{cfg.n_layers} of {full.n_layers} layers, full width"
+    log(f"{label} training {arch} {f'cut to {cut}' if cut else 'at full width'}: "
         f"{json.dumps(dataclasses.asdict(cfg))}")
+    t_phase = time.perf_counter()
     api = get_model(cfg)
-    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS + 1)
+    oc = train_oc(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init(0, torch.bfloat16, "cuda")
     state = opt.init_opt_state(oc, params)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for _, p in opt.flatten_with_paths(params))
-    log(f"  init {n_params / 1e9:.3f} B params (bf16), fp32 master weights and moments "
-        f"({oc.moment_dtype}, master {oc.master_weights}, {oc.schedule}) in "
+    log(f"  init {n_params / 1e9:.3f} B params (bf16), moments in {oc.moment_dtype}, "
+        f"{'fp32' if oc.master_weights else 'no'} master weights, {oc.schedule}, in "
         f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     step = make_train_step(cfg, oc)
     batches = [train_batch(cfg, TRAIN_B, TRAIN_T, 100 + i) for i in range(TRAIN_STEPS + 1)]
@@ -1341,7 +1490,8 @@ def phase_training(arch: str = TRAIN_ARCH, n_layers: int = 0, check_layers: int 
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     training["profile"] = {"step": TRAIN_STEPS + 1, "loss": float(metrics["loss"]),
-                           **_device_summary(prof, wall)}
+                           **_device_summary(prof, wall,
+                                             MOE_NAMED_OPS if cfg.n_experts else ())}
     scans = SCAN_KERNEL_NAMES.get(cfg.family)
     if scans and "port_kernels" in training["profile"]:
         rows = [r for r in training["profile"]["port_kernels"]
@@ -1362,12 +1512,30 @@ def phase_training(arch: str = TRAIN_ARCH, n_layers: int = 0, check_layers: int 
     training["consistency"] = check_train_consistency(cfg, torch.float32, FP32_TOL, check_layers)
     free_device_memory()
     training["consistency_bf16"] = check_train_consistency(
-        cfg, torch.bfloat16, TRAIN_TOL, check_layers,
-        SSM_BF16_GRAD_TOL if cfg.family in ("ssm", "hybrid") else None)
+        cfg, torch.bfloat16, TRAIN_TOL, check_layers, bf16_grad_tol)
     free_device_memory()
     training["phase_peak_mem_gb"] = max(torch.cuda.max_memory_allocated() / 1e9,
                                         training["counts"]["peak_before_gb"],
                                         training["counts"]["measured_peak_gb"])
+    training["phase_s"] = time.perf_counter() - t_phase
+    return training
+
+
+def phase_f2(arch: str) -> dict:
+    """(f2) for ``arch``: (f)'s phase at full width, cut in depth only by
+    train_depth_cut, its kernel path held to the plain one at check_depth_cut's
+    layers; the reckoned bytes beside the measured peak."""
+    cfg, cut, reckoned = train_depth_cut(get_arch(arch))
+    check = check_depth_cut(cfg)
+    training = phase_training(arch, cfg.n_layers, check, "(f2)", cut, BF16_GRAD_TOL)
+    training.update(full_layers=get_arch(arch).n_layers, check_layers=check,
+                    reckoned_gb={k: v / 1e9 for k, v in reckoned.items()
+                                 if k in ("state", "adamw_fp32_temporaries", "activations",
+                                          "spare", "total")},
+                    reckoned_step_over_measured_peak=(reckoned["total"] - TRAIN_SPARE_BYTES)
+                    / 1e9 / training["peak_mem_gb"])
+    log(f"  (f2) {arch}: {training['layers']} layers, check at {check}, "
+        f"{training['step_ms_steady']:.1f} ms a step, {training['phase_s']:.1f} s")
     return training
 
 
@@ -1445,9 +1613,10 @@ def phase_compress(cfg, api, params, batch):
     return res_out
 
 
-def _train_run(cfg, dtype, batches):
+def _train_run(cfg, dtype, batches, to_host: bool = False):
     """Loss and gradients at the init, then the params after a train step per
-    batch, all from the same seeded init."""
+    batch, all from the same seeded init; with ``to_host`` the gradients and params
+    are copied to the host as they come, leaving nothing of the run on the card."""
     api = get_model(cfg)
     oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=2, total_steps=4)
     params = api.init(0, dtype, "cuda")
@@ -1456,15 +1625,20 @@ def _train_run(cfg, dtype, batches):
     grads = dict(zip((path for path, _ in pairs),
                      torch.autograd.grad(loss, [p for _, p in pairs])))
     del pairs
+    if to_host:
+        grads = {path: g.cpu() for path, g in grads.items()}
     step, state = make_train_step(cfg, oc), opt.init_opt_state(oc, params)
     for batch in batches:
         params, state, _ = step(params, state, batch)
-    return loss.detach(), grads, dict(opt.flatten_with_paths(params))
+    del state
+    params = {path: p.cpu() if to_host else p for path, p in opt.flatten_with_paths(params)}
+    return loss.detach(), grads, params
 
 
 def _grad_errs(grads, want):
-    """Per leaf, the largest difference over the leaf's largest value."""
-    return {".".join(path): float((grads[path].float() - g.float()).abs().max()
+    """Per leaf, the largest difference over the leaf's largest value (a leaf of
+    ``grads`` on the host is brought to ``want``'s device)."""
+    return {".".join(path): float((grads[path].to(g.device).float() - g.float()).abs().max()
                                   / g.float().abs().max().clamp(min=1e-30))
             for path, g in want.items()}
 
@@ -1473,36 +1647,63 @@ def check_train_consistency(cfg, dtype, tol: float, n_layers: int = 4, grad_tol=
     """The kernel path against the plain path (PLAIN_OPS, forward and backward)
     at ``n_layers`` layers and full width: the loss, every gradient leaf (error
     over the leaf's largest value) and the params after 2 steps (|a-b| / (1 + |b|)),
-    and each path's kernel launches.  With ``grad_tol`` the gradients are held to
+    and each path's kernel launches.  The kernel path's gradients and params wait on
+    the host while the plain path runs.  With ``grad_tol`` the gradients are held to
     it instead of ``tol``, and the plain path is run again with its scans at half
     the chunk, its gradients' distance from the first plain run reported: the
-    noise floor of the function's own rounding."""
+    noise floor of the function's own rounding.
+
+    Both paths share their discrete choices, call by call, the kernel path's
+    taken by the plain one (the remat recompute routes again, in the same order in
+    both): an MoE model's expert choices (``moe_routing``), and the row argmax of
+    the logits that the loss adds back with its gradient (``loss_argmax``).  Each
+    flips on a one-ulp difference wherever two candidates nearly tie, and moves
+    that token's gradient by an O(1) amount.  How many tokens and rows would have
+    chosen otherwise is reported; the drops follow from the shared choices."""
     cfg4 = dataclasses.replace(cfg, n_layers=n_layers)
     batches = [train_batch(cfg, TRAIN_B, TRAIN_T, 200 + i) for i in range(2)]
     reset_launches()
-    loss_k, grads_k, params_k = _train_run(cfg4, dtype, batches)
+    with moe_routing() as (chosen, _, dropped_k), loss_argmax() as (argmax, _):
+        loss_k, grads_k, params_k = _train_run(cfg4, dtype, batches, to_host=True)
     counts = launches()
+    free_device_memory()
     # the loss and gradients once, then a step per batch
     want = {name: 3 * n for name, n in train_launches(cfg4).items()}
     if counts != want:
         raise AssertionError(f"kernel launches of the kernel path {counts}, expected {want}")
-    with plain_ops():
-        loss_p, grads_p, params_p = _train_run(cfg4, dtype, batches)
+    shared = [(slice(None), c) for c in chosen]
+
+    def plain_run(routes):
+        with plain_ops(routes), moe_routing(shared) as (_, rerouted, dropped_p), \
+                loss_argmax(argmax) as (_, flipped):
+            out = _train_run(cfg4, dtype, batches)
+        if len(rerouted) != len(chosen) or dropped_p != dropped_k or \
+                len(flipped) != len(argmax):
+            raise AssertionError(f"the plain path routed {len(rerouted)} times with drops "
+                                 f"{dropped_p} and took {len(flipped)} losses, the kernel "
+                                 f"path {len(chosen)} with {dropped_k} and {len(argmax)}")
+        return out, rerouted, flipped
+
+    (loss_p, grads_p, params_p), rerouted, flipped = plain_run(PLAIN_OPS)
     _, loss_err = rel_close(loss_k, loss_p, tol)
     grad_errs = _grad_errs(grads_k, grads_p)
     noise = {}
     if grad_tol is not None:
-        with plain_ops(PLAIN_HALF_CHUNK):
-            _, grads_h, _ = _train_run(cfg4, dtype, batches)
+        (_, grads_h, _), _, _ = plain_run(PLAIN_HALF_CHUNK)
         noise = _grad_errs(grads_h, grads_p)
         del grads_h
-    param_errs = {".".join(path): rel_close(params_k[path], p, tol)[1]
+    param_errs = {".".join(path): rel_close(params_k[path].to(p.device), p, tol)[1]
                   for path, p in params_p.items()}
+    del grads_k, params_k
     res = {"dtype": str(dtype).split(".")[-1], "layers": cfg4.n_layers, "B": TRAIN_B,
            "T": TRAIN_T, "tolerance": tol, "grad_tolerance": grad_tol or tol,
            "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "loss_err": loss_err,
            "grad_err_max": max(grad_errs.values()), "param_err_max": max(param_errs.values()),
            **({"plain_vs_half_chunk_grad_err_max": max(noise.values())} if noise else {}),
+           "loss_rows": TRAIN_B * TRAIN_T, "argmax_rows_flipped_by_call": flipped,
+           **({"routing_calls": len(chosen), "tokens_a_call": int(chosen[0].shape[0]),
+               "tokens_rerouted_by_call": rerouted, "dropped_by_call": dropped_k}
+              if cfg.n_experts else {}),
            "launches_kernel_path": counts, "grad_errs": grad_errs, "param_errs": param_errs,
            **({"plain_vs_half_chunk_grad_errs": noise} if noise else {})}
     log(f"  train consistency: {json.dumps(res)}")
@@ -2203,11 +2404,23 @@ def phase_serving_extra(arch: str):
 
 # ------------------------------------------------------------------ (m) the launchers
 
+def launcher_kernels(cfg) -> tuple:
+    """The kernels a reduced ``cfg`` must launch through ``launch.train`` (forward and
+    backward) and through ``launch.serve`` (forward): the scans' for the ssm and
+    hybrid families, the flash kernels' for the attention families."""
+    if cfg.family == "ssm":
+        return ("wkv6_fwd", "wkv6_bwd"), ("wkv6_fwd",)
+    if cfg.family == "hybrid":
+        return ("ssd_fwd", "ssd_bwd"), ("ssd_fwd",)
+    return ("flash_attention_fwd", "flash_attention_bwd"), ("flash_attention_fwd",)
+
+
 def phase_launchers() -> dict:
     """(m): ``python -m repro_torch.launch.train`` (4 steps, a crash after step 3 and the
     resume) and ``python -m repro_torch.launch.serve`` for each of ``LAUNCH_ARCHS`` on
     the card, in this process: the reference's reduced configs (scan head size 32,
-    zamba2-7b's SSD state 16) through the scan kernels, forward and backward."""
+    zamba2-7b's SSD state 16; head size 32 and, for mixtral-8x22b, a window of 64)
+    through the scan kernels or the flash kernels, forward and backward."""
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     out = {}
@@ -2223,7 +2436,7 @@ def phase_launchers() -> dict:
             launch_serve.main(["--arch", arch])
         serve_counts = launches()
         cfg = trainer.cfg
-        fwd, bwd = ("wkv6_fwd", "wkv6_bwd") if cfg.family == "ssm" else ("ssd_fwd", "ssd_bwd")
+        train_kernels, serve_kernels = launcher_kernels(cfg)
         res = {"arch": arch, "config": dataclasses.asdict(cfg), "steps": trainer.step,
                "losses": [h["loss"] for h in trainer.history],
                "train_launches": train_counts, "serve_launches": serve_counts,
@@ -2232,7 +2445,8 @@ def phase_launchers() -> dict:
         log(f"(m) launchers: {json.dumps(res)}")
         if not (cfg == get_arch(arch).reduced() and trainer.step == 4
                 and all(math.isfinite(x) for x in res["losses"])
-                and train_counts[fwd] > 0 and train_counts[bwd] > 0 and serve_counts[fwd] > 0
+                and all(train_counts[k] > 0 for k in train_kernels)
+                and all(serve_counts[k] > 0 for k in serve_kernels)
                 and "resumed at step" in printed.getvalue()):
             raise AssertionError(f"{arch}: the launchers on the card: {res}")
         out[arch] = res
@@ -2368,7 +2582,7 @@ def prefill_counts(cfg, api, params, lengths, smax):
 
 def train_counts(cfg, oc, step, params, state, batch, step_ms):
     """(k) for a training model: one more ``make_train_step`` step, counted; the
-    measured ms is the median of (f)'s or (i)'s steps after the first."""
+    measured ms is the median of (f)'s, (i)'s or (f2)'s steps after the first."""
     b, t = batch["tokens"].shape
     flops = roofline.model_flops_per_device(cfg, _shape("train", b, t), 1)
     return count_against_card(
@@ -2715,14 +2929,21 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
     ssm_mesh_train = {}
     for arch in SSM_TRAIN:
         ssm_training[arch] = phase_training(arch, SSM_TRAIN_LAYERS.get(arch, 0),
-                                            SSM_CHECK_LAYERS[arch])
+                                            SSM_CHECK_LAYERS[arch], "(i)",
+                                            bf16_grad_tol=BF16_GRAD_TOL)
         peaks.append(ssm_training[arch]["phase_peak_mem_gb"])
         free_device_memory()
         ssm_mesh_train[arch] = phase_ssm_mesh_train(arch, mesh)
         peaks.append(ssm_mesh_train[arch]["peak_mem_gb"])
         free_device_memory()
+    f2_training = {}
+    for arch in F2_ARCHS:
+        f2_training[arch] = phase_f2(arch)
+        peaks.append(f2_training[arch]["phase_peak_mem_gb"])
+        free_device_memory()
     counted = [servings[a]["counts"] for a in ("codeqwen1.5-7b", "zamba2-7b", "rwkv6-1.6b")] \
-        + [training["counts"]] + [t["counts"] for t in ssm_training.values()]
+        + [training["counts"]] + [t["counts"] for t in ssm_training.values()] \
+        + [t["counts"] for t in f2_training.values()]
     dispatch = dispatch_overhead()
     cells = dryrun_cells()
     paths = {**{a: s["launches"] for a, s in servings.items()},
@@ -2735,6 +2956,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
              **{f"{a}-{name}": run["launches"] for a in PLACED_STEPS for name, run in
                 servings[a]["placed"]["runs"].items() if name != "mesh_free"},
              **{f"{a}-train": t["launches"] for a, t in ssm_training.items()},
+             **{f"{a}-train": t["launches"] for a, t in f2_training.items()},
              **{f"{a}-mesh-train": t["launches"] for a, t in ssm_mesh_train.items()},
              **{f"{a}-reduced-launch.train": r["train_launches"] for a, r in launched.items()},
              **{f"{a}-reduced-launch.serve": r["serve_launches"] for a, r in launched.items()}}
@@ -2811,7 +3033,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
         print(json.dumps({"serving": serving, "device": name, "nvidia_smi": smi}))
     print(json.dumps({"training": training, "device": name, "nvidia_smi": smi}))
     print(json.dumps({"trainer": trainer, "device": name, "nvidia_smi": smi}))
-    for t in ssm_training.values():
+    for t in (*ssm_training.values(), *f2_training.values()):
         print(json.dumps({"training": t, "device": name, "nvidia_smi": smi}))
     print(json.dumps({"roofline": {"targets": roofline.TARGETS, "calls": counted,
                                    "dryrun": cells, "operator_dispatch": dispatch},

@@ -591,6 +591,13 @@ def _bwd_inputs(seed, b, tq, tk, kv, g, hd, dtype, device, window, q_offset):
     (2, 1, 50, 2, 2, 64, 0, 49, torch.bfloat16),
     (1, 130, 130, 1, 1, 128, 1, 0, torch.bfloat16),
     (3, 5, 5, 1, 1, 32, 0, 0, torch.bfloat16),
+    # the group sizes the trained attention archs give K1-bwd at hd 128: phi3-medium-14b
+    # (40 heads over 10), mixtral-8x22b (48 over 8), arctic-480b (56 over 8, at a ragged
+    # T) and chameleon-34b (64 over 8)
+    (1, 1024, 1024, 10, 4, 128, 0, 0, torch.bfloat16),
+    (1, 1024, 1024, 8, 6, 128, 0, 0, torch.bfloat16),
+    (1, 1100, 1100, 8, 7, 128, 0, 0, torch.bfloat16),
+    (1, 1024, 1024, 8, 8, 128, 0, 0, torch.bfloat16),
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, b, tq, tk, kv, g, hd, window, q_offset,
                                         dtype):

@@ -22,6 +22,7 @@ from repro.train import optimizer as jopt
 from repro.train.trainer import Trainer as JaxTrainer
 from repro.train.trainer import TrainerConfig as JaxTrainerConfig
 from repro_torch import interop
+from repro_torch.configs import ARCH_NAMES
 from repro_torch.configs import get_arch as torch_get_arch
 from repro_torch.launch import train as launch_train
 from repro_torch.core import CfsMount
@@ -94,13 +95,15 @@ def test_state_tree_is_the_reference_tree(tmp_path):
     assert TrainerConfig().micro_batches == 1     # a field nothing reads, as in the reference
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "rwkv6-1.6b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_launch_train_crash_and_resume_on_cpu(capsys, arch):
     """``--crash-at 3`` with ``--ckpt-every 2``: the run crashes after step 3,
     resumes from the step-2 checkpoint and finishes; steps 3 to 6 and the
-    final params match an uninterrupted run bit for bit.  The default arch, and
-    the ssm and hybrid families, whose scans' backward runs here through their
-    plain chunked forms.  Each run has a cluster of its own."""
+    final params match an uninterrupted run bit for bit.  Every arch, as
+    ``chip_smoke.py`` (m) runs them on the card: the ssm and hybrid families'
+    scans' backward runs here through their plain chunked forms, the MoE
+    archs' bf16 moments (without master weights) are checkpointed and restored.
+    Each run has a cluster of its own."""
     common = ["--device", "cpu", "--steps", "6", "--ckpt-every", "2", "--seq", "16",
               "--arch", arch]
     whole = launch_train.main(common)
