@@ -1,0 +1,7 @@
+"""idle_share.train: percent of the traced steps' wall time with no kernel on the device."""
+
+from ._common import idle_share
+
+
+def read(record, ctx):
+    return idle_share(ctx.trace)
