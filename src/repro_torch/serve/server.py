@@ -28,7 +28,7 @@ from typing import Dict, List, Optional
 import torch
 from torch.distributed.tensor import DTensor
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..configs.base import ArchConfig
 from ..models import get_model
 from ..models.layers import padded_vocab
@@ -70,24 +70,29 @@ class BatchServer:
             # pad the wave to full batch with a dummy
             while len(wave) < self.batch:
                 wave.append(Request(rid=-1, prompt=[0], max_new=0))
-            max_p = max(len(r.prompt) for r in wave)
-            toks = torch.zeros((self.batch, max_p), dtype=torch.long)
-            for i, r in enumerate(wave):
-                toks[i, max_p - len(r.prompt):] = torch.tensor(r.prompt)  # left-pad
-            logits, cache = self.api.prefill(self.params, toks.to(self.device),
-                                             self.smax)
-            cur = logits[:, -1, :vocab].argmax(-1)
-            outs = [[t] for t in cur.tolist()]
-            cache_len = max_p
-            steps = max((r.max_new for r in wave), default=0)
-            for _ in range(max(steps - 1, 0)):
-                logits, cache = self.api.decode(self.params, cur[:, None], cache,
-                                                cache_len)
-                cache_len += 1
-                cur = logits[:, -1, :vocab].argmax(-1)
-                for out, t in zip(outs, cur.tolist()):
-                    out.append(t)
-            del cache   # free this wave's cache before the next wave allocates one
+            with obs.span("serve.wave"):
+                max_p = max(len(r.prompt) for r in wave)
+                toks = torch.zeros((self.batch, max_p), dtype=torch.long)
+                for i, r in enumerate(wave):
+                    toks[i, max_p - len(r.prompt):] = torch.tensor(r.prompt)  # left-pad
+                with obs.span("serve.prefill"):
+                    logits, cache = self.api.prefill(self.params, toks.to(self.device),
+                                                     self.smax)
+                    cur = logits[:, -1, :vocab].argmax(-1)
+                    outs = [[t] for t in cur.tolist()]
+                cache_len = max_p
+                steps = max((r.max_new for r in wave), default=0)
+                for _ in range(max(steps - 1, 0)):
+                    with obs.span("serve.decode"):
+                        logits, cache = self.api.decode(self.params, cur[:, None], cache,
+                                                        cache_len)
+                        cache_len += 1
+                        cur = logits[:, -1, :vocab].argmax(-1)
+                        with obs.span("serve.tokens"):
+                            new = cur.tolist()
+                        for out, t in zip(outs, new):
+                            out.append(t)
+                del cache   # free this wave's cache before the next wave allocates one
             for i, r in enumerate(wave):
                 if r.rid >= 0:
                     r.out = outs[i][: r.max_new]

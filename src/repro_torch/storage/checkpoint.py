@@ -24,20 +24,21 @@ Two differences from the reference:
     training state on the card has no room for a second copy.  A restore
     that fails leaves the leaves before the failing one overwritten.
 ``last_io`` holds the bytes and the seconds of the last save or restore
-by stage.
+by stage, read from its spans (``ckpt.save`` or ``ckpt.restore``, each
+stage a ``ckpt.<stage>`` span inside it; ``repro_torch.obs``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
-import time
 import zlib
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.client import NotFound
 
 __all__ = ["CheckpointManager", "tensor_to_bytes", "bytes_to_tensor"]
@@ -97,9 +98,11 @@ class CheckpointManager:
 
     @contextlib.contextmanager
     def _timed(self, stage: str):
-        t0 = time.perf_counter()
-        yield
-        self.last_io[stage] = self.last_io.get(stage, 0.0) + time.perf_counter() - t0
+        """A ``ckpt.<stage>`` span, its seconds added to ``last_io["<stage>_s"]``."""
+        with obs.span(f"ckpt.{stage}") as sp:
+            yield
+        key = f"{stage}_s"
+        self.last_io[key] = self.last_io.get(key, 0.0) + sp.host_ns / 1e9
 
     # ---- save ----------------------------------------------------------------
     def save(self, step: int, tree: Tree, crash_after: Optional[int] = None) -> str:
@@ -112,39 +115,39 @@ class CheckpointManager:
             self._remove(d)                   # torn by a crashed save
         self.mnt.mkdir(d)
         self.last_io = {"bytes": 0}
-        t0 = time.perf_counter()
-        manifest: Dict[str, Any] = {"step": step, "tensors": {}}
-        writes = 0
-        for name, leaf in _flatten(tree):
-            with self._timed("device_to_host_s"):
-                host = leaf.detach().cpu()
-            nsh = self.shards if (host.dim() > 0 and host.shape[0] >= self.shards
-                                  and host.shape[0] % self.shards == 0) else 1
-            per = host.shape[0] // nsh if nsh > 1 else 0
-            parts = [host[i * per:(i + 1) * per] for i in range(nsh)] if nsh > 1 else [host]
-            entry = {"shards": [], "dtype": _dtype_name(host.dtype), "shape": list(host.shape)}
-            for k, part in enumerate(parts):
-                path = f"{d}/{name}.shard{k}"
-                with self._timed("serialize_s"):
-                    payload = tensor_to_bytes(part)
-                with self._timed("write_s"):
-                    self.mnt.write_file(path, payload)
-                writes += 1
-                if crash_after is not None and writes >= crash_after:
-                    raise RuntimeError("injected crash during checkpoint save")
-                with self._timed("crc32_s"):
-                    crc = zlib.crc32(payload) & 0xFFFFFFFF
-                entry["shards"].append({"path": path, "bytes": len(payload), "crc32": crc})
-                self.last_io["bytes"] += len(payload)
-            manifest["tensors"][name] = entry
-        # data durable -> manifest -> commit pointer
-        self.mnt.write_file(f"{d}/MANIFEST", json.dumps(manifest).encode())
-        if crash_after is not None and writes + 1 >= crash_after:
-            raise RuntimeError("injected crash before LATEST commit")
-        if self.mnt.exists(f"{self.base}/LATEST"):
-            self.mnt.unlink(f"{self.base}/LATEST")
-        self.mnt.write_file(f"{self.base}/LATEST", str(step).encode())
-        self.last_io["s"] = time.perf_counter() - t0
+        with obs.span("ckpt.save") as sp:
+            manifest: Dict[str, Any] = {"step": step, "tensors": {}}
+            writes = 0
+            for name, leaf in _flatten(tree):
+                with self._timed("device_to_host"):
+                    host = leaf.detach().cpu()
+                nsh = self.shards if (host.dim() > 0 and host.shape[0] >= self.shards
+                                      and host.shape[0] % self.shards == 0) else 1
+                per = host.shape[0] // nsh if nsh > 1 else 0
+                parts = [host[i * per:(i + 1) * per] for i in range(nsh)] if nsh > 1 else [host]
+                entry = {"shards": [], "dtype": _dtype_name(host.dtype), "shape": list(host.shape)}
+                for k, part in enumerate(parts):
+                    path = f"{d}/{name}.shard{k}"
+                    with self._timed("serialize"):
+                        payload = tensor_to_bytes(part)
+                    with self._timed("write"):
+                        self.mnt.write_file(path, payload)
+                    writes += 1
+                    if crash_after is not None and writes >= crash_after:
+                        raise RuntimeError("injected crash during checkpoint save")
+                    with self._timed("crc32"):
+                        crc = zlib.crc32(payload) & 0xFFFFFFFF
+                    entry["shards"].append({"path": path, "bytes": len(payload), "crc32": crc})
+                    self.last_io["bytes"] += len(payload)
+                manifest["tensors"][name] = entry
+            # data durable -> manifest -> commit pointer
+            self.mnt.write_file(f"{d}/MANIFEST", json.dumps(manifest).encode())
+            if crash_after is not None and writes + 1 >= crash_after:
+                raise RuntimeError("injected crash before LATEST commit")
+            if self.mnt.exists(f"{self.base}/LATEST"):
+                self.mnt.unlink(f"{self.base}/LATEST")
+            self.mnt.write_file(f"{self.base}/LATEST", str(step).encode())
+        self.last_io["s"] = sp.host_ns / 1e9
         self._gc(step)
         return d
 
@@ -195,35 +198,35 @@ class CheckpointManager:
         d = f"{self.base}/step_{step}"
         manifest = json.loads(self.mnt.read_file(f"{d}/MANIFEST").decode())
         self.last_io = {"bytes": 0}
-        t0 = time.perf_counter()
-        on_cuda = False
-        for name, dst in _flatten(tree_like):
-            entry = manifest["tensors"][name]
-            if list(dst.shape) != entry["shape"]:
-                raise ValueError(f"{name}: checkpoint shape {entry['shape']}, "
-                                 f"tree shape {list(dst.shape)}")
-            parts = []
-            for sh in entry["shards"]:
-                with self._timed("read_s"):
-                    data = self.mnt.read_file(sh["path"])
-                with self._timed("crc32_s"):
-                    ok = (zlib.crc32(data) & 0xFFFFFFFF) == sh["crc32"]
-                if not ok:
-                    raise IOError(f"checksum mismatch in {sh['path']}")
-                with self._timed("deserialize_s"):
-                    parts.append(bytes_to_tensor(data))
-                self.last_io["bytes"] += len(data)
-            with self._timed("host_to_device_s"):
-                if len(parts) == 1:
-                    dst.copy_(parts[0].reshape(dst.shape))
-                else:
-                    row = 0
-                    for part in parts:
-                        dst[row:row + part.shape[0]].copy_(part)
-                        row += part.shape[0]
-                on_cuda = on_cuda or dst.is_cuda
-        if on_cuda:
-            with self._timed("host_to_device_s"):
-                torch.cuda.synchronize()
-        self.last_io["s"] = time.perf_counter() - t0
+        with obs.span("ckpt.restore") as sp:
+            on_cuda = False
+            for name, dst in _flatten(tree_like):
+                entry = manifest["tensors"][name]
+                if list(dst.shape) != entry["shape"]:
+                    raise ValueError(f"{name}: checkpoint shape {entry['shape']}, "
+                                     f"tree shape {list(dst.shape)}")
+                parts = []
+                for sh in entry["shards"]:
+                    with self._timed("read"):
+                        data = self.mnt.read_file(sh["path"])
+                    with self._timed("crc32"):
+                        ok = (zlib.crc32(data) & 0xFFFFFFFF) == sh["crc32"]
+                    if not ok:
+                        raise IOError(f"checksum mismatch in {sh['path']}")
+                    with self._timed("deserialize"):
+                        parts.append(bytes_to_tensor(data))
+                    self.last_io["bytes"] += len(data)
+                with self._timed("host_to_device"):
+                    if len(parts) == 1:
+                        dst.copy_(parts[0].reshape(dst.shape))
+                    else:
+                        row = 0
+                        for part in parts:
+                            dst[row:row + part.shape[0]].copy_(part)
+                            row += part.shape[0]
+                    on_cuda = on_cuda or dst.is_cuda
+            if on_cuda:
+                with self._timed("host_to_device"):
+                    torch.cuda.synchronize()
+        self.last_io["s"] = sp.host_ns / 1e9
         return tree_like, step

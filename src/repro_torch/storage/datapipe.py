@@ -22,6 +22,7 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
+from .. import obs
 from ..core.client import NotFound
 from ..core.fs import CfsMount
 
@@ -103,23 +104,24 @@ class ShardReader:
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
         """{"tokens", "labels"}: int32 [batch, seq_len], the labels shifted by one."""
-        need = self.batch * (self.seq_len + 1)
-        shards = self.my_shards()
-        toks: List[np.ndarray] = []
-        got = 0
-        cursor = (step * need) // self.tokens_per_shard
-        offset = (step * need) % self.tokens_per_shard
-        while got < need:
-            sid = shards[cursor % len(shards)]
-            raw = self._read(f"{self.base}/shard_{sid:05d}.tok")
-            arr = np.frombuffer(raw, dtype=self.dtype)[offset:]
-            toks.append(arr[: need - got])
-            got += len(toks[-1])
-            cursor += 1
-            offset = 0
-        flat = np.concatenate(toks)[:need].reshape(self.batch, self.seq_len + 1)
-        return {"tokens": flat[:, :-1].astype(np.int32),
-                "labels": flat[:, 1:].astype(np.int32)}
+        with obs.span("datapipe.batch"):
+            need = self.batch * (self.seq_len + 1)
+            shards = self.my_shards()
+            toks: List[np.ndarray] = []
+            got = 0
+            cursor = (step * need) // self.tokens_per_shard
+            offset = (step * need) % self.tokens_per_shard
+            while got < need:
+                sid = shards[cursor % len(shards)]
+                raw = self._read(f"{self.base}/shard_{sid:05d}.tok")
+                arr = np.frombuffer(raw, dtype=self.dtype)[offset:]
+                toks.append(arr[: need - got])
+                got += len(toks[-1])
+                cursor += 1
+                offset = 0
+            flat = np.concatenate(toks)[:need].reshape(self.batch, self.seq_len + 1)
+            return {"tokens": flat[:, :-1].astype(np.int32),
+                    "labels": flat[:, 1:].astype(np.int32)}
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0

@@ -28,6 +28,7 @@ from typing import Dict
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..models import get_model
 from ..parallel import ctx, spmd
@@ -58,9 +59,11 @@ def make_train_step(cfg: ArchConfig, oc: opt.OptConfig):
         batch = {k: _local_rows(v, mesh) for k, v in batch.items()}
         # the backward recomputes each checkpointed layer: under the mesh too
         with ctx.mesh_context(mesh), ctx.sharded_batch(), ctx.placed_params(placements):
-            loss = api.loss(opt.unflatten((path, b) for (path, _), b in zip(pairs, blocks)),
-                            batch)
-            grads = list(torch.autograd.grad(loss, blocks))
+            with obs.span("train.forward"):
+                loss = api.loss(opt.unflatten((path, b) for (path, _), b in zip(pairs, blocks)),
+                                batch)
+            with obs.span("train.backward"):
+                grads = list(torch.autograd.grad(loss, blocks))
         del blocks
         loss = spmd.all_reduce_data(loss.detach(), mesh)
         out = []
@@ -82,12 +85,15 @@ def make_train_step(cfg: ArchConfig, oc: opt.OptConfig):
             loss, grads = grads_on_mesh(pairs, dict(opt.flatten_with_paths(opt_state.mu)), batch)
         else:
             pairs = [(path, p.detach().requires_grad_()) for path, p in pairs]
-            loss = api.loss(opt.unflatten(pairs), batch)
-            grads = torch.autograd.grad(loss, [p for _, p in pairs])
+            with obs.span("train.forward"):
+                loss = api.loss(opt.unflatten(pairs), batch)
+            with obs.span("train.backward"):
+                grads = torch.autograd.grad(loss, [p for _, p in pairs])
         grads = opt.unflatten((path, g) for (path, _), g in zip(pairs, grads))
         del pairs
-        grads, gnorm = opt.clip_by_global_norm(grads, oc.clip_norm)
-        new_params, new_state = opt.adamw_update(oc, params, grads, opt_state)
+        with obs.span("train.optimizer"):
+            grads, gnorm = opt.clip_by_global_norm(grads, oc.clip_norm)
+            new_params, new_state = opt.adamw_update(oc, params, grads, opt_state)
         metrics = {"loss": loss.detach(), "grad_norm": gnorm,
                    "lr": opt.schedule(oc, new_state.step)}
         return new_params, new_state, metrics

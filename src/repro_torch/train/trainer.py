@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..configs.base import ArchConfig
 from ..models import get_model
 from ..storage.checkpoint import CheckpointManager
@@ -78,16 +78,17 @@ class Trainer:
         n = n_steps if n_steps is not None else self.tc.max_steps
         target = self.step + n
         while self.step < target:
-            batch = {k: torch.from_numpy(v).to(self.device, torch.long)
-                     for k, v in self.reader.batch_at(self.step).items()}
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch)
-            self.step += 1
-            if self.step % self.tc.log_every == 0:
-                self.history.append(
-                    {"step": self.step,
-                     "loss": float(metrics["loss"]),
-                     "grad_norm": float(metrics["grad_norm"])})
+            with obs.span("train.step"):
+                batch = {k: torch.from_numpy(v).to(self.device, torch.long)
+                         for k, v in self.reader.batch_at(self.step).items()}
+                self.params, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch)
+                self.step += 1
+                if self.step % self.tc.log_every == 0:
+                    self.history.append(
+                        {"step": self.step,
+                         "loss": float(metrics["loss"]),
+                         "grad_norm": float(metrics["grad_norm"])})
             if crash_at is not None and self.step == crash_at:
                 raise RuntimeError(f"injected trainer crash at step {self.step}")
             if self.step % self.tc.ckpt_every == 0:

@@ -19,7 +19,8 @@ through a rendezvous file:
     forced); one mesh step of reduced rwkv6 and zamba2, their blocks split
     over "model" (no layer gathered whole over it: ``spmd.MODEL_GATHERS``),
     and of each with heads that do not divide the axis (the block whole on
-    every rank);
+    every rank); the spans (``repro_torch.obs``) of one sharded step
+    against those of a mesh-free one;
   * the vocab-parallel embedding, head and cross-entropy (tied and untied)
     against the mesh-free ones, the max term's gradient included;
   * prefill under the mesh caching the model's KV heads, not the padded
@@ -513,6 +514,31 @@ def case_host_mesh_falls_back_to_the_world(mesh):
     from repro_torch.launch.mesh import make_host_mesh
     m = make_host_mesh(4, 4, device_type="cpu")      # 16 ranks asked of 8: (8, 1)
     assert (tuple(m.shape), m.mesh_dim_names) == ((8, 1), ("data", "model"))
+    return {}
+
+
+def case_train_step_spans_do_not_depend_on_placement(mesh):
+    """One step on DTensor params records the mesh-free step's spans
+    (``repro_torch.obs``): forward, backward and optimizer, in that order,
+    under the caller's span."""
+    from repro_torch import obs
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    cfg = _attn_cfg("minicpm-2b", 6, 6)
+    oc = opt.opt_config_for(cfg, lr=1e-3, warmup_steps=1, eps=STEP_EPS)
+    step = make_train_step(cfg, oc)
+    full = get_model(cfg).init(3, torch.float32, "cpu")
+    params_sh = shd.distribute_tree(full, shd.param_shardings(cfg, full, mesh), mesh)
+    state_sh = opt.init_opt_state(oc, params_sh, shd.opt_shardings(cfg, full, mesh))
+    got = []
+    for params, state in ((full, opt.init_opt_state(oc, full)), (params_sh, state_sh)):
+        obs.reset()
+        with obs.span("step"):
+            step(params, state, _batch(cfg, 30))
+        got.append([(s.name, s.parent and s.parent.name) for s in obs.spans()])
+    assert got[0] == got[1] == [("train.forward", "step"), ("train.backward", "step"),
+                                ("train.optimizer", "step"), ("step", None)], got
     return {}
 
 
