@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure:
   (a) device: the card's name and power limit (nvidia-smi);
-  (b) build: nvcc compiles the port's seven CUDA sources for sm_90a, all at once;
+  (b) build: nvcc compiles the port's eight CUDA sources for sm_90a, all at once;
       cuobjdump proves the bf16 flash kernels run on the tensor cores (HGMMA in
       the forward, HMMA in the backward) and the fp32 ones do not, and that
       every kernel of the WKV6 and SSD scans, forward and backward, issues
@@ -31,13 +31,18 @@ Phases, each fatal on failure:
       the I/O bound; then the four scan kernels again at the reduced configs'
       sizes (K = V = 32; (P, N) = (32, 16)), timed at the full models' widths
       with those head sizes, and at the launchers' shapes, a ragged T, a T
-      shorter than one chunk, 11 heads and strong decays;
+      shorter than one chunk, 11 heads and strong decays; the decode kernel
+      (K5) against the plain version in fp32 at every head dim and group size
+      the served archs give it, its slots past n_valid NaN, timed at
+      minicpm-2b's decode cell (B 32, 36 heads of 64, 2,304 slots, 2,100
+      valid) beside the model's plain path and SDPA on the valid slots;
   (d) serving, one model after another, each at full published width with
       random bf16 weights from a seed: codeqwen1.5-7b, zamba2-7b and
       rwkv6-1.6b each serve 8 requests through ``BatchServer``.  Every
       kernel's launch count over that run is checked against the path's
-      layers; then prefill/decode consistency and kernel-path vs plain-path
-      prefill logits, on the bf16 weights and on an fp32 copy of them
+      layers (the decode kernel once a layer a decode step); then
+      prefill/decode consistency and kernel-path vs plain-path prefill and
+      decode logits, on the bf16 weights and on an fp32 copy of them
       (``SERVE_TOL``, ``FP32_TOL``); last, one wave's prefill and decode steps run under
       torch.profiler for device time by kernel.  Each model's weights and
       caches are freed before the next one is made; (d2) after (h), the five
@@ -134,7 +139,8 @@ Phases, each fatal on failure:
       sequence (``ctx.force_sequence_split``: the context-parallel decode
       attention), teacher-forced with the first wave's tokens, within
       ``SERVE_TOL``; each prefill launching the kernels
-      ``expected_launches`` names, decode none, and each run's prefill and
+      ``expected_launches`` names, each decode step the decode kernel once a
+      layer (none with the sequence split), and each run's prefill and
       decode tok/s and peak GB;
   (k) counts against the card (``repro_torch.launch.roofline``): in (d), one
       prefill wave (B=4, the longest of the 8 prompts) of each served model on
@@ -213,13 +219,14 @@ from repro_torch.core import (  # noqa: E402
     O_CREAT, O_TRUNC, O_WRONLY, CfsClient, CfsCluster, EventScheduler, Network)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.checksum import checksum as checksum_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention as decode_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.mamba2_ssd import ssd_bwd, ssd_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_bwd, wkv6_fwd  # noqa: E402
 from repro_torch.kernels.work import (  # noqa: E402
-    checksum_work, flash_bwd_work, flash_fwd_work, ssd_bwd_work, ssd_work, wkv6_bwd_work,
-    wkv6_work)
+    checksum_work, decode_attention_work, flash_bwd_work, flash_fwd_work, ssd_bwd_work, ssd_work,
+    wkv6_bwd_work, wkv6_work)
 from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import init_process_group, make_host_mesh  # noqa: E402
 from repro_torch.core.fsck import fsck  # noqa: E402
@@ -359,12 +366,14 @@ SSM_MESH_LAYERS, SSM_MESH_STEPS = {"rwkv6-1.6b": 4, "zamba2-7b": 6}, 2
 SCAN_SOURCES = ("rwkv6_scan", "mamba2_ssd", "rwkv6_scan_bwd", "mamba2_ssd_bwd")
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd": flash_attention_bwd, "checksum": checksum_kernel,
-           "ssd_fwd": ssd_fwd, "wkv6_fwd": wkv6_fwd, "ssd_bwd": ssd_bwd, "wkv6_bwd": wkv6_bwd}
+           "ssd_fwd": ssd_fwd, "wkv6_fwd": wkv6_fwd, "ssd_bwd": ssd_bwd, "wkv6_bwd": wkv6_bwd,
+           "decode_attention": decode_kernel}
 PLAIN_OPS = {       # the plain forms are differentiable: their backward is autograd's
     "flash_attention": lambda q, k, v, window=0, q_offset=0: ref.flash_attention(
         q, k, v, q_offset=q_offset, window=window),
     "mamba2_ssd": ref.mamba2_ssd,
     "wkv6": ref.rwkv6_chunked,
+    "takes_decode_attention": lambda q, cache: False,     # the model's einsums
 }
 
 
@@ -790,6 +799,44 @@ def flash_bwd_case(b, t, kv, g, hd, window, q_offset, dtype, seed, tk=None, time
     return case
 
 
+def decode_case(b, smax, kv, g, hd, n_valid, q_dtype, seed, timed=False):
+    """K5 against the plain version in fp32 on the same bf16 cache, whose slots
+    past n_valid hold NaN in the kernel's copy (a read of one would show).  Timed:
+    beside its byte bound, the model's plain path (``ref.decode_attention`` on the
+    bf16 inputs: its einsums over every slot, masked) and SDPA over the valid
+    slots, laid out for it beforehand (a yardstick the port never calls)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, 1, kv * g, hd), generator=gen, device="cuda").to(q_dtype)
+    kc, vc = (torch.randn((b, smax, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    want = ref.decode_attention(q.float(), kc.float(), vc.float(), n_valid)
+    k, v = kc.clone(), vc.clone()
+    k[:, n_valid:] = v[:, n_valid:] = float("nan")
+    out = decode_kernel(q, k, v, n_valid)
+    torch.cuda.synchronize()
+    tol = TOL[q_dtype]
+    err = (out.float() - want).abs()
+    ok = bool((err <= tol + tol * want.abs()).all() and torch.isfinite(out).all())
+    case = {"shape": {"B": b, "Smax": smax, "KV": kv, "G": g, "hd": hd, "n_valid": n_valid},
+            "dtype": f"q {str(q_dtype).split('.')[-1]}, cache bfloat16",
+            "max_abs_err": float(err.max()), "tolerance": tol, "ok": ok}
+    log(f"  decode case {json.dumps(case)}")
+    if not ok:
+        raise AssertionError(f"decode kernel disagrees with its plain version: {case}")
+    if timed:
+        case.update(bound(*decode_attention_work(b, n_valid, kv, g, hd, q.element_size()),
+                          torch.float32))
+        case["ms"] = cuda_ms(lambda: decode_kernel(q, k, v, n_valid), 50)
+        case["plain_ms"] = cuda_ms(lambda: ref.decode_attention(q, kc, vc, n_valid), 10)
+        qs = q.reshape(b, kv * g, 1, hd)
+        ks, vs = (x[:, :n_valid].transpose(1, 2).contiguous() for x in (kc, vc))
+        case["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=g > 1), 50)
+        del ks, vs
+        log(f"  decode timed {json.dumps(case)}")
+    return case
+
+
 def checksum_case(n, block, seed, timed=False):
     """K2 against ref.checksum, bit for bit; a changed word must change it."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -912,12 +959,25 @@ def phase_kernels():
                             flash_bwd_case(1, 1100, 8, 8, 128, 0, 0, torch.bfloat16, 45)]}
     # the int32 view of minicpm-2b's largest stacked bf16 leaf (layers.mlp.w1,
     # [40, 2304, 5760]), then tests/test_kernels_pallas.py's sizes and blocks
+    # minicpm-2b's decode cell (B 32, 36 heads of 64, 2,304 slots, about 2,100 valid),
+    # then n_valid at 1 and at Smax, and the served archs' head dims and groups:
+    # zamba2-7b's shared block (hd 112), codeqwen1.5-7b (G 1), phi3-medium-14b (G 4),
+    # mixtral-8x22b (G 6), arctic-480b (G 7), chameleon-34b (G 8), an fp32 q, and the
+    # reduced configs (hd 32, G 4)
+    bf, f32 = torch.bfloat16, torch.float32
+    decode = {"main": decode_case(32, 2304, 36, 1, 64, 2100, bf, 80, timed=True),
+              "others": [decode_case(*shape, seed=81 + i) for i, shape in enumerate((
+                  (32, 2304, 36, 1, 64, 1, bf), (32, 2304, 36, 1, 64, 2304, bf),
+                  (4, 4096, 32, 1, 112, 1795, bf), (4, 4096, 32, 1, 128, 4096, bf),
+                  (4, 4096, 10, 4, 128, 2049, bf), (4, 4096, 8, 6, 128, 4000, bf),
+                  (2, 700, 8, 7, 128, 333, bf), (2, 700, 8, 8, 128, 700, bf),
+                  (2, 700, 8, 8, 128, 259, f32), (1, 150, 1, 4, 32, 149, bf)))]}
     cfg = get_arch(TRAIN_ARCH)
     checksum = {"main": checksum_case(cfg.n_layers * cfg.d_model * cfg.d_ff // 2, 4096, 50,
                                       timed=True),
                 "others": [checksum_case(n, block, 51 + i) for i, (n, block) in
                            enumerate(((1000, 256), (4096, 4096), (10000, 512), (0, 4096)))]}
-    return flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases, reduced
+    return flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases, reduced, decode
 
 
 def phase_scan_reduced() -> dict:
@@ -1001,6 +1061,14 @@ def timed_api(api, stats):
                                decode=wrap("decode", api.decode))
 
 
+def decode_sites(cfg) -> int:
+    """Decode kernel launches of one decode step over a bf16 cache: one a layer
+    with attention."""
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
 def expected_launches(cfg) -> dict:
     """Kernel launches of one prefill wave: one per layer that runs a kernel."""
     if cfg.family == "ssm":
@@ -1073,6 +1141,7 @@ def serve_requests(arch, cfg, api, params, n_params, prompts, smax, batch=4, max
 
     waves = -(-n_req // batch)
     want = {name: n * waves for name, n in expected_launches(cfg).items()}
+    want["decode_attention"] = waves * (max_new - 1) * decode_sites(cfg)
     want = {name: want.get(name, 0) for name in KERNELS}
     if counts != want:
         raise AssertionError(f"{arch}: kernel launches on the serving path {counts}, "
@@ -1194,7 +1263,9 @@ def fp32_kv_cache():
 
 def check_consistency(cfg, api, params, tol: float, t: int = 512):
     """decode(prefill(x)) vs prefill(x + token) (tests/test_models_smoke.py), and
-    kernel-path vs plain-path prefill logits, on the full-width weights.
+    kernel-path vs plain-path prefill and decode logits, on the full-width weights
+    (the plain decode on the kernel decode's cache, after it: it writes the same
+    slot with its own k/v before reading it).
 
     An MoE model (at a capacity factor with no drops) is held on shared expert
     choices: the top-k choice is a step function of the router's logits, and a
@@ -1212,7 +1283,11 @@ def check_consistency(cfg, api, params, tol: float, t: int = 512):
         nxt = logits_p[:, -1, :cfg.vocab].argmax(-1)
         with moe_routing() as (chosen_d, _, _):
             logits_d, _ = api.decode(params, nxt[:, None], cache, t)
+        with plain_ops(), moe_routing([(slice(None), d) for d in chosen_d]) as \
+                (_, rerouted_plain_d, _):
+            plain_d, _ = api.decode(params, nxt[:, None], cache, t)
         del cache
+        ok_kd, err_kd = rel_close(logits_d, plain_d, tol)
         shared = [(slice(None), torch.cat([p.reshape(b, t, -1), d.reshape(b, 1, -1)], 1)
                    .reshape(b * (t + 1), -1)) for p, d in zip(chosen_p, chosen_d)]
         with moe_routing(shared) as (_, rerouted_full, _):
@@ -1226,13 +1301,15 @@ def check_consistency(cfg, api, params, tol: float, t: int = 512):
     res = {"weights": str(next(_leaves(params)).dtype).split(".")[-1],
            "consistency_B": b, "consistency_T": t, "tolerance": tol,
            "decode_vs_prefill_err": err_d, "kernel_vs_plain_prefill_err": err_k,
+           "kernel_vs_plain_decode_err": err_kd,
            "logit_absmax": float(full.float().abs().max())}
     if chosen_p:
         res.update(capacity_factor=cfg.capacity_factor, tokens=b * t,
                    tokens_rerouted_by_layer={"prefill_x_plus_token": rerouted_full,
-                                             "plain_prefill": rerouted_plain})
+                                             "plain_prefill": rerouted_plain,
+                                             "plain_decode": rerouted_plain_d})
     log(f"  consistency: {json.dumps(res)}")
-    if not (ok_d and ok_k and torch.isfinite(logits_d).all()):
+    if not (ok_d and ok_k and ok_kd and torch.isfinite(logits_d).all()):
         raise AssertionError(f"full-width consistency check failed: {res}")
     return res
 
@@ -1240,7 +1317,7 @@ def check_consistency(cfg, api, params, tol: float, t: int = 512):
 PORT_KERNELS = ("flash_fwd_sm90", "flash_fwd_kernel", "delta_kernel", "dkdv_mma", "dq_mma",
                 "dkdv_kernel", "dq_kernel", "ssd_gram_kernel", "ssd_scan_kernel",
                 "wkv6_state_kernel", "wkv6_out_kernel", "checksum_kernel", "wkv6_bwd_",
-                "ssd_bwd_")
+                "ssd_bwd_", "decode_attn_")
 
 
 def _device_summary(prof, wall_s: float, named=()):
@@ -2137,12 +2214,14 @@ def _wave_tokens(prompts) -> torch.Tensor:
     return toks.cuda()
 
 
-def _wave(cfg, prefill, decode, toks, steps: int, forced=None):
+def _wave(cfg, prefill, decode, toks, steps: int, forced=None, decode_kernel_steps=True):
     """A prefill of ``toks`` and ``steps`` greedy decode steps through
     ``prefill(toks)``/``decode(token, cache, cache_len)`` (whose logits are
     whole tensors), each token the argmax of the step before or, teacher
     forced, ``forced[i]``; each phase timed, the kernels' launches of the
-    prefill counted, and the run's own peak of device memory."""
+    prefill counted, the decode kernel's launches of the decode steps checked
+    (once a layer with attention a step, or none where not
+    ``decode_kernel_steps``), and the run's own peak of device memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2161,8 +2240,11 @@ def _wave(cfg, prefill, decode, toks, steps: int, forced=None):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     del cache
-    if launches() != counts:
-        raise AssertionError(f"decode launched a kernel: {launches()} after prefill's {counts}")
+    want = {**counts, "decode_attention": counts["decode_attention"]
+            + (steps * decode_sites(cfg) if decode_kernel_steps else 0)}
+    if launches() != want:
+        raise AssertionError(f"decode launches {launches()} after prefill's {counts}, "
+                             f"expected {want}")
     return steps_logits, tokens, {"prefill_s": prefill_s, "decode_s": decode_s,
                                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                                   "launches": counts}
@@ -2174,11 +2256,12 @@ def placed_wave(cfg, api, params, prompts, mesh, smax: int, steps: int):
     reference places its serving calls on ``mesh``, against the mesh-free
     wave on the same weights: every step's logits and tokens bit for bit (a
     group of one changes no sum), each prefill launching the kernels
-    ``expected_launches`` names and decode none.  Then, for a model with a
-    K/V cache, the same wave with it split by its sequence
-    (``ctx.force_sequence_split``: the context-parallel decode attention, its
-    softmax reduced over "model"), teacher-forced with the first wave's
-    tokens, within ``SERVE_TOL``, and with the same launches."""
+    ``expected_launches`` names and each decode step the decode kernel once a
+    layer with attention.  Then, for a model with a K/V cache, the same wave
+    with it split by its sequence (``ctx.force_sequence_split``: the
+    context-parallel decode attention, its softmax reduced over "model", the
+    einsums and no decode kernel), teacher-forced with the first wave's
+    tokens, within ``SERVE_TOL``, and with the same prefill launches."""
     t_phase = time.perf_counter()
     log(f"(j4) placed serving {cfg.name}: one wave of {len(prompts)} prompts and {steps} decode "
         f"steps on a {tuple(mesh.shape)} {mesh.mesh_dim_names} mesh of one NCCL rank")
@@ -2210,7 +2293,8 @@ def placed_wave(cfg, api, params, prompts, mesh, smax: int, steps: int):
         if cfg.family != "ssm":
             with ctx.force_sequence_split():
                 seq, _, runs["placed_sequence_split"] = _wave(cfg, *placed_fns(), toks, steps,
-                                                              forced=want_tokens[:-1])
+                                                              forced=want_tokens[:-1],
+                                                              decode_kernel_steps=False)
     for r in runs.values():
         r.update(prefill_tok_s=n_tokens / r["prefill_s"],
                  decode_tok_s=len(prompts) * steps / r["decode_s"])
@@ -2407,12 +2491,15 @@ def phase_serving_extra(arch: str):
 def launcher_kernels(cfg) -> tuple:
     """The kernels a reduced ``cfg`` must launch through ``launch.train`` (forward and
     backward) and through ``launch.serve`` (forward): the scans' for the ssm and
-    hybrid families, the flash kernels' for the attention families."""
+    hybrid families, the flash kernels' and the decode kernel for the attention
+    families (zamba2's shared-block cache takes the weights' dtype, fp32 in the
+    serving launcher, so its decode runs the einsums)."""
     if cfg.family == "ssm":
         return ("wkv6_fwd", "wkv6_bwd"), ("wkv6_fwd",)
     if cfg.family == "hybrid":
         return ("ssd_fwd", "ssd_bwd"), ("ssd_fwd",)
-    return ("flash_attention_fwd", "flash_attention_bwd"), ("flash_attention_fwd",)
+    return ("flash_attention_fwd", "flash_attention_bwd"), ("flash_attention_fwd",
+                                                            "decode_attention")
 
 
 def phase_launchers() -> dict:
@@ -2869,7 +2956,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    sources = ["flash_attention", "flash_attention_bwd", "checksum", *SCAN_SOURCES]
+    sources = ["flash_attention", "flash_attention_bwd", "checksum", *SCAN_SOURCES,
+               "decode_attention"]
     t0 = time.perf_counter()
     _build.build_all(sources)
     build_s = time.perf_counter() - t0
@@ -2896,7 +2984,7 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
     baseline["wall_s"] = time.perf_counter() - t0
     log(f"(l) the lint and the metadata operations took {baseline['wall_s']:.3f} s wall "
         f"on the host beside {smi}")
-    flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases, reduced = \
+    flash, flash_bwd, checksum, wkv6, ssd, wkv6_bwd_cases, ssd_bwd_cases, reduced, decode = \
         phase_kernels()
     peaks = [torch.cuda.max_memory_allocated() / 1e9]
     free_device_memory()
@@ -3022,6 +3110,14 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                     **_scan_extra(ssd_bwd_cases["main"], tensor_cores, "mamba2_ssd_bwd"),
                     **_bwd_extra(ssd_bwd_cases["main"]),
                     other_cases=ssd_bwd_cases["others"], reduced_sizes=reduced["ssd_bwd"]),
+        kernel_line("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+                    "src/repro/models/layers.py:205", decode["main"], by_path("decode_attention"),
+                    replaces_note="no TPU kernel: the reference's decode attention is plain jnp "
+                                  "einsums",
+                    dtype=decode["main"]["dtype"],
+                    library="torch.nn.functional.scaled_dot_product_attention over the valid "
+                            "slots, laid out [B, KV, n_valid, hd] beforehand",
+                    other_cases=decode["others"]),
     ]
     for k in kernels:
         if k["launches"] == 0:

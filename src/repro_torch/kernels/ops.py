@@ -17,6 +17,7 @@ import torch
 
 from . import _build, ref
 from . import checksum as _checksum  # noqa: F401  (registers the operator)
+from . import decode_attention as _decode_attention  # noqa: F401  (registers the operator)
 from .flash_attention import FlashAttention
 from .mamba2_ssd import SSD
 from .rwkv6_scan import WKV6
@@ -74,6 +75,23 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
     if x.device.type == "cpu":
         return ref.mamba2_ssd(x, dt, A, B, C, state, chunk)
     raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")
+
+
+def takes_decode_attention(q: torch.Tensor, cache: torch.Tensor) -> bool:
+    """Whether one-token decode attention of ``q`` over ``cache`` runs the decode
+    kernel (``decode_attention``): the rule above sends ``q`` to the card and the
+    cache is bf16.  An int8 or fp32 cache, and every CPU call, take the model's
+    plain path (``models.layers.attention_decode``)."""
+    return (q.is_cuda or _card_path) and cache.dtype == torch.bfloat16
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     n_valid: int) -> torch.Tensor:
+    """One query token's GQA attention over slots [0, n_valid) of a bf16 K/V cache,
+    on the card, through its operator.  q [B,1,H,hd]; k/v [B,Smax,KV,hd] ->
+    [B,1,H,hd] in q's dtype.  Its plain counterpart is ``ref.decode_attention``."""
+    _build.refuse_dtensor("decode_attention", q, k, v)
+    return torch.ops.repro_torch.decode_attention(q, k, v, n_valid)
 
 
 def tensor_checksum(data: torch.Tensor, block: int = 4096) -> torch.Tensor:

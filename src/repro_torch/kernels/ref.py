@@ -12,7 +12,10 @@ Mirrors ``repro.kernels.ref``:
     state out, and the chunked forms' backward (``*_bwd``: autograd through
     them, as the reference's gradients are JAX's autodiff of its own);
   * the positional-weighted checksum, in int64 with every product and sum
-    reduced mod 2^32.
+    reduced mod 2^32;
+  * one-token decode attention over a K/V cache as the model's plain path
+    computes it (the decode kernel's counterpart; the JAX package has no kernel
+    for it).
 The CPU tests hold these to the JAX functions; ``chip_smoke.py`` holds the
 CUDA kernels to them on the card.
 """
@@ -213,6 +216,24 @@ def attention_naive(q, k, v, q_offset: int = 0, window: int = 0):
 
 
 # ================================================================= RWKV6 (WKV)
+
+def decode_attention(q, k, v, n_valid: int):
+    """One-token GQA decode attention as the model's plain path computes it
+    (``models.layers.attention_decode`` with a bf16 or fp32 cache and no split):
+    the products over every slot of the cache in the dtype q and the cache
+    promote to, slots at or past ``n_valid`` masked out, the softmax in fp32 and
+    the probabilities rounded to q's dtype before the product with v.  On fp32
+    inputs it is the function the decode kernel computes, in fp32.
+    q [B,1,H,hd]; k/v [B,Smax,KV,hd] -> [B,1,H,hd]."""
+    b, _, h, hd = q.shape
+    n, kvh = k.shape[1], k.shape[2]
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(b, 1, kvh, h // kvh, hd).to(dt)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(dt)).float() / hd ** 0.5
+    s = s.masked_fill(torch.arange(n, device=q.device) >= n_valid, NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(q.dtype).to(dt)
+    return torch.einsum("bkgqs,bskh->bqkgh", pr, v.to(dt)).reshape(b, 1, h, hd)
+
 
 def rwkv6_naive(r, k, v, w, u, state):
     """Per-step WKV6 recurrence oracle.

@@ -139,6 +139,16 @@ def ssd_bwd_work(b: int, t: int, h: int, p: int, n: int, chunk: int) -> Tuple[in
     return flops * b * h + shared * b, trans * b * h, nbytes
 
 
+def decode_attention_work(b: int, n_valid: int, kv: int, g: int, hd: int,
+                          q_itemsize: int) -> Tuple[int, int]:
+    """K5: the plain path's score and value products over the slots the kernel reads,
+    2 products of 2*hd flops per (query head, valid slot); the valid slots' bf16 K and V
+    rows read once, q read and out written in q's dtype (the splits' scratch apart)."""
+    flops = 4 * hd * b * kv * g * n_valid
+    nbytes = 2 * b * n_valid * kv * hd * 2 + 2 * b * kv * g * hd * q_itemsize
+    return flops, nbytes
+
+
 def checksum_work(n_words: int) -> Tuple[int, int]:
     """K2: no floating-point operation (two integer multiply-adds a word, which no
     rate of the table bounds); each word read once, the digest written."""

@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels import ops
 from ..parallel import ctx, spmd
 from ..parallel import sharding as shd
 
@@ -404,7 +405,12 @@ def attention_decode(cfg: ArchConfig, p: Params, x: torch.Tensor,
     normalises its own probabilities and casts them as the mesh-free path
     does (to bf16 in the int8 path, before the product with v), and the
     partial outputs are summed over "model" in fp32 and rounded once to
-    the mesh-free output's dtype; then its rows of wo (``_out_proj``)."""
+    the mesh-free output's dtype; then its rows of wo (``_out_proj``).
+
+    Where ``ops`` sends the call to the card and the cache is bf16 (no scales)
+    and not split by its sequence, the attention is the decode kernel
+    (``ops.decode_attention``: the valid slots read in place, scores and sums in
+    fp32); the einsums below are the plain path of every other call."""
     split, mesh = ctx.kv_split(), tp_mesh()
     seq = split == "sequence"
     b, n = x.shape[0], cache_k.shape[1]
@@ -420,6 +426,9 @@ def attention_decode(cfg: ArchConfig, p: Params, x: torch.Tensor,
         for dst, src in zip((cache_k, cache_v, *(kv_scale or ())), new):
             _write_slot(dst, src, write_pos - lo)
     H, KV, hd = q.shape[2], cache_k.shape[2], cfg.hd
+    if kv_scale is None and not seq and ops.takes_decode_attention(q, cache_k):
+        out = ops.decode_attention(q, cache_k, cache_v, n_valid).reshape(b, 1, H * hd)
+        return _out_proj(out, p["wo"], split == "heads"), cache_k, cache_v, kv_scale
     qg = q.reshape(b, 1, KV, H // KV, hd)
     if kv_scale is not None:
         # scales applied after the dot: (q.k_q)*s_k == q.(k_q*s_k) per (token, head)

@@ -13,7 +13,10 @@ split 3xTF32.  The flash backward is held to the same
 and in bf16 its D = rowsum(do * out) reads the bf16 output where the plain
 version recomputes it in fp32); the checksum is integer arithmetic and
 must be equal bit for bit.  The flash kernels take bf16 on the tensor cores and
-fp32 on the CUDA cores, so each feature is tested in both dtypes.
+fp32 on the CUDA cores, so each feature is tested in both dtypes.  The decode
+kernel reads a bf16 cache and is held to the plain version computed in fp32 on
+the same bf16 values: 2e-2 for a bf16 q (its output is rounded to bf16), 2e-3
+for an fp32 q.
 """
 
 import ctypes
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.checksum import checksum as checksum_kernel
+from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.kernels.mamba2_ssd import ssd_bwd, ssd_fwd
 from repro_torch.kernels.rwkv6_scan import wkv6_bwd, wkv6_fwd
@@ -925,12 +929,20 @@ def test_kernel_wrappers_refuse_dtensors_on_cuda(cuda, nccl_mesh):
         checksum_kernel(words)
     with pytest.raises(TypeError, match="DTensor"):
         ops.tensor_checksum(words)
+    q1 = shd.distribute(torch.zeros((1, 1, 2, 64), device=cuda, dtype=torch.bfloat16), (),
+                        nccl_mesh)
+    cache = shd.distribute(torch.zeros((1, 64, 2, 64), device=cuda, dtype=torch.bfloat16), (),
+                           nccl_mesh)
+    with pytest.raises(TypeError, match="DTensor"):
+        decode_kernel(q1, cache, cache, 8)
+    with pytest.raises(TypeError, match="DTensor"):
+        ops.decode_attention(q1, cache, cache, 8)
 
 
 # ------------------------------------------------------------------ the kernels' operators
 
 def _op_calls(cuda):
-    """(operator, wrapper, arguments) for each of the seven kernel operators, at small
+    """(operator, wrapper, arguments) for each of the eight kernel operators, at small
     shapes the kernels take."""
     from repro_torch.kernels import mamba2_ssd, rwkv6_scan
     gen = torch.Generator().manual_seed(9)
@@ -952,6 +964,8 @@ def _op_calls(cuda):
         (o.ssd_fwd, mamba2_ssd.ssd_fwd, (x, dt, A, Bm, Bm, st, 128, False), {}),
         (o.ssd_bwd, ssd_bwd, (x, dt, A, Bm, Bm, s_states, x, st, 128), {}),
         (o.checksum, checksum_kernel, (words, 4096), {}),
+        (o.decode_attention, decode_kernel, (q[:, -1:].reshape(2, 1, 4, 64).contiguous(), k, v,
+                                             77), {}),
     ]
 
 
@@ -1034,3 +1048,105 @@ def test_counts_on_the_card_equal_fake_counts(cuda, arch, kind):
     # count (a copy that one run makes and the other does not may be live at the peak)
     peak = real.memory()["peak_bytes"]
     assert peak > 0 and abs(lowered.memory()["peak_bytes"] / peak - 1) <= 0.01
+
+
+# ------------------------------------------------------ the decode kernel (K5)
+
+def _decode_inputs(seed, b, smax, kv, g, hd, q_dtype, device, n_valid):
+    """q [B,1,KV*G,hd] and a bf16 cache whose slots at or past n_valid hold NaN,
+    with the cache's clean copy (zeros there) for the plain version."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, 1, kv * g, hd), generator=gen).to(q_dtype).to(device)
+    k, v = (torch.randn((b, smax, kv, hd), generator=gen).to(torch.bfloat16).to(device)
+            for _ in range(2))
+    clean = [x.clone() for x in (k, v)]
+    for x, c in zip((k, v), clean):
+        x[:, n_valid:] = float("nan")
+        c[:, n_valid:] = 0
+    return q, k, v, clean
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,smax,kv,g,hd,n_valid,q_dtype", [
+    (32, 2304, 36, 1, 64, 2100, torch.bfloat16),     # minicpm-2b's decode cell
+    (32, 2304, 36, 1, 64, 2304, torch.bfloat16),
+    (32, 2304, 36, 1, 64, 1, torch.bfloat16),
+    (2, 700, 8, 8, 128, 333, torch.bfloat16),        # chameleon-34b: G 8, hd 128
+    (2, 700, 8, 7, 128, 700, torch.bfloat16),        # arctic-480b: G 7
+    (2, 4096, 8, 6, 128, 4000, torch.bfloat16),      # mixtral-8x22b: G 6, its 4096 window
+    (3, 515, 10, 4, 128, 1, torch.bfloat16),         # phi3-medium-14b: G 4
+    (3, 515, 10, 4, 128, 259, torch.float32),
+    (4, 4096, 32, 1, 112, 1795, torch.bfloat16),     # zamba2-7b's shared block: hd 112
+    (1, 300, 2, 1, 112, 300, torch.float32),
+    (2, 300, 4, 1, 128, 97, torch.bfloat16),         # codeqwen1.5-7b: G 1, hd 128
+    (1, 150, 1, 4, 32, 149, torch.bfloat16),         # the reduced configs: hd 32, G 4
+    (1, 150, 1, 4, 32, 150, torch.float32),
+    (1, 5000, 2, 2, 64, 4999, torch.float32),        # one row, many splits
+])
+def test_decode_kernel_matches_plain(cuda, b, smax, kv, g, hd, n_valid, q_dtype):
+    """n_valid at 1, off every tile and split boundary, and at Smax; the slots
+    past n_valid hold NaN, so a read of one would show in the output."""
+    q, k, v, (kc, vc) = _decode_inputs(11, b, smax, kv, g, hd, q_dtype, cuda, n_valid)
+    out = decode_kernel(q, k, v, n_valid)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    want = ref.decode_attention(q.float(), kc.float(), vc.float(), n_valid)
+    _close(out, want, TOL[q_dtype])
+
+
+@pytest.mark.cuda
+def test_decode_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v, _ = _decode_inputs(12, 2, 64, 2, 2, 64, torch.bfloat16, cuda, 64)
+    with pytest.raises(ValueError, match="n_valid"):
+        decode_kernel(q, k, v, 65)
+    with pytest.raises(ValueError, match="bf16 K/V cache"):
+        decode_kernel(q, k.float(), v.float(), 8)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        decode_kernel(q.cpu(), k, v, 8)
+
+
+@pytest.mark.cuda
+def test_decode_step_launches_the_kernel_once_a_layer(cuda, monkeypatch):
+    """minicpm-2b at full width and 4 of its 40 layers, bf16, on the card: one
+    decode step after a prefill launches the decode kernel once a layer, and its
+    logits match the same step with the plain version in the kernel's place
+    (``ref.decode_attention`` in fp32, rounded to bf16) within the bf16 tolerance,
+    closer than the model's plain path (the einsums, which round the scores and
+    the probabilities to bf16: 0.047 off at most on an H100); the same step over
+    an int8 cache launches none."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    cfg = dataclasses.replace(get_arch("minicpm-2b"), n_layers=4)
+    api = get_model(cfg)
+    params = api.init(0, torch.bfloat16, "cuda")
+    gen = torch.Generator().manual_seed(13)
+    toks = torch.randint(0, cfg.vocab, (2, 300), generator=gen).to(cuda)
+
+    def fp32_version(q, k, v, n_valid):
+        return ref.decode_attention(q.float(), k.float(), v.float(), n_valid).to(q.dtype)
+
+    def err(a, b):
+        return ((a.float() - b.float()).abs() / (1 + b.float().abs())).max().item()
+
+    with torch.no_grad():
+        _, cache = api.prefill(params, toks, 320)
+        caches = [{name: x.clone() for name, x in cache.items()} for _ in range(2)]
+        nxt = toks[:, -1:]
+        monkeypatch.setattr(decode_kernel, "launches", 0)
+        logits, _ = api.decode(params, nxt, cache, 300)
+        torch.cuda.synchronize()
+        assert decode_kernel.launches == cfg.n_layers
+        with monkeypatch.context() as m:
+            m.setattr(ops, "decode_attention", fp32_version)
+            want, _ = api.decode(params, nxt, caches[0], 300)
+            m.setattr(ops, "takes_decode_attention", lambda q, c: False)
+            plain, _ = api.decode(params, nxt, caches[1], 300)
+        assert decode_kernel.launches == cfg.n_layers
+        _close(logits, want, TOL[torch.bfloat16])
+        assert err(logits, want) <= err(plain, want)
+        _, cache8 = api.prefill(params, toks, 320, "int8")
+        api.decode(params, nxt, cache8, 300)
+        assert decode_kernel.launches == cfg.n_layers

@@ -490,6 +490,7 @@ def case_dtensor_layouts(mesh):
 
 def case_kernel_wrappers_refuse_dtensors(mesh):
     from repro_torch.kernels.checksum import checksum
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.mamba2_ssd import ssd_fwd
     from repro_torch.kernels.rwkv6_scan import wkv6_fwd
@@ -497,13 +498,18 @@ def case_kernel_wrappers_refuse_dtensors(mesh):
     kv = shd.distribute(torch.zeros(2, 8, 4, 64), (None, None, "model"), mesh)
     words = shd.distribute(torch.zeros(64, dtype=torch.int32), ("model",), mesh)
     x = shd.distribute(torch.zeros(2, 8, 4, 64), (None, None, "model"), mesh)
+    q1 = shd.distribute(torch.zeros(2, 1, 4, 64, dtype=torch.bfloat16), (None, None, "model"),
+                        mesh)
+    cache = shd.distribute(torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16),
+                           (None, None, "model"), mesh)
     calls = {"flash_attention_fwd": lambda: flash_attention_fwd(q, kv, kv),
              "checksum": lambda: checksum(words),
              "wkv6_fwd": lambda: wkv6_fwd(x, x, x, x, torch.zeros(4, 64),
                                           torch.zeros(2, 4, 64, 64)),
              "ssd_fwd": lambda: ssd_fwd(x, torch.zeros(2, 8, 4), torch.zeros(4),
                                         torch.zeros(2, 8, 64), torch.zeros(2, 8, 64),
-                                        torch.zeros(2, 4, 64, 64))}
+                                        torch.zeros(2, 4, 64, 64)),
+             "decode_attention": lambda: decode_attention(q1, cache, cache, 8)}
     for name, call in calls.items():
         with pytest.raises(TypeError, match="DTensor"):
             call()
