@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure:
   (a) device: the card's name and power limit (nvidia-smi);
-  (b) build: nvcc compiles the port's eight CUDA sources for sm_90a, all at once;
+  (b) build: nvcc compiles the port's nine CUDA sources for sm_90a, all at once;
       cuobjdump proves the bf16 flash kernels run on the tensor cores (HGMMA in
       the forward, HMMA in the backward) and the fp32 ones do not, and that
       every kernel of the WKV6 and SSD scans, forward and backward, issues
@@ -52,6 +52,15 @@ Phases, each fatal on failure:
       wave of ``EXTRA_REQUESTS`` shorter requests, its launches checked, then
       decode vs prefill and kernel path vs plain path (arctic-480b on shared
       expert choices);
+  (d3) serving zamba2-7b-instruct (``PUB_ARCH``, the published Zamba2-7B, whole, the
+      model of the benchmark's decode cell): K1 and K5 at head dim 224 with its
+      softmax scale, K3 with B and C in 2 groups and K6 (the Mamba2 decode step)
+      against their plain versions at the decode cell's shapes, each timed; one wave
+      of 4 requests through ``BatchServer``, every kernel's launches checked with
+      the counters zeroed just before it (K6 once a layer and K5 once a site a decode
+      step, the graphs' replays counted); the wave again with the server's graphs
+      off, token for token; the kernel path's prefill and decode logits within twice
+      the bf16 plain paths' distance from the plain paths on an fp32 copy;
   (f) training: minicpm-2b at full published width, random bf16 weights with
       fp32 master weights and moments, takes ``TRAIN_STEPS`` steps of
       ``make_train_step`` at B=2, T=2048 on the arithmetic token sequences of
@@ -223,15 +232,16 @@ from repro_torch.kernels.decode_attention import decode_attention as decode_kern
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.mamba2_ssd import ssd_bwd, ssd_fwd  # noqa: E402
+from repro_torch.kernels.mamba2_step import mamba2_step as step_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_bwd, wkv6_fwd  # noqa: E402
 from repro_torch.kernels.work import (  # noqa: E402
-    checksum_work, decode_attention_work, flash_bwd_work, flash_fwd_work, ssd_bwd_work, ssd_work,
-    wkv6_bwd_work, wkv6_work)
+    checksum_work, decode_attention_work, flash_bwd_work, flash_fwd_work, mamba2_step_work,
+    ssd_bwd_work, ssd_work, wkv6_bwd_work, wkv6_work)
 from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import init_process_group, make_host_mesh  # noqa: E402
 from repro_torch.core.fsck import fsck  # noqa: E402
 from repro_torch.launch.train import build_cluster, write_dataset  # noqa: E402
-from repro_torch.models import get_model, layers, moe, transformer  # noqa: E402
+from repro_torch.models import get_model, layers, moe, transformer, zamba2  # noqa: E402
 from repro_torch.parallel import compress, ctx, spmd  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.serve.server import (  # noqa: E402
@@ -354,6 +364,9 @@ MESH_NAMED_OPS = ("nccl", "Memcpy", "copy", "fill", "zero")
 # with its decode steps (zamba2-7b and rwkv6-1.6b fewer: a placed decode step costs
 # host time a layer)
 PLACED_STEPS = {"codeqwen1.5-7b": 31, "zamba2-7b": 16, "rwkv6-1.6b": 16}
+# (d3): the published Zamba2-7B, whole, and the decode cell's shapes its kernels take there:
+# a wave of 32 prompts of up to 2,048 tokens, 2,304 cache slots, about 2,100 of them valid
+PUB_ARCH, PUB_CELL = "zamba2-7b-instruct", (32, 2048, 2304, 2100)
 # (i): rwkv6-1.6b whole; zamba2-7b cut to SSM_TRAIN_LAYERS of its 81 layers (a multiple
 # of its attn_every, so every shared-block site is whole); kernel vs plain training at
 # SSM_CHECK_LAYERS layers
@@ -367,13 +380,15 @@ SCAN_SOURCES = ("rwkv6_scan", "mamba2_ssd", "rwkv6_scan_bwd", "mamba2_ssd_bwd")
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd": flash_attention_bwd, "checksum": checksum_kernel,
            "ssd_fwd": ssd_fwd, "wkv6_fwd": wkv6_fwd, "ssd_bwd": ssd_bwd, "wkv6_bwd": wkv6_bwd,
-           "decode_attention": decode_kernel}
+           "decode_attention": decode_kernel, "mamba2_step": step_kernel}
 PLAIN_OPS = {       # the plain forms are differentiable: their backward is autograd's
-    "flash_attention": lambda q, k, v, window=0, q_offset=0: ref.flash_attention(
-        q, k, v, q_offset=q_offset, window=window),
+    "flash_attention": lambda q, k, v, window=0, q_offset=0, scale=None: ref.flash_attention(
+        q, k, v, q_offset=q_offset, window=window, scale=scale),
     "mamba2_ssd": ref.mamba2_ssd,
     "wkv6": ref.rwkv6_chunked,
     "takes_decode_attention": lambda q, cache: False,     # the model's einsums
+    "decode_attention": ref.decode_attention,             # the published Zamba2's decode
+    "mamba2_step": ref.mamba2_step,
 }
 
 
@@ -392,8 +407,8 @@ def _half_chunk(fn, default: int):
 PLAIN_HALF_CHUNK = {
     **PLAIN_OPS, "mamba2_ssd": _half_chunk(ref.mamba2_ssd, 128),
     "wkv6": _half_chunk(ref.rwkv6_chunked, 64),
-    "flash_attention": lambda q, k, v, window=0, q_offset=0: ref.flash_attention(
-        q, k, v, q_offset=q_offset, window=window, block_q=256, block_k=512)}
+    "flash_attention": lambda q, k, v, window=0, q_offset=0, scale=None: ref.flash_attention(
+        q, k, v, q_offset=q_offset, window=window, block_q=256, block_k=512, scale=scale)}
 
 
 def log(msg: str) -> None:
@@ -542,14 +557,14 @@ def bound(flops: int, nbytes: int, dtype) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def flash_case(b, tq, tk, kv, g, hd, window, q_offset, dtype, seed, timed=False):
+def flash_case(b, tq, tk, kv, g, hd, window, q_offset, dtype, seed, timed=False, scale=None):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, tq, kv, g, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, tk, kv, hd), generator=gen, device="cuda").to(dtype)
     v = torch.randn((b, tk, kv, hd), generator=gen, device="cuda").to(dtype)
-    out, lse = flash_attention_fwd(q, k, v, window=window, q_offset=q_offset)
+    out, lse = flash_attention_fwd(q, k, v, window=window, q_offset=q_offset, scale=scale)
     torch.cuda.synchronize()
-    want, want_lse = ref._flash_fwd_impl(q, k, v, q_offset, window, 512, 1024)
+    want, want_lse = ref._flash_fwd_impl(q, k, v, q_offset, window, 512, 1024, scale)
     tol = TOL[dtype]
     err = (out.float() - want.float()).abs()
     lse_err = (lse - want_lse).abs()
@@ -557,7 +572,8 @@ def flash_case(b, tq, tk, kv, g, hd, window, q_offset, dtype, seed, timed=False)
               and (lse_err <= 2e-3 + 2e-3 * want_lse.abs()).all()
               and torch.isfinite(out).all())
     case = {"shape": {"B": b, "Tq": tq, "Tk": tk, "KV": kv, "G": g, "hd": hd},
-            "window": window, "q_offset": q_offset, "dtype": str(dtype).split(".")[-1],
+            "window": window, "q_offset": q_offset, "scale": scale,
+            "dtype": str(dtype).split(".")[-1],
             "max_abs_err": float(err.max()), "lse_max_abs_err": float(lse_err.max()),
             "tolerance": tol, "ok": ok}
     log(f"  flash case {json.dumps(case)}")
@@ -566,15 +582,15 @@ def flash_case(b, tq, tk, kv, g, hd, window, q_offset, dtype, seed, timed=False)
     if timed:
         case.update(bound(*flash_fwd_work(b, tq, tk, kv, g, hd, window, q_offset,
                                           q.element_size()), dtype))
-        case["ms"] = cuda_ms(lambda: flash_attention_fwd(q, k, v, window, q_offset), 20)
+        case["ms"] = cuda_ms(lambda: flash_attention_fwd(q, k, v, window, q_offset, scale), 20)
         case["plain_ms"] = cuda_ms(
-            lambda: ref._flash_fwd_impl(q, k, v, q_offset, window, 512, 1024), 5)
+            lambda: ref._flash_fwd_impl(q, k, v, q_offset, window, 512, 1024, scale), 5)
         if not (g == 1 and window == 0 and q_offset == 0 and tq == tk):
             raise ValueError("the SDPA yardstick computes plain causal MHA only")
         qs, ks, vs = (x.reshape(b, x.shape[1], kv, hd).transpose(1, 2).contiguous()
                       for x in (q, k, v))
         case["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True), 20)
+            lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=scale), 20)
         log(f"  flash timed {json.dumps(case)}")
     return case
 
@@ -632,6 +648,56 @@ def ssd_inputs(seed, b, t, h, p=64, n=64, strong=False):
     x, dt, A = r(b, t, h, p) * 0.5, F.softplus(r(b, t, h) - 1.0), -r(h).abs()
     return (x, dt, A * 50.0 if strong else A, r(b, t, n) * 0.5, r(b, t, n) * 0.5,
             r(b, h, p, n) * 0.2)
+
+
+def grouped_ssd_inputs(seed, b, t, h, groups, p=64, n=64):
+    """``ssd_inputs`` with B and C [Bt,T,G,N], head h reading group h // (H/G)."""
+    x, dt, A, _, _, s = ssd_inputs(seed, b, t, h, p, n)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    B, C = (torch.randn((b, t, groups, n), generator=gen, device="cuda") * 0.5 for _ in range(2))
+    return x, dt, A, B, C, s
+
+
+def step_case(b, h, p, n, groups, seed, timed=False):
+    """K6 against ``ref.mamba2_step`` on the same inputs (a token's bf16 in_proj output,
+    conv tail and weights, the fp32 state and per-head parameters at the published
+    block's scales), two steps running: the output and the state within the bf16
+    tolerance, the conv tail bit for bit.  Timed: beside its byte bound and the plain
+    version's ~27 launches."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    bf, din = torch.bfloat16, h * p
+    c = din + 2 * groups * n
+    xs = [r(b, din + c + h).to(bf), r(b, c, 3).to(bf), (r(4, c) * 0.2).to(bf),
+          (r(c) * 0.02).to(bf), r(h) - 4.0,
+          -torch.arange(1, h + 1, dtype=torch.float32, device="cuda"),
+          torch.ones(h, device="cuda"), r(b, h, p, n) * 0.2, (1 + 0.1 * r(din)).to(bf),
+          groups, 1e-5]
+    mine = [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
+    tol, abs_errs, tails, ok = TOL[bf], [], [], True
+    for _ in range(2):
+        out = step_kernel(*mine)
+        want = ref.mamba2_step(*xs)
+        torch.cuda.synchronize()
+        for a, w in ((out, want), (mine[7], xs[7])):
+            a, w = a.float(), w.float()
+            err = (a - w).abs()
+            abs_errs.append(float(err.max()))
+            ok = ok and bool((err <= tol + tol * w.abs()).all() and torch.isfinite(a).all())
+        tails.append(bool(torch.equal(mine[1], xs[1])))
+    case = {"shape": {"B": b, "H": h, "P": p, "N": n, "G": groups},
+            "dtype": "bf16 u, conv and weights; fp32 state", "max_abs_err": max(abs_errs),
+            "tolerance": tol, "conv_tail_bit_identical": all(tails), "ok": ok and all(tails)}
+    log(f"  step case {json.dumps(case)}")
+    if not case["ok"]:
+        raise AssertionError(f"mamba2_step kernel disagrees with its plain version: {case}")
+    if timed:
+        case.update(bound(*mamba2_step_work(b, h, p, n, groups), torch.float32))
+        case["ms"] = cuda_ms(lambda: step_kernel(*mine), 50)
+        case["plain_ms"] = cuda_ms(lambda: ref.mamba2_step(*xs), 10)
+        case["library_ms"] = None       # no single PyTorch call computes the step
+        log(f"  step timed {json.dumps(case)}")
+    return case
 
 
 # the scans' backward: each wrapper's source and its CUDA kernels, in the order of the
@@ -799,7 +865,7 @@ def flash_bwd_case(b, t, kv, g, hd, window, q_offset, dtype, seed, tk=None, time
     return case
 
 
-def decode_case(b, smax, kv, g, hd, n_valid, q_dtype, seed, timed=False):
+def decode_case(b, smax, kv, g, hd, n_valid, q_dtype, seed, timed=False, scale=None):
     """K5 against the plain version in fp32 on the same bf16 cache, whose slots
     past n_valid hold NaN in the kernel's copy (a read of one would show).  Timed:
     beside its byte bound, the model's plain path (``ref.decode_attention`` on the
@@ -809,16 +875,16 @@ def decode_case(b, smax, kv, g, hd, n_valid, q_dtype, seed, timed=False):
     q = torch.randn((b, 1, kv * g, hd), generator=gen, device="cuda").to(q_dtype)
     kc, vc = (torch.randn((b, smax, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
               for _ in range(2))
-    want = ref.decode_attention(q.float(), kc.float(), vc.float(), n_valid)
+    want = ref.decode_attention(q.float(), kc.float(), vc.float(), n_valid, scale)
     k, v = kc.clone(), vc.clone()
     k[:, n_valid:] = v[:, n_valid:] = float("nan")
-    out = decode_kernel(q, k, v, n_valid)
+    out = decode_kernel(q, k, v, n_valid, scale)
     torch.cuda.synchronize()
     tol = TOL[q_dtype]
     err = (out.float() - want).abs()
     ok = bool((err <= tol + tol * want.abs()).all() and torch.isfinite(out).all())
     case = {"shape": {"B": b, "Smax": smax, "KV": kv, "G": g, "hd": hd, "n_valid": n_valid},
-            "dtype": f"q {str(q_dtype).split('.')[-1]}, cache bfloat16",
+            "scale": scale, "dtype": f"q {str(q_dtype).split('.')[-1]}, cache bfloat16",
             "max_abs_err": float(err.max()), "tolerance": tol, "ok": ok}
     log(f"  decode case {json.dumps(case)}")
     if not ok:
@@ -826,12 +892,12 @@ def decode_case(b, smax, kv, g, hd, n_valid, q_dtype, seed, timed=False):
     if timed:
         case.update(bound(*decode_attention_work(b, n_valid, kv, g, hd, q.element_size()),
                           torch.float32))
-        case["ms"] = cuda_ms(lambda: decode_kernel(q, k, v, n_valid), 50)
-        case["plain_ms"] = cuda_ms(lambda: ref.decode_attention(q, kc, vc, n_valid), 10)
+        case["ms"] = cuda_ms(lambda: decode_kernel(q, k, v, n_valid, scale), 50)
+        case["plain_ms"] = cuda_ms(lambda: ref.decode_attention(q, kc, vc, n_valid, scale), 10)
         qs = q.reshape(b, kv * g, 1, hd)
         ks, vs = (x[:, :n_valid].transpose(1, 2).contiguous() for x in (kc, vc))
         case["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=g > 1), 50)
+            lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=g > 1, scale=scale), 50)
         del ks, vs
         log(f"  decode timed {json.dumps(case)}")
     return case
@@ -1062,10 +1128,12 @@ def timed_api(api, stats):
 
 
 def decode_sites(cfg) -> int:
-    """Decode kernel launches of one decode step over a bf16 cache: one a layer
-    with attention."""
+    """The layers that run attention (a hybrid's sites of its shared blocks), so the
+    decode kernel's launches of one decode step over a bf16 cache."""
     if cfg.family == "ssm":
         return 0
+    if zamba2.published(cfg):
+        return len(zamba2.site_layers(cfg))
     return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
 
 
@@ -1074,8 +1142,7 @@ def expected_launches(cfg) -> dict:
     if cfg.family == "ssm":
         return {"wkv6_fwd": cfg.n_layers}
     if cfg.family == "hybrid":
-        return {"ssd_fwd": cfg.n_layers,
-                "flash_attention_fwd": cfg.n_layers // cfg.attn_every}
+        return {"ssd_fwd": cfg.n_layers, "flash_attention_fwd": decode_sites(cfg)}
     return {"flash_attention_fwd": cfg.n_layers}
 
 
@@ -1116,6 +1183,103 @@ def phase_serving(arch: str, mesh=None):
     return serving
 
 
+# ------------------------------------------------------------------ (d3) the published Zamba2
+
+def phase_published(arch: str = PUB_ARCH) -> dict:
+    """(d3): Zamba2-7B at its published widths and depth, the model of the benchmark's
+    decode cell.  Its kernels against their plain versions at the cell's shapes (K1
+    and K5 at head dim 224 with its softmax scale, K3 with B and C in 2 groups, K6),
+    each timed; then one wave served through ``BatchServer``, every kernel's launches
+    checked with the counters zeroed just before it (the decode steps' segments run as
+    CUDA graphs from the second step on, each replay adding the launches it holds);
+    the same wave served again with the graphs off, token for token; and the kernel
+    path's logits against the plain paths' (``check_published``)."""
+    cfg = get_arch(arch)
+    log(f"(d3) serving {arch} at its published widths: {json.dumps(dataclasses.asdict(cfg))}")
+    torch.cuda.reset_peak_memory_stats()
+    bf, scale, G = torch.bfloat16, cfg.attn_scale, cfg.ssm_groups
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    nh = cfg.ssm_expand * cfg.d_model // P
+    b, t, smax, n_valid = PUB_CELL
+    kernels = {
+        "flash_hd224": flash_case(b, t, t, cfg.n_kv_heads, 1, cfg.hd, 0, 0, bf, 90, timed=True,
+                                  scale=scale),
+        "decode_hd224": decode_case(b, smax, cfg.n_kv_heads, 1, cfg.hd, n_valid, bf, 91,
+                                    timed=True, scale=scale),
+        "ssd_groups2": scan_case("ssd", ssd_fwd, ref.mamba2_ssd,
+                                 grouped_ssd_inputs(92, b, t, nh, G),
+                                 {"Bt": b, "T": t, "H": nh, "P": P, "N": N, "G": G,
+                                  "chunk": 128}, ssd_work(b, t, nh, P, N, 128, G)),
+        "mamba2_step": step_case(b, nh, P, N, G, 93, timed=True)}
+    free_device_memory()
+    api = get_model(cfg)
+    params, n_params = init_serving_params(api)
+    gen = torch.Generator().manual_seed(6)
+    prompts = draw_prompts(cfg, torch.randint(1024, 2049, (4,), generator=gen).tolist(), gen)
+    serving = serve_requests(arch, cfg, api, params, n_params, prompts, smax=4096)
+    serving["graphs_vs_eager"] = graphs_vs_eager(cfg, params, prompts, smax=4096)
+    serving["consistency"] = check_published(cfg, api, params)
+    serving["kernels"] = kernels
+    serving["phase_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return serving
+
+
+def graphs_vs_eager(cfg, params, prompts, smax: int, batch: int = 4, max_new: int = 32):
+    """The same requests served twice through ``BatchServer``: its decode steps'
+    segments as CUDA graphs, and with the server's graphs off.  The same tokens."""
+    outs = []
+    for graphed in (True, False):
+        srv = BatchServer(cfg, params, batch=batch, smax=smax, device="cuda")
+        if not graphed:
+            srv.graphs = None
+        done = srv.serve([Request(rid=i, prompt=p, max_new=max_new)
+                          for i, p in enumerate(prompts)])
+        outs.append([r.out for r in sorted(done, key=lambda r: r.rid)])
+    res = {"requests": len(prompts), "max_new": max_new, "tokens_equal": outs[0] == outs[1]}
+    log(f"  graphs vs eager: {json.dumps(res)}")
+    if not res["tokens_equal"]:
+        raise AssertionError(f"the graphed decode steps served other tokens: {res}")
+    return res
+
+
+def check_published(cfg, api, params, t: int = 512):
+    """The kernel path's prefill and decode logits (bf16) against the plain paths' on
+    an fp32 copy of the weights, held to twice the distance of the plain paths in
+    bf16 from the same: both bf16 paths carry the rounding of 81 layers and a recurrent
+    state, which no fixed tolerance bounds at these random weights, and a kernel that
+    computed other than its plain version would stand out above it.  Each path
+    prefills its own cache; all decode the kernel path's greedy next token."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b = 2
+    toks = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
+
+    def run(p, nxt=None):
+        logits_p, cache = api.prefill(p, toks, t + 8)
+        nxt = logits_p[:, -1, :cfg.vocab].argmax(-1) if nxt is None else nxt
+        logits_d, _ = api.decode(p, nxt[:, None], cache, t)
+        return logits_p, logits_d, nxt
+
+    with torch.inference_mode():
+        kernel_p, kernel_d, nxt = run(params)
+        with plain_ops():
+            plain_p, plain_d, _ = run(params, nxt)
+            params32 = _tree_map(lambda x: x.float(), params)
+            want_p, want_d, _ = run(params32, nxt)
+            del params32
+    errs = {name: rel_close(got, want, math.inf)[1] for name, got, want in (
+        ("kernel_prefill", kernel_p, want_p), ("plain_prefill", plain_p, want_p),
+        ("kernel_decode", kernel_d, want_d), ("plain_decode", plain_d, want_d))}
+    res = {"consistency_B": b, "consistency_T": t, "errors_vs_fp32_plain": errs,
+           "rule": "kernel error <= 2 x the bf16 plain path's",
+           "logit_absmax": float(want_p.float().abs().max())}
+    log(f"  consistency: {json.dumps(res)}")
+    ok = all(errs[f"kernel_{k}"] <= 2 * errs[f"plain_{k}"] for k in ("prefill", "decode"))
+    if not (ok and torch.isfinite(kernel_d).all()):
+        raise AssertionError(f"the published model's kernel path strays from its plain "
+                             f"path: {res}")
+    return res
+
+
 def draw_prompts(cfg, lengths, gen):
     """A prompt of each length, its tokens drawn from ``gen``."""
     return [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist() for n in lengths]
@@ -1142,6 +1306,8 @@ def serve_requests(arch, cfg, api, params, n_params, prompts, smax, batch=4, max
     waves = -(-n_req // batch)
     want = {name: n * waves for name, n in expected_launches(cfg).items()}
     want["decode_attention"] = waves * (max_new - 1) * decode_sites(cfg)
+    if zamba2.published(cfg):        # its Mamba2 decode step, once a layer a decode step
+        want["mamba2_step"] = waves * (max_new - 1) * cfg.n_layers
     want = {name: want.get(name, 0) for name in KERNELS}
     if counts != want:
         raise AssertionError(f"{arch}: kernel launches on the serving path {counts}, "
@@ -2957,7 +3123,7 @@ def main() -> None:
     t_start = time.perf_counter()
 
     sources = ["flash_attention", "flash_attention_bwd", "checksum", *SCAN_SOURCES,
-               "decode_attention"]
+               "decode_attention", "mamba2_step"]
     t0 = time.perf_counter()
     _build.build_all(sources)
     build_s = time.perf_counter() - t0
@@ -2993,6 +3159,10 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
         servings[arch] = phase_serving(arch, mesh)
         peaks.append(servings[arch]["phase_peak_mem_gb"])
         free_device_memory()
+    servings[PUB_ARCH] = phase_published()
+    published = servings[PUB_ARCH]["kernels"]
+    peaks.append(servings[PUB_ARCH]["phase_peak_mem_gb"])
+    free_device_memory()
     training = phase_training()
     peaks.append(training["phase_peak_mem_gb"])
     free_device_memory()
@@ -3050,14 +3220,15 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
              **{f"{a}-reduced-launch.serve": r["serve_launches"] for a, r in launched.items()}}
 
     def by_path(kernel):
-        return {a: n[kernel] for a, n in paths.items() if n[kernel]}
+        return {a: n[kernel] for a, n in paths.items() if n.get(kernel, 0)}
 
     kernels = [
         kernel_line("flash_attention_fwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:70", flash["main"],
                     by_path("flash_attention_fwd"), dtype=flash["main"]["dtype"],
                     library="torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
-                    hd112=flash["hd112"], train_hd64=flash["train_hd64"],
+                    hd112=flash["hd112"], hd224=published["flash_hd224"],
+                    train_hd64=flash["train_hd64"],
                     mixtral_window=flash["mixtral_window"],
                     other_cases=flash["others"], sass_HGMMA=tensor_cores["counts"]["fwd_bf16_HGMMA"],
                     kernels_by_dtype=tensor_cores["kernels"]["flash_attention"]),
@@ -3089,7 +3260,8 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                     dtype="float32 (3xTF32 on the tensor cores)", exps=ssd["main"]["exps"],
                     library=None, max_rel_err=ssd["main"]["max_rel_err"],
                     **_scan_extra(ssd["main"], tensor_cores, "mamba2_ssd"),
-                    other_cases=ssd["others"], reduced_sizes=reduced["ssd_fwd"]),
+                    other_cases=ssd["others"], reduced_sizes=reduced["ssd_fwd"],
+                    groups2=published["ssd_groups2"]),
         kernel_line("wkv6_bwd", "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
                     "src/repro/kernels/ref.py:285", wkv6_bwd_cases["main"], by_path("wkv6_bwd"),
                     replaces_note="no Pallas kernel: the reference differentiates "
@@ -3117,7 +3289,13 @@ def run_phases(smi, name, t_start, build_s, tensor_cores, mesh) -> None:
                     dtype=decode["main"]["dtype"],
                     library="torch.nn.functional.scaled_dot_product_attention over the valid "
                             "slots, laid out [B, KV, n_valid, hd] beforehand",
-                    other_cases=decode["others"]),
+                    other_cases=decode["others"], hd224=published["decode_hd224"]),
+        kernel_line("mamba2_step", "src/repro_torch/kernels/csrc/mamba2_step.cu",
+                    "src/repro/kernels/ref.py:348", published["mamba2_step"],
+                    by_path("mamba2_step"),
+                    replaces_note="no TPU kernel: the reference's Mamba2 decode step is "
+                                  "ref.mamba2_naive in jnp",
+                    dtype=published["mamba2_step"]["dtype"], library=None),
     ]
     for k in kernels:
         if k["launches"] == 0:

@@ -45,6 +45,16 @@ class ArchConfig:
     attn_every: int = 0                     # zamba2: shared attn block period
     ssm_expand: int = 2                     # mamba2 expansion factor
 
+    # the published Zamba2 hybrid (port-only; every default leaves the others as they are)
+    hybrid_layer_ids: Tuple[int, ...] = ()  # layers that run a shared block first
+    shared_blocks: int = 1                  # shared blocks, site j using block j % n
+    ssm_groups: int = 1                     # groups of mamba2's B and C
+    adapter_rank: int = 0                   # each site's LoRA on the shared MLP's input
+    mlp_act: str = "silu"                   # gate activation: "silu" (SwiGLU), "gelu" (GeGLU)
+    attn_concat_embed: bool = False         # attention input [h | embeddings], width 2d
+    attn_scale: Optional[float] = None      # softmax scale (None: 1/sqrt(head dim))
+    rms_eps: float = 1e-6
+
     # training / numerics
     tie_embeddings: bool = False
     optimizer_moment_dtype: str = "float32"  # "bfloat16" for the huge MoEs
@@ -57,6 +67,9 @@ class ArchConfig:
     kv_cache_dtype_decode_32k: Optional[str] = None  # per-cell override
 
     notes: str = ""
+
+    def __post_init__(self):
+        object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
 
     @property
     def hd(self) -> int:
@@ -77,6 +90,16 @@ class ArchConfig:
             fe = self.d_expert or f
             moe = self.n_experts * 3 * d * fe + d * self.n_experts
             per_layer = attn + moe + (mlp_dense if self.dense_residual else 0)
+        elif self.family == "hybrid" and self.hybrid_layer_ids:
+            din, gn, r = self.ssm_expand * d, self.ssm_groups * self.ssm_state, self.adapter_rank
+            nh = din // self.ssm_head_dim
+            mamba = (d * (2 * din + 2 * gn + nh) + 4 * (din + 2 * gn) + (din + 2 * gn)
+                     + 3 * nh + din + din * d + d)
+            shared = (2 * d + 2 * d * 3 * H * hd + H * hd * d + d
+                      + d * 2 * f + f * d)
+            site = d * d + d * r + r * 2 * f
+            return (emb + L * mamba + self.shared_blocks * shared
+                    + len(self.hybrid_layer_ids) * site + d)
         elif self.family == "hybrid":
             din = self.ssm_expand * d
             mamba = (d * 2 * din              # in_proj (x, z)
@@ -105,7 +128,7 @@ class ArchConfig:
 
     # ---- reduced config for CPU smoke tests --------------------------------
     def reduced(self) -> "ArchConfig":
-        return replace(
+        small = replace(
             self,
             n_layers=min(self.n_layers, 2 if not self.attn_every else 4),
             d_model=128,
@@ -121,6 +144,13 @@ class ArchConfig:
             attn_every=2 if self.attn_every else 0,
             swa_window=min(self.swa_window, 64) if self.swa_window else 0,
         )
+        if not self.hybrid_layer_ids:
+            return small
+        # 4 layers (more with more blocks), a site at every other one: each block
+        # runs at least once
+        n = min(self.n_layers, max(4, 2 * self.shared_blocks))
+        return replace(small, n_layers=n, hybrid_layer_ids=tuple(range(1, n, 2)),
+                       adapter_rank=min(self.adapter_rank, 8))
 
 
 @dataclass(frozen=True)

@@ -13,6 +13,7 @@ from .phi3_medium_14b import CONFIG as _phi3
 from .qwen15_32b import CONFIG as _qwen32
 from .rwkv6_1b6 import CONFIG as _rwkv6
 from .zamba2_7b import CONFIG as _zamba2
+from .zamba2_7b_instruct import CONFIG as _zamba2_instruct
 
 ARCHS: Dict[str, ArchConfig] = {
     c.name: c
@@ -24,10 +25,16 @@ ARCHS: Dict[str, ArchConfig] = {
 
 ARCH_NAMES: List[str] = list(ARCHS)
 
+# configs of the port alone, which the JAX package does not have: resolved by
+# ``get_arch`` and served, outside ARCH_NAMES and the dry run's grid
+PORT_ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [_zamba2_instruct]}
+
 
 def get_arch(name: str) -> ArchConfig:
+    if name in PORT_ARCHS:
+        return PORT_ARCHS[name]
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
+        raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES + list(PORT_ARCHS)}")
     return ARCHS[name]
 
 

@@ -9,7 +9,8 @@
 // kernel computes the same function from the cache as it lies:
 //
 //   q [B,1,H,hd] (bf16 or fp32), k/v [B,Smax,KV,hd] bf16, H = KV*G, G <= 8
-//   out[b,h] = softmax_j(q[b,h] . k[b,j,h/G] / sqrt(hd)) . v[b,j,h/G] over j < n_valid
+//   out[b,h] = softmax_j(scale * q[b,h] . k[b,j,h/G]) . v[b,j,h/G] over j < n_valid,
+//   scale the caller's or 1/sqrt(hd)
 //   -> out [B,1,H,hd] in q's dtype
 //
 // Slots at or past n_valid are never read (the SWA ring's validity is the same prefix).
@@ -28,7 +29,8 @@
 //     the slice are zero-filled by the copy without a read;
 //   * LPS lanes share a slot, each holding 8 columns (one 16-byte chunk) of q, so a
 //     warp reads 512 contiguous bytes of a tile at once; the dot products are summed
-//     over the LPS lanes by shuffles, with q pre-scaled by log2(e)/sqrt(hd) so that
+//     over the LPS lanes by shuffles (a whole warp a slot at hd 224, 28 of its lanes
+//     reading), with q pre-scaled by log2(e) * scale so that
 //     the online softmax runs in base 2 (one ex2 a score), all in fp32;
 //   * each of the block's NSL slot lanes keeps its own running (max, sum, out) over
 //     its slots; the block merges them in shared memory at the end and, with one
@@ -57,18 +59,18 @@ struct Params {
   float* part;                // [B, KV, nsplit, G, hd + 2]: out, max, sum (nsplit > 1)
   int B, smax, KV, G, n_valid, nsplit, slice;   // slice: slots a split, a multiple of TS
   int q_bf16;
-  float scale_log2;           // log2(e) / sqrt(hd)
+  float scale_log2;           // log2(e) * the softmax scale
 };
 
 template <int HD>
 struct Cfg {
   static constexpr int CH = HD / 8;                                  // 16-byte chunks a row
-  static constexpr int LPS = CH <= 4 ? 4 : (CH <= 8 ? 8 : 16);       // lanes a slot
+  static constexpr int LPS = CH <= 4 ? 4 : (CH <= 8 ? 8 : (CH <= 16 ? 16 : 32));   // lanes a slot
   static constexpr int NSL = NTHREADS / LPS;                         // slot lanes a block
   static constexpr int TS = NSL * SPL;                               // slots a tile
   static constexpr int STAGE = 2 * TS * HD;                          // bf16 of a stage: K, V
   static constexpr int SMEM = STAGES * STAGE * 2;
-  static_assert(HD % 8 == 0 && CH <= 16, "head dim");
+  static_assert(HD % 8 == 0 && CH <= 32, "head dim");
   static_assert(SMEM <= 48 * 1024, "above the default dynamic shared-memory limit");
   static_assert(NSL * MAX_G * (HD + 2) * 4 <= SMEM, "the block's merge reuses the ring");
 };
@@ -115,7 +117,7 @@ __global__ void __launch_bounds__(NTHREADS) decode_attn_tiles(const Params p) {
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, sl = tid / C::LPS, c = tid % C::LPS;
-  const bool lane_on = c < C::CH;                  // hd 112: 14 of a slot's 16 lanes
+  const bool lane_on = c < C::CH;                  // hd 112: 14 of a slot's 16 lanes; 224: 28 of 32
   const int s0 = split * p.slice;
   const int n = min(p.slice, p.n_valid - s0);      // this split's slots, >= 1
   const int ntiles = (n + C::TS - 1) / C::TS;
@@ -346,6 +348,7 @@ int tile_of(int hd) {
     case 64: return Cfg<64>::TS;
     case 112: return Cfg<112>::TS;
     case 128: return Cfg<128>::TS;
+    case 224: return Cfg<224>::TS;
     default: return 0;
   }
 }
@@ -361,10 +364,10 @@ int decode_attention_tile(int hd) { return tile_of(hd); }
 // Returns a cudaError_t: 0 when the kernels were launched.  q, k, v, out contiguous
 // and 16-byte aligned; split s takes slots [s * slice, min((s + 1) * slice, n_valid)),
 // each non-empty; part is fp32 scratch of B*KV*nsplit*G*(hd + 2) (unused with one
-// split).
+// split); scale is the softmax scale, 1/sqrt(hd) where it is 0.
 int decode_attention(const void* q, const void* k, const void* v, void* out, float* part,
                      int q_bf16, int B, int smax, int KV, int G, int hd, int n_valid,
-                     int nsplit, int slice, void* stream) {
+                     int nsplit, int slice, float scale, void* stream) {
   const int ts = tile_of(hd);
   if (ts == 0 || G < 1 || G > MAX_G || n_valid < 1 || n_valid > smax || nsplit < 1 ||
       slice < ts || slice % ts != 0 || (long long)(nsplit - 1) * slice >= n_valid ||
@@ -372,12 +375,13 @@ int decode_attention(const void* q, const void* k, const void* v, void* out, flo
     return (int)cudaErrorInvalidValue;
   Params p{q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), out,
            part, B, smax, KV, G, n_valid, nsplit, slice, q_bf16,
-           1.4426950408889634f / sqrtf((float)hd)};
+           scale > 0.f ? 1.4426950408889634f * scale : 1.4426950408889634f / sqrtf((float)hd)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32: return (int)dispatch_g<32>(p, s);
     case 64: return (int)dispatch_g<64>(p, s);
     case 112: return (int)dispatch_g<112>(p, s);
+    case 224: return (int)dispatch_g<224>(p, s);
     default: return (int)dispatch_g<128>(p, s);
   }
 }

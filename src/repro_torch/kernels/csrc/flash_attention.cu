@@ -34,7 +34,11 @@
 //     goes to shared memory;
 //   * hd 112 is computed at 128: its second 64-column box is zero-filled past column
 //     112 by TMA (14% more products on zamba2-7b's shared block);
-//   * tiles wholly above the diagonal or before the window are never loaded.
+//   * hd 224 (Zamba2-7B's shared block) is computed at 224, in seven 32-column panels
+//     swizzled by 64 bytes, with tiles of 64 keys: q and two stages of k and v then
+//     take 169 KB of shared memory, and O (N = 224) 112 accumulator registers a thread;
+//   * tiles wholly above the diagonal or before the window are never loaded;
+//   * the softmax scale is the caller's, or 1/sqrt(hd) where it passes none.
 //
 // fp32 (consistency checks only): flash_fwd_kernel, SIMT on the CUDA cores, kept
 // because TF32 tensor cores would not meet the fp32 checks' tolerances.  Its ceiling
@@ -76,7 +80,7 @@ struct Params {
   void* o;
   float* lse;
   int B, Tq, Tk, KV, G, q_offset, window;
-  float scale_log2;                    // log2(e) / sqrt(hd)
+  float scale_log2;                    // log2(e) * the softmax scale (1/sqrt(hd) by default)
   long long q_sb, q_st, q_sh, q_sg;    // element strides of q (and o)
   long long k_sb, k_st, k_sh;          // element strides of k
   long long v_sb, v_st, v_sh;          // element strides of v
@@ -254,13 +258,13 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 template <int HD>
 struct Sm90 {
   static constexpr int HDP = HD == 112 ? 128 : HD;   // computed head width
-  static constexpr int PANEL = HDP < 64 ? HDP : 64;  // columns per TMA box and swizzled row
+  static constexpr int PANEL = HDP % 64 ? 32 : 64;   // columns per TMA box and swizzled row
   static constexpr int NPANEL = HDP / PANEL;
   static constexpr int ROWB = PANEL * 2;             // bytes of a swizzled row: 128 or 64
   static constexpr int KPP = PANEL / 16;             // k16 steps per panel
   static constexpr int BQ = 128;                     // two consumer warpgroups x 64 rows
-  static constexpr int BK = 128;                     // keys per k/v tile
-  static constexpr int STAGES = HDP > 64 ? 2 : 3;    // the ring: 128 or 96 KB at most
+  static constexpr int BK = HDP > 128 ? 64 : 128;    // keys per k/v tile
+  static constexpr int STAGES = HDP > 64 ? 2 : 3;    // the ring: 128 or 96 KB at most, 112 at hd 224
   static constexpr int Q_BYTES = BQ * HDP * 2;
   static constexpr int KV_BYTES = BK * HDP * 2;      // one k (or v) tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
@@ -520,6 +524,7 @@ cudaError_t dispatch_bf16(const Params& p, int hd, cudaStream_t stream) {
     case 64: return launch_sm90<64>(p, stream);
     case 112: return launch_sm90<112>(p, stream);   // zamba2-7b's shared attention block
     case 128: return launch_sm90<128>(p, stream);
+    case 224: return launch_sm90<224>(p, stream);   // Zamba2-7B's shared attention block
     default: return cudaErrorInvalidValue;
   }
 }
@@ -530,6 +535,7 @@ cudaError_t dispatch_fp32(const Params& p, int hd, cudaStream_t stream) {
     case 64: return launch<float, 64>(p, stream);
     case 112: return launch<float, 112>(p, stream);
     case 128: return launch<float, 128>(p, stream);
+    case 224: return launch<float, 224>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -540,15 +546,16 @@ extern "C" {
 
 // Returns a cudaError_t: 0 when the kernel was launched.  is_bf16 selects the
 // element type of q/k/v/o and the kernel (0: fp32, SIMT; 1: bf16, wgmma + TMA;
-// cudaErrorNotSupported if a tensor map cannot be encoded); strides are in elements.
+// cudaErrorNotSupported if a tensor map cannot be encoded); strides are in elements;
+// scale is the softmax scale, 1/sqrt(hd) where it is 0.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                         int is_bf16, int B, int Tq, int Tk, int KV, int G, int hd,
-                        int q_offset, int window,
+                        int q_offset, int window, float scale,
                         long long q_sb, long long q_st, long long q_sh, long long q_sg,
                         long long k_sb, long long k_st, long long k_sh,
                         long long v_sb, long long v_st, long long v_sh, void* stream) {
   Params p{q, k, v, o, lse, B, Tq, Tk, KV, G, q_offset, window,
-           LOG2E / sqrtf((float)hd),
+           scale > 0.f ? LOG2E * scale : LOG2E / sqrtf((float)hd),
            q_sb, q_st, q_sh, q_sg, k_sb, k_st, k_sh, v_sb, v_st, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_bf16(p, hd, s) : dispatch_fp32(p, hd, s);

@@ -6,16 +6,18 @@
 // computes ref.mamba2_ssd, the function the model calls: it takes the [Bt,H,P,N] state
 // and writes the final one.
 //
-//   x [Bt,T,H,P], dt [Bt,T,H], A [H], B/C [Bt,T,N], s0 [Bt,H,P,N]
+//   x [Bt,T,H,P], dt [Bt,T,H], A [H], B/C [Bt,T,G,N], s0 [Bt,H,P,N]
 //     -> y [Bt,T,H,P], s_out [Bt,H,P,N]
+//   head h reads group h / (H/G) of B and C (G = 1: every head the same B and C)
 //
 // What bounds it on an H100 (SXM, published peaks at a 700 W power limit): at the
 // zamba2-7b prefill shape (Bt=4, T=2048, H=112, P=N=64) it moves 0.49 GB (x and y
 // dominate: 0.146 ms of device memory) and needs 2.3e10 flops of products, 0.047 ms at
 // the 495 TFLOP/s TF32 tensor-core rate, so it is bound by bytes once the products run on
 // the tensor cores.  What the design does about it:
-//   * two kernels, one call.  ssd_gram_kernel computes G = C B^T once per (batch, chunk),
-//     since B and C do not depend on the head, into a 1 MB workspace that stays in L2,
+//   * two kernels, one call.  ssd_gram_kernel computes G = C B^T once per (batch, group,
+//     chunk), since B and C do not depend on the head within a group, into a workspace
+//     (1 MB a group at the main shape) that stays in L2,
 //     stored in the order of the A fragments that read it (one float4 a lane);
 //     ssd_scan_kernel runs one block of 4 warps per (batch, head) with the chunk loop
 //     inside and the [P,N] state in registers, so no per-chunk state goes to memory;
@@ -40,6 +42,8 @@
 //     are not written), which keeps the final state exact without padding in memory;
 //   * for the backward (mamba2_ssd_bwd.cu) it also writes, when asked, the state before
 //     every 64 rows to S_chunks [Bt, ceil(T / 64), H, P, N].
+// The groups of B and C (1 or 2) are a template parameter too: at one group both
+// kernels are the code they were before groups.
 // The head and state sizes (P, N) are template parameters, instantiated for (64, 64) and
 // for the reduced configs' (32, 16) and chosen by the extern "C" entry: a scan block has a
 // warp for every 16 head columns (two at P = 32), and at N = 16 the Gram product's depth
@@ -82,26 +86,28 @@ struct Params {
   float* y;
   float* s_out;
   float* S_chunks;  // [Bt][ceil(T/64)][H][P][N] the state before every 64 rows, or null
-  float4* G;      // [Bt][n_chunks][G_TILES][32 lanes] A fragments of C B^T
+  float4* G;      // [Bt][NG][n_chunks][G_TILES][32 lanes] A fragments of C B^T
   int Bt, T, H, n_chunks;
+  int hpg;        // heads a group of B and C
 };
 
 // G = C B^T of one (chunk, batch), rows i and columns j <= i, in fragment order:
 // tile (mi, kj), lane (g, t) holds G[16mi + g (+8)][8kj + t (+4)] as a float4.
 constexpr int GRAM_THREADS = 32 * (CH / 16);   // a warp per 16 rows of G
 
-template <int N>
+template <int N, int NG>
 __global__ void __launch_bounds__(GRAM_THREADS) ssd_gram_kernel(const Params p) {
   constexpr int LDG = ::LDG<N>;
   __shared__ __align__(16) float C_s[CH * LDG];
   __shared__ __align__(16) float B_s[CH * LDG];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int chunk = blockIdx.x, b = blockIdx.y, t0 = chunk * CH;
-  const float* Cb = p.Cm + (long long)b * p.T * N;
-  const float* Bb = p.Bm + (long long)b * p.T * N;
-  scan::load_rows<CH, N, LDG, GRAM_THREADS>(C_s, Cb, N, t0, p.T, tid);
-  scan::load_rows<CH, N, LDG, GRAM_THREADS>(B_s, Bb, N, t0, p.T, tid);
+  const int chunk = blockIdx.x, bg = blockIdx.y, t0 = chunk * CH;   // bg = b * NG + group
+  const long long first = ((long long)(bg / NG) * p.T * NG + bg % NG) * N;
+  const float* Cb = p.Cm + first;
+  const float* Bb = p.Bm + first;
+  scan::load_rows<CH, N, LDG, GRAM_THREADS>(C_s, Cb, NG * N, t0, p.T, tid);
+  scan::load_rows<CH, N, LDG, GRAM_THREADS>(B_s, Bb, NG * N, t0, p.T, tid);
   scan::cp_async_commit();
   scan::cp_async_wait<0>();
   __syncthreads();
@@ -131,7 +137,7 @@ __global__ void __launch_bounds__(GRAM_THREADS) ssd_gram_kernel(const Params p) 
     r[8 * LDG + 1] = acc[nt][3];
   }
   __syncwarp();
-  float4* out = p.G + ((long long)b * p.n_chunks + chunk) * G_TILES * 32;
+  float4* out = p.G + ((long long)bg * p.n_chunks + chunk) * G_TILES * 32;
 #pragma unroll
   for (int kj = 0; kj < CH / 8; ++kj) {
     if (kj > 2 * mi + 1) continue;
@@ -140,7 +146,7 @@ __global__ void __launch_bounds__(GRAM_THREADS) ssd_gram_kernel(const Params p) 
   }
 }
 
-template <int P, int N>
+template <int P, int N, int NG>
 __global__ void __launch_bounds__(Shape<P, N>::NTHREADS, 4) ssd_scan_kernel(const Params p) {
   constexpr int NTHREADS = Shape<P, N>::NTHREADS, LD = Shape<P, N>::LD;
   constexpr int STAGE = Shape<P, N>::STAGE;
@@ -152,8 +158,9 @@ __global__ void __launch_bounds__(Shape<P, N>::NTHREADS, 4) ssd_scan_kernel(cons
   const long long row = (long long)p.H * P;                     // x/y: one time step
   const float* xb = p.x + (long long)b * p.T * row + h * P;
   float* yb = p.y + (long long)b * p.T * row + h * P;
-  const float* Bb = p.Bm + (long long)b * p.T * N;
-  const float* Cb = p.Cm + (long long)b * p.T * N;
+  const int grp = NG == 1 ? 0 : h / p.hpg;                      // h's group of B and C
+  const float* Bb = p.Bm + ((long long)b * p.T * NG + grp) * N;
+  const float* Cb = p.Cm + ((long long)b * p.T * NG + grp) * N;
   const float* dtb = p.dt + (long long)b * p.T * p.H + h;
   float* cl_w = smem + 2 * STAGE + warp * 2 * CH;               // this warp's cumsum
   float* w_w = cl_w + CH;                                       // e^(cl_last - cl_j) dt_j
@@ -163,8 +170,8 @@ __global__ void __launch_bounds__(Shape<P, N>::NTHREADS, 4) ssd_scan_kernel(cons
     float* x_s = smem + stage * STAGE;
     const int t0 = c * CH;
     scan::load_rows<CH, P, LD, NTHREADS>(x_s, xb, row, t0, p.T, tid);
-    scan::load_rows<CH, N, LD, NTHREADS>(x_s + CH * LD, Bb, N, t0, p.T, tid);
-    scan::load_rows<CH, N, LD, NTHREADS>(x_s + 2 * CH * LD, Cb, N, t0, p.T, tid);
+    scan::load_rows<CH, N, LD, NTHREADS>(x_s + CH * LD, Bb, NG * N, t0, p.T, tid);
+    scan::load_rows<CH, N, LD, NTHREADS>(x_s + 2 * CH * LD, Cb, NG * N, t0, p.T, tid);
     if (tid < CH) {
       const bool in = t0 + tid < p.T;
       scan::cp_async4(x_s + 3 * CH * LD + tid, dtb + (in ? (long long)(t0 + tid) * p.H : 0), in);
@@ -254,7 +261,8 @@ __global__ void __launch_bounds__(Shape<P, N>::NTHREADS, 4) ssd_scan_kernel(cons
         acc[mi][nt][2] *= e1, acc[mi][nt][3] *= e1;
       }
     }
-    const float4* Gc = p.G + ((long long)b * p.n_chunks + c) * G_TILES * 32 + lane;
+    const float4* Gc =
+        p.G + ((long long)(b * NG + grp) * p.n_chunks + c) * G_TILES * 32 + lane;
 #pragma unroll
     for (int kj = 0; kj < CH / 8; ++kj) {
       const int j0 = 8 * kj;
@@ -323,16 +331,16 @@ __global__ void __launch_bounds__(Shape<P, N>::NTHREADS, 4) ssd_scan_kernel(cons
 }
 
 
-template <int P, int N>
+template <int P, int N, int NG>
 int launch(const Params& p, cudaStream_t st) {
   using Sh = Shape<P, N>;
-  ssd_gram_kernel<N><<<dim3(p.n_chunks, p.Bt), GRAM_THREADS, 0, st>>>(p);
+  ssd_gram_kernel<N, NG><<<dim3(p.n_chunks, p.Bt * NG), GRAM_THREADS, 0, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ssd_scan_kernel<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Sh::SCAN_SMEM);
+  err = cudaFuncSetAttribute(ssd_scan_kernel<P, N, NG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SCAN_SMEM);
   if (err != cudaSuccess) return err;
-  ssd_scan_kernel<P, N><<<p.Bt * p.H, Sh::NTHREADS, Sh::SCAN_SMEM, st>>>(p);
+  ssd_scan_kernel<P, N, NG><<<p.Bt * p.H, Sh::NTHREADS, Sh::SCAN_SMEM, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -340,7 +348,8 @@ int launch(const Params& p, cudaStream_t st) {
 
 extern "C" {
 
-// Floats of the workspace ssd_fwd needs: G for every (batch, 32-row chunk).
+// Floats of the workspace ssd_fwd needs: G for every (batch row, 32-row chunk); a
+// call with G groups passes Bt * G rows.
 long long ssd_workspace_floats(int Bt, int T) {
   return (long long)Bt * ((T + CH - 1) / CH) * G_TILES * 32 * 4;
 }
@@ -349,17 +358,19 @@ long long ssd_workspace_floats(int Bt, int T) {
 // fp32; (P, N) = (64, 64) or (32, 16) and chunk 128 are the compiled sizes (the kernel
 // walks the chunk in four quarters), any other is refused; `work` holds
 // ssd_workspace_floats(Bt, T) floats; s_chunks, if not null, receives the state before
-// every 64 rows [Bt, ceil(T / 64), H, P, N].
+// every 64 rows [Bt, ceil(T / 64), H, P, N]; B and C hold `groups` groups (1 or 2, a
+// template parameter of both kernels), each read by H / groups consecutive heads.
 int ssd_fwd(const float* x, const float* dt, const float* A, const float* Bm, const float* Cm,
             const float* s0, float* y, float* s_out, float* s_chunks, int Bt, int T, int H,
-            int P_, int N_, int chunk, void* work, void* stream) {
-  if (chunk != 128 || T <= 0) return cudaErrorInvalidValue;
+            int P_, int N_, int chunk, int groups, void* work, void* stream) {
+  if (chunk != 128 || T <= 0 || groups < 1 || groups > 2 || H % groups)
+    return cudaErrorInvalidValue;
   const int n_chunks = (T + CH - 1) / CH;
   const Params p{x,  dt,      A,  Bm, Cm, s0, y, s_out, s_chunks, static_cast<float4*>(work),
-                 Bt, T, H, n_chunks};
+                 Bt, T, H, n_chunks, H / groups};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P_ == 64 && N_ == 64) return launch<64, 64>(p, st);
-  if (P_ == 32 && N_ == 16) return launch<32, 16>(p, st);
+  if (P_ == 64 && N_ == 64) return groups == 1 ? launch<64, 64, 1>(p, st) : launch<64, 64, 2>(p, st);
+  if (P_ == 32 && N_ == 16) return groups == 1 ? launch<32, 16, 1>(p, st) : launch<32, 16, 2>(p, st);
   return cudaErrorInvalidValue;
 }
 

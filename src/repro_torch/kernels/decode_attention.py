@@ -19,12 +19,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import _build, work
 
-HEAD_DIMS = (32, 64, 112, 128)
+HEAD_DIMS = (32, 64, 112, 128, 224)
 MAX_G = 8
 BLOCKS_PER_SM = 2       # the grid holds at least this many blocks for every SM
 
@@ -33,7 +34,8 @@ BLOCKS_PER_SM = 2       # the grid holds at least this many blocks for every SM
 def _kernel():
     lib = _build.load("decode_attention")
     fn = lib.decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float]
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.decode_attention_tile.argtypes = [ctypes.c_int]
     lib.decode_attention_tile.restype = ctypes.c_int
@@ -59,9 +61,12 @@ def splits(pairs: int, n_valid: int, tile: int, sms: int):
     return -(-tiles // per), per * tile
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int,
+           scale: Optional[float] = None) -> None:
     name = "decode_attention"
     _build.refuse_dtensor(name, q, k, v)
+    if scale is not None and not scale > 0:
+        raise ValueError(f"the softmax scale must be positive; got {scale}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name} takes a bf16 or fp32 q; got {q.dtype}")
     if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
@@ -94,14 +99,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int) -> N
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     n_valid: int) -> torch.Tensor:
-    """Softmax(q k^T / sqrt(hd)) v of one query token over slots [0, n_valid) of
-    the cache, on the card, scores and sums in fp32.
+                     n_valid: int, scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax(scale q k^T) v of one query token over slots [0, n_valid) of the
+    cache, on the card, scores and sums in fp32; ``scale`` None is 1/sqrt(hd).
 
     q [B,1,H,hd] bf16 or fp32; k/v [B,Smax,KV,hd] bf16; H = G * KV, 1 <= G <= 8;
     hd in ``HEAD_DIMS``; all contiguous and 16-byte aligned.  Returns out
     [B,1,H,hd] in q's dtype; slots at or past n_valid are never read."""
-    _check(q, k, v, n_valid)
+    _check(q, k, v, n_valid, scale)
     b, _, h, hd = q.shape
     smax, kvh = k.shape[1], k.shape[2]
     fn, tile, err_str = _kernel()
@@ -112,7 +117,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if part is None else part.data_ptr(), int(q.dtype == torch.bfloat16), b,
-                smax, kvh, h // kvh, hd, n_valid, nsplit, per,
+                smax, kvh, h // kvh, hd, n_valid, nsplit, per, scale or 0.0,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {rc} "
@@ -124,11 +129,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attention.launches = 0
 
 
-_build.define_op("decode_attention(Tensor q, Tensor k, Tensor v, int n_valid) -> Tensor",
-                 decode_attention, lambda q, k, v, n_valid: torch.empty_like(q))
+_build.define_op("decode_attention(Tensor q, Tensor k, Tensor v, int n_valid, "
+                 "float? scale=None) -> Tensor", decode_attention,
+                 lambda q, k, v, n_valid, scale=None: torch.empty_like(q))
 
 
-def _count(q, k, v, n_valid):
+def _count(q, k, v, n_valid, scale=None):
     b, _, h, hd = q.shape
     return work.decode_attention_work(b, n_valid, k.shape[2], h // k.shape[2], hd,
                                       q.element_size())

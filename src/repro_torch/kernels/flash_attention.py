@@ -25,12 +25,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import _build, work
 
-HEAD_DIMS = (32, 64, 112, 128)
+HEAD_DIMS = (32, 64, 112, 128, 224)    # the forward's; 224 is Zamba2-7B's shared block
+BWD_HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -38,7 +40,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 def _fwd_kernel():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float]
                    + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -47,7 +49,7 @@ def _fwd_kernel():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
-           q_offset: int, name: str = "flash_attention_fwd") -> None:
+           q_offset: int, name: str = "flash_attention_fwd", head_dims=HEAD_DIMS) -> None:
     _build.refuse_dtensor(name, q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name} takes q, k, v on one CUDA device; got "
@@ -62,8 +64,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
     if k.shape[0] != b or k.shape[2] != kvh or k.shape[3] != hd:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree on "
                          "batch, kv heads or head dim")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not compiled; the kernel takes {HEAD_DIMS}")
+    if hd not in head_dims:
+        raise ValueError(f"head dim {hd} not compiled; {name} takes {head_dims}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} takes contiguous q, k, v")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -77,12 +79,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        window: int = 0, q_offset: int = 0):
+                        window: int = 0, q_offset: int = 0, scale: Optional[float] = None):
     """Causal GQA attention forward on the card.
 
     q [B,Tq,KV,G,hd]; k/v [B,Tk,KV,hd]; fp32 or bf16, contiguous, hd in
-    ``HEAD_DIMS``.  Returns ``out`` (like q) and ``lse [B,KV,G,Tq]`` (fp32)."""
+    ``HEAD_DIMS``; ``scale`` the softmax scale (None: 1/sqrt(hd)).  Returns
+    ``out`` (like q) and ``lse [B,KV,G,Tq]`` (fp32), the log-sum-exp of the
+    scaled scores."""
     _check(q, k, v, window, q_offset)
+    if scale is not None and not scale > 0:
+        raise ValueError(f"the softmax scale must be positive; got {scale}")
     b, tq, kvh, g, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, kvh, g, tq), dtype=torch.float32, device=q.device)
@@ -91,7 +97,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), int(q.dtype == torch.bfloat16), b, tq,
-                k.shape[1], kvh, g, hd, q_offset, window,
+                k.shape[1], kvh, g, hd, q_offset, window, scale or 0.0,
                 *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {rc} "
@@ -125,7 +131,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shape and dtype, contiguous).  Returns ``dq, dk, dv`` in the inputs'
     dtypes."""
     name = "flash_attention_bwd"
-    _check(q, k, v, window, q_offset, name)
+    _check(q, k, v, window, q_offset, name, BWD_HEAD_DIMS)
     _build.refuse_dtensor(name, out, lse, do)
     b, tq, kvh, g, hd = q.shape
     for t, what in ((out, "out"), (do, "do")):
@@ -159,7 +165,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bwd.launches = 0
 
 
-def _fwd_fake(q, k, v, window, q_offset):
+def _fwd_fake(q, k, v, window, q_offset, scale=None):
     b, tq, kvh, g, _ = q.shape
     return torch.empty_like(q), q.new_empty((b, kvh, g, tq), dtype=torch.float32)
 
@@ -169,7 +175,8 @@ def _bwd_fake(q, k, v, out, lse, do, window, q_offset):
 
 
 _build.define_op("flash_attention_fwd(Tensor q, Tensor k, Tensor v, int window, "
-                 "int q_offset) -> (Tensor, Tensor)", flash_attention_fwd, _fwd_fake)
+                 "int q_offset, float? scale=None) -> (Tensor, Tensor)", flash_attention_fwd,
+                 _fwd_fake)
 _build.define_op("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
                  "Tensor do, int window, int q_offset) -> (Tensor, Tensor, Tensor)",
                  flash_attention_bwd, _bwd_fake)
@@ -179,7 +186,7 @@ def _peak(q, *_):
     return "bf16" if q.dtype == torch.bfloat16 else "fp32"     # fp32: the SIMT kernels
 
 
-def _fwd_count(q, k, v, window, q_offset):
+def _fwd_count(q, k, v, window, q_offset, scale=None):
     b, tq, kvh, g, hd = q.shape
     return work.flash_fwd_work(b, tq, k.shape[1], kvh, g, hd, window, q_offset,
                                q.element_size())
@@ -200,19 +207,24 @@ class FlashAttention(torch.autograd.Function):
     is ``flash_attention_fwd``, the backward ``flash_attention_bwd`` (each
     through its operator), the counterpart of the reference's custom VJP
     (``repro.kernels.ref._flash``).  The forward saves q, k, v, out and lse;
-    the backward recomputes the rest."""
+    the backward recomputes the rest.  The backward kernel computes at the
+    default scale only: a forward given another one refuses its backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int = 0, q_offset: int = 0):
+    def forward(ctx, q, k, v, window: int = 0, q_offset: int = 0,
+                scale: Optional[float] = None):
         _build.refuse_dtensor("flash_attention_fwd", q, k, v)
-        out, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, window, q_offset)
+        out, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, window, q_offset, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window, ctx.q_offset = window, q_offset
+        ctx.window, ctx.q_offset, ctx.scale = window, q_offset, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.scale is not None:
+            raise NotImplementedError("flash_attention_bwd computes at the default softmax "
+                                      "scale 1/sqrt(hd) only")
         q, k, v, out, lse = ctx.saved_tensors
         grads = torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                                           ctx.window, ctx.q_offset)
-        return (*grads, None, None)
+        return (*grads, None, None, None)

@@ -11,6 +11,10 @@ current stream and counts its launches in ``ssd_fwd.launches``: one a call,
 though a call runs two CUDA kernels.  It takes CUDA tensors only: the plain
 version is ``ref.mamba2_ssd``.
 
+B and C come in G groups ``[Bt,T,G,N]``, head h reading group h // (H/G)
+(``[Bt,T,N]`` is one group, launched as it always was); the backward takes one
+group only.
+
 ``ssd_bwd`` is the backward (its plain version ``ref.mamba2_ssd_bwd``), which
 reads the state at every 64 rows that the forward writes when asked, and
 ``SSD`` the autograd function that joins the two; ``ssd_bwd.launches``
@@ -33,6 +37,7 @@ from .rwkv6_scan import aligned
 
 SHAPES = ((32, 16), (64, 64))  # (P, N), the compiled head and state sizes: every
                                # config's, full and reduced
+GROUPS = (1, 2)                # the compiled groups of B and C
 CHUNKS = (128,)
 STATE_ROWS = 64       # rows between the chunk states the forward keeps for the backward
 
@@ -41,7 +46,7 @@ STATE_ROWS = 64       # rows between the chunk states the forward keeps for the 
 def _kernel():
     lib = _build.load("mamba2_ssd")
     fn = lib.ssd_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     lib.ssd_workspace_floats.argtypes = [ctypes.c_int] * 2
     lib.ssd_workspace_floats.restype = ctypes.c_longlong
@@ -75,19 +80,25 @@ def _check(x, dt, A, B, C, state, chunk: int, name: str = "ssd_fwd", dy=None,
                          f"{[str(t.device) for t in ts]}")
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError(f"{name} takes fp32 tensors; got {[t.dtype for t in ts]}")
-    if x.dim() != 4 or B.dim() != 3:
-        raise ValueError(f"expected x [Bt,T,H,P], B/C [Bt,T,N]; got {tuple(x.shape)}, "
-                         f"{tuple(B.shape)}")
+    if x.dim() != 4 or B.dim() not in (3, 4) or (dy is not None and B.dim() != 3):
+        raise ValueError(f"expected x [Bt,T,H,P], B/C [Bt,T,N]"
+                         f"{'' if dy is not None else ' or [Bt,T,G,N]'}; got "
+                         f"{tuple(x.shape)}, {tuple(B.shape)}")
     bt, t, h, p = x.shape
     n = B.shape[-1]
+    bc = (bt, t, n) if B.dim() == 3 else (bt, t, B.shape[2], n)
+    if B.dim() == 4 and (B.shape[2] < 1 or h % B.shape[2]):
+        raise ValueError(f"{B.shape[2]} groups of B/C do not divide {h} heads")
+    if B.dim() == 4 and B.shape[2] not in GROUPS:
+        raise ValueError(f"{B.shape[2]} groups of B/C not compiled; the kernel takes {GROUPS}")
     s_shape = (bt, h, p, n) if dy is None else (bt, -(-t // STATE_ROWS), h, p, n)
-    if (dt.shape != (bt, t, h) or A.shape != (h,) or B.shape != (bt, t, n)
+    if (dt.shape != (bt, t, h) or A.shape != (h,) or B.shape != bc
             or C.shape != B.shape or state.shape != s_shape
             or (dy is not None and dy.shape != x.shape)
             or (ds_out is not None and ds_out.shape != (bt, h, p, n))):
         want = "[Bt,H,P,N]" if dy is None else "chunk states [Bt,n,H,P,N]"
         raise ValueError(
-            f"expected x [Bt,T,H,P], dt [Bt,T,H], A [H], B/C [Bt,T,N], state {want}, "
+            f"expected x [Bt,T,H,P], dt [Bt,T,H], A [H], B/C {list(bc)}, state {want}, "
             f"dy [Bt,T,H,P], "
             f"ds_out [Bt,H,P,N]; got x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
             f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
@@ -111,7 +122,7 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
             chunk_states: bool = False):
     """Chunked Mamba2 SSD scan on the card.
 
-    x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B, C [Bt,T,N]; state [Bt,H,P,N];
+    x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B, C [Bt,T,N] or [Bt,T,G,N]; state [Bt,H,P,N];
     fp32, contiguous, 16-byte-aligned, (P, N) in ``SHAPES``.  Returns
     ``y [Bt,T,H,P]`` and the final state ``[Bt,H,P,N]``; with
     ``chunk_states`` also the state before every ``STATE_ROWS`` rows
@@ -122,14 +133,15 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     s_out = torch.empty_like(state)
     states = (torch.empty((bt, -(-t // STATE_ROWS), *state.shape[1:]), dtype=torch.float32,
                           device=x.device) if chunk_states else None)
+    groups = B.shape[2] if B.dim() == 4 else 1
     fn, workspace_floats, err_str = _kernel()
-    work = torch.empty(workspace_floats(bt, t), dtype=torch.float32, device=x.device)
+    work = torch.empty(workspace_floats(bt * groups, t), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                 state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
                 0 if states is None else states.data_ptr(), bt, t, h, p,
-                B.shape[-1], chunk, work.data_ptr(), stream)
+                B.shape[-1], chunk, groups, work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_fwd launch failed: cudaError {rc} ({err_str(rc).decode()})")
     ssd_fwd.launches += 1
@@ -144,7 +156,8 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
             ds_out: Optional[torch.Tensor] = None, chunk: int = 128):
     """Gradients of the chunked Mamba2 SSD scan on the card.
 
-    x, dt, A, B, C and chunk as ``ssd_fwd`` took them; ``states`` the chunk
+    x, dt, A, B, C and chunk as ``ssd_fwd`` took them, B and C one group
+    ``[Bt,T,N]``; ``states`` the chunk
     states it returned with ``chunk_states=True`` (their first is the initial
     state); ``dy [Bt,T,H,P]`` the cotangent of y and ``ds_out [Bt,H,P,N]`` that
     of the final state (``None``: zero, not read).  All fp32, contiguous,
@@ -197,7 +210,8 @@ _build.define_op("ssd_bwd(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Ten
 
 
 def _fwd_count(x, dt, A, B, C, state, chunk, chunk_states):
-    flops, _, nbytes = work.ssd_work(*x.shape, B.shape[-1], chunk)
+    groups = B.shape[2] if B.dim() == 4 else 1
+    flops, _, nbytes = work.ssd_work(*x.shape, B.shape[-1], chunk, groups)
     return flops, nbytes
 
 
@@ -214,7 +228,8 @@ class SSD(torch.autograd.Function):
     """The chunked Mamba2 SSD scan on the card, differentiable: the forward is
     ``ssd_fwd`` (keeping its chunk states when a gradient is wanted), the
     backward ``ssd_bwd``, each through its operator.  The gradient of the final state may be absent (a
-    loss never reads it); it is then not materialised."""
+    loss never reads it); it is then not materialised.  B and C in more than one group
+    have a forward only: a gradient asked of such a call raises."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, state, chunk: int = 128):
@@ -223,6 +238,9 @@ class SSD(torch.autograd.Function):
         ctx.chunk = chunk
         if not any(ctx.needs_input_grad):
             return tuple(torch.ops.repro_torch.ssd_fwd(x, dt, A, B, C, state, chunk, False))
+        if B.dim() == 4 and B.shape[2] > 1:
+            raise NotImplementedError("ssd_bwd takes one group of B/C; the SSD scan with "
+                                      f"{B.shape[2]} groups has a forward only")
         y, s_out, states = torch.ops.repro_torch.ssd_fwd(x, dt, A, B, C, state, chunk, True)
         ctx.save_for_backward(x, dt, A, B, C, states)
         return y, s_out

@@ -12,12 +12,14 @@ tensors, which stand for the card's.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 
 from . import _build, ref
 from . import checksum as _checksum  # noqa: F401  (registers the operator)
 from . import decode_attention as _decode_attention  # noqa: F401  (registers the operator)
+from . import mamba2_step as _mamba2_step  # noqa: F401  (registers the operator)
 from .flash_attention import FlashAttention
 from .mamba2_ssd import SSD
 from .rwkv6_scan import WKV6
@@ -40,14 +42,16 @@ def kernel_path():
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0, q_offset: int = 0) -> torch.Tensor:
+                    window: int = 0, q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Causal (optionally sliding-window) attention, differentiable: its
     backward is the flash backward kernel on the card, the plain recompute
-    backward on the CPU.  q [B,Tq,KV,G,hd]; k/v [B,Tk,KV,hd] -> [B,Tq,KV,G,hd]."""
+    backward on the CPU.  q [B,Tq,KV,G,hd]; k/v [B,Tk,KV,hd] -> [B,Tq,KV,G,hd];
+    ``scale`` the softmax scale (None: 1/sqrt(hd); the card's backward takes None only)."""
     if q.is_cuda or _card_path:
-        return FlashAttention.apply(q, k, v, window, q_offset)
+        return FlashAttention.apply(q, k, v, window, q_offset, scale)
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, q_offset=q_offset, window=window)
+        return ref.flash_attention(q, k, v, q_offset=q_offset, window=window, scale=scale)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
@@ -69,7 +73,8 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
     """Chunked Mamba2 SSD scan with a state in and out, differentiable: its
     backward is the SSD backward kernel on the card, autograd through the plain
     form on the CPU.
-    x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B,C [Bt,T,N]; state [Bt,H,P,N] -> (y, state)."""
+    x [Bt,T,H,P]; dt [Bt,T,H]; A [H]; B,C [Bt,T,N] or, in G groups, [Bt,T,G,N]
+    (forward only on the card); state [Bt,H,P,N] -> (y, state)."""
     if x.is_cuda or _card_path:
         return SSD.apply(x, dt, A, B, C, state, chunk)
     if x.device.type == "cpu":
@@ -86,12 +91,37 @@ def takes_decode_attention(q: torch.Tensor, cache: torch.Tensor) -> bool:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     n_valid: int) -> torch.Tensor:
-    """One query token's GQA attention over slots [0, n_valid) of a bf16 K/V cache,
-    on the card, through its operator.  q [B,1,H,hd]; k/v [B,Smax,KV,hd] ->
-    [B,1,H,hd] in q's dtype.  Its plain counterpart is ``ref.decode_attention``."""
+                     n_valid: int, scale: Optional[float] = None) -> torch.Tensor:
+    """One query token's GQA attention over slots [0, n_valid) of a K/V cache, softmax
+    scale ``scale`` (None: 1/sqrt(hd)): the decode kernel through its operator where
+    the rule above sends ``q`` to the card (it takes a bf16 cache only), the plain
+    ``ref.decode_attention`` on the CPU.  q [B,1,H,hd]; k/v [B,Smax,KV,hd] ->
+    [B,1,H,hd] in q's dtype."""
     _build.refuse_dtensor("decode_attention", q, k, v)
-    return torch.ops.repro_torch.decode_attention(q, k, v, n_valid)
+    if q.is_cuda or _card_path:
+        return torch.ops.repro_torch.decode_attention(q, k, v, n_valid, scale)
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k, v, n_valid, scale)
+    raise ValueError(f"decode_attention: no kernel for device {q.device}")
+
+
+def mamba2_step(u: torch.Tensor, conv_state: torch.Tensor, conv_w: torch.Tensor,
+                conv_b: torch.Tensor, dt_bias: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                state: torch.Tensor, norm_w: torch.Tensor, groups: int,
+                eps: float) -> torch.Tensor:
+    """One token of a Mamba2 layer after its in_proj (``ref.mamba2_step``'s function):
+    the fused decode kernel through its operator where the rule above sends ``u`` to
+    the card (it takes bf16 and the (P, N) it compiles only), the plain version on the
+    CPU.  ``conv_state`` and ``state`` are updated in place; returns y [B, H*P] in u's
+    dtype."""
+    _build.refuse_dtensor("mamba2_step", u, conv_state, state)
+    if u.is_cuda or _card_path:
+        return torch.ops.repro_torch.mamba2_step(u, conv_state, conv_w, conv_b, dt_bias, A, D,
+                                                 state, norm_w, groups, eps)
+    if u.device.type == "cpu":
+        return ref.mamba2_step(u, conv_state, conv_w, conv_b, dt_bias, A, D, state, norm_w,
+                               groups, eps)
+    raise ValueError(f"mamba2_step: no kernel for device {u.device}")
 
 
 def tensor_checksum(data: torch.Tensor, block: int = 4096) -> torch.Tensor:

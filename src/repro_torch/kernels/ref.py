@@ -15,7 +15,8 @@ Mirrors ``repro.kernels.ref``:
     reduced mod 2^32;
   * one-token decode attention over a K/V cache as the model's plain path
     computes it (the decode kernel's counterpart; the JAX package has no kernel
-    for it).
+    for it), and one token of a Mamba2 layer with its conv and gated norm (the
+    fused decode step's counterpart).
 The CPU tests hold these to the JAX functions; ``chip_smoke.py`` holds the
 CUDA kernels to them on the card.
 """
@@ -56,8 +57,9 @@ def _kv_slice(kp, vp, q_start, j, tk, window, span, block_k):
     return k_j, v_j, k_pos
 
 
-def _flash_fwd_impl(q, k, v, q_offset, window, block_q, block_k):
-    """Returns ``out [B,Tq,KV,G,hd]`` (q's dtype) and ``lse [B,KV,G,Tq]`` (fp32).
+def _flash_fwd_impl(q, k, v, q_offset, window, block_q, block_k, scale=None):
+    """Returns ``out [B,Tq,KV,G,hd]`` (q's dtype) and ``lse [B,KV,G,Tq]`` (fp32);
+    ``scale`` is the softmax scale (None: 1/sqrt(hd)).
 
     ``repro.kernels.ref._flash_fwd_impl`` returns lse padded to a whole
     number of q blocks; here it is cut to Tq, the shape the CUDA kernel
@@ -73,7 +75,7 @@ def _flash_fwd_impl(q, k, v, q_offset, window, block_q, block_k):
     vp = F.pad(v, (0, 0, 0, 0, 0, pk))
     nq = qp.shape[1] // block_q
     nk = kp.shape[1] // block_k
-    scale = 1.0 / (hd ** 0.5)
+    scale = 1.0 / (hd ** 0.5) if scale is None else scale
     span = min(window + block_q, max(tk, 1)) if window else 0
     dev = q.device
 
@@ -108,7 +110,7 @@ def _flash_fwd_impl(q, k, v, q_offset, window, block_q, block_k):
     return out, lse
 
 
-def _flash_bwd_impl(q, k, v, lse, do, q_offset, window, block_q, block_k):
+def _flash_bwd_impl(q, k, v, lse, do, q_offset, window, block_q, block_k, scale=None):
     """One pass over q blocks: emit dq per block, accumulate dk/dv.
 
     Mirrors ``repro.kernels.ref._flash_bwd_impl``: p is recomputed from
@@ -128,7 +130,7 @@ def _flash_bwd_impl(q, k, v, lse, do, q_offset, window, block_q, block_k):
     lsep = F.pad(lse, (0, pq))
     nq = qp.shape[1] // block_q
     nk = kp.shape[1] // block_k
-    scale = 1.0 / (hd ** 0.5)
+    scale = 1.0 / (hd ** 0.5) if scale is None else scale
     span = min(window + block_q, max(tk, 1)) if window else 0
     tkp = kp.shape[1]
     dev = q.device
@@ -178,33 +180,34 @@ class _Flash(torch.autograd.Function):
     of the reference's ``jax.custom_vjp`` on ``_flash``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, window, block_q, block_k):
-        out, lse = _flash_fwd_impl(q, k, v, q_offset, window, block_q, block_k)
+    def forward(ctx, q, k, v, q_offset, window, block_q, block_k, scale=None):
+        out, lse = _flash_fwd_impl(q, k, v, q_offset, window, block_q, block_k, scale)
         ctx.save_for_backward(q, k, v, lse)
-        ctx.args = (q_offset, window, block_q, block_k)
+        ctx.args = (q_offset, window, block_q, block_k, scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
         return (*_flash_bwd_impl(q, k, v, lse, do.contiguous(), *ctx.args),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def flash_attention(q, k, v, q_offset: int = 0, window: int = 0,
-                    block_q: int = 512, block_k: int = 1024):
+                    block_q: int = 512, block_k: int = 1024, scale=None):
     """Blockwise causal attention (optionally sliding-window), flash-style
-    forward and recompute backward.
+    forward and recompute backward, softmax scale ``scale`` (None: 1/sqrt(hd)).
 
     q [B,Tq,KV,G,hd]; k/v [B,Tk,KV,hd] -> [B,Tq,KV,G,hd] in q's dtype."""
-    return _Flash.apply(q, k, v, q_offset, window, block_q, block_k)
+    return _Flash.apply(q, k, v, q_offset, window, block_q, block_k, scale)
 
 
-def attention_naive(q, k, v, q_offset: int = 0, window: int = 0):
+def attention_naive(q, k, v, q_offset: int = 0, window: int = 0, scale=None):
     """O(T^2)-materialized oracle (small shapes only)."""
     b, tq, kvh, g, hd = q.shape
     tk = k.shape[1]
-    s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) / (hd ** 0.5)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float())
+    s = s / (hd ** 0.5) if scale is None else s * scale
     q_pos = q_offset + torch.arange(tq, device=q.device)
     k_pos = torch.arange(tk, device=q.device)
     mask = q_pos[:, None] >= k_pos[None, :]
@@ -217,19 +220,21 @@ def attention_naive(q, k, v, q_offset: int = 0, window: int = 0):
 
 # ================================================================= RWKV6 (WKV)
 
-def decode_attention(q, k, v, n_valid: int):
+def decode_attention(q, k, v, n_valid: int, scale=None):
     """One-token GQA decode attention as the model's plain path computes it
     (``models.layers.attention_decode`` with a bf16 or fp32 cache and no split):
     the products over every slot of the cache in the dtype q and the cache
     promote to, slots at or past ``n_valid`` masked out, the softmax in fp32 and
     the probabilities rounded to q's dtype before the product with v.  On fp32
-    inputs it is the function the decode kernel computes, in fp32.
+    inputs it is the function the decode kernel computes, in fp32.  ``scale`` is the
+    softmax scale (None: 1/sqrt(hd)).
     q [B,1,H,hd]; k/v [B,Smax,KV,hd] -> [B,1,H,hd]."""
     b, _, h, hd = q.shape
     n, kvh = k.shape[1], k.shape[2]
     dt = torch.promote_types(q.dtype, k.dtype)
     qg = q.reshape(b, 1, kvh, h // kvh, hd).to(dt)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(dt)).float() / hd ** 0.5
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(dt)).float()
+    s = s / hd ** 0.5 if scale is None else s * scale
     s = s.masked_fill(torch.arange(n, device=q.device) >= n_valid, NEG_INF)
     pr = torch.softmax(s, dim=-1).to(q.dtype).to(dt)
     return torch.einsum("bkgqs,bskh->bqkgh", pr, v.to(dt)).reshape(b, 1, h, hd)
@@ -317,22 +322,59 @@ def rwkv6_chunked_bwd(r, k, v, w, u, state, dy, ds_out=None, chunk: int = 64):
 
 def mamba2_naive(x, dt, A, B, C, state):
     """Per-step SSD oracle.  x: [Bt,T,H,P]; dt: [Bt,T,H]; A: [H] (negative);
-    B,C: [Bt,T,N]; state: [Bt,H,P,N].
+    B,C: [Bt,T,N], or [Bt,T,G,N] in G groups, head h reading group h // (H/G);
+    state: [Bt,H,P,N].
     h_t = exp(A dt_t) h_{t-1} + dt_t * x_t B_t^T ;  y_t = h_t C_t"""
+    if B.dim() == 4:                # each head's group: [Bt,T,H,N]
+        heads = torch.arange(x.shape[2], device=x.device) // (x.shape[2] // B.shape[2])
+        B, C = B[:, :, heads], C[:, :, heads]
+    upd_eq, out_eq = (("bhp,bn->bhpn", "bhpn,bn->bhp") if B.dim() == 3
+                      else ("bhp,bhn->bhpn", "bhpn,bhn->bhp"))
     ys = []
     h = state
     for t in range(x.shape[1]):
         decay = torch.exp(A * dt[:, t])[..., None, None]          # [Bt,H,1,1]
-        upd = torch.einsum("bhp,bn->bhpn", x[:, t] * dt[:, t][..., None], B[:, t])
+        upd = torch.einsum(upd_eq, x[:, t] * dt[:, t][..., None], B[:, t])
         h = decay * h + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", h, C[:, t]))
+        ys.append(torch.einsum(out_eq, h, C[:, t]))
     return torch.stack(ys, 1), h
+
+
+def mamba2_step(u, conv_state, conv_w, conv_b, dt_bias, A, D, state, norm_w, groups: int,
+                eps: float):
+    """One token of a Mamba2 layer from its in_proj's output to its out_proj's input
+    (the decode kernel K6's plain version).  u [B, W] = z | x | B | C | dt (W = 2 din
+    + 2 G N + H); conv_state [B, C, K-1] (C = din + 2 G N) and the fp32 state
+    [B,H,P,N] are updated in place; conv_w [K, C], conv_b [C]; dt_bias, A (=
+    -exp(A_log)), D [H]; norm_w [din].  xBC' = silu(conv(conv_state | xBC) + b),
+    dt = softplus(dt + dt_bias), s = e^(A dt) s + dt x B^T (head h reading group
+    h // (H/G)), y = s C + D x; returns norm_w * RMS over each of the G groups of
+    y * silu(z), rounded to u's dtype before the weight: [B, din]."""
+    b, h, p, n = state.shape
+    din, gn, k = h * p, groups * n, h // groups
+    z, xbc, dt = torch.split(u, [din, din + 2 * gn, h], dim=-1)
+    pad = torch.cat([conv_state.to(xbc.dtype), xbc[:, :, None]], dim=2)      # [B, C, K]
+    conv_state.copy_(pad[:, :, 1:])
+    conv = F.conv1d(pad, conv_w.t().unsqueeze(1), conv_b, groups=pad.shape[1])[:, :, 0]
+    xs, B, C = torch.split(F.silu(conv), [din, gn, gn], dim=-1)
+    dt = F.softplus(dt.float() + dt_bias)                                    # [B, H]
+    x = xs.float().reshape(b, groups, k, p)
+    s = state.view(b, groups, k, p, n)
+    s.mul_(torch.exp(A * dt).reshape(b, groups, k, 1, 1))
+    s.addcmul_((x * dt.reshape(b, groups, k, 1))[..., None],
+               B.float().reshape(b, groups, 1, 1, n))
+    y = (s @ C.float().reshape(b, groups, 1, n, 1))[..., 0] + D.reshape(groups, k, 1) * x
+    y = y.reshape(b, groups, din // groups) * F.silu(z.float()).reshape(b, groups, din // groups)
+    y = F.rms_norm(y, (din // groups,), eps=eps).reshape(b, din)
+    return y.to(u.dtype) * norm_w
 
 
 def mamba2_ssd(x, dt, A, B, C, state, chunk: int = 128):
     """Chunked SSD (Mamba2's dual form; the formulation the SSD kernel
     computes).  T is padded with dt = 0 and x = 0, which keeps the state
-    exact."""
+    exact.  B, C [Bt,T,N], or [Bt,T,G,N] in G groups (``_ssd_grouped``)."""
+    if B.dim() == 4:
+        return _ssd_grouped(x, dt, A, B, C, state, chunk)
     bt, t, h, p = x.shape
     n = B.shape[-1]
     pad = (-t) % chunk
@@ -368,6 +410,47 @@ def mamba2_ssd(x, dt, A, B, C, state, chunk: int = 128):
         ys.append(y)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(bt, nt * chunk, h, p)
     return y[:, :t].to(x.dtype), S
+
+
+def _ssd_grouped(x, dt, A, B, C, state, chunk: int):
+    """``mamba2_ssd`` with B, C [Bt,T,G,N]: the heads as G groups of K = H/G, head
+    (g, k) = g K + k reading group g; the same chunks, products and rounding points."""
+    bt, t, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    k = h // g
+    pad = (-t) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    nt = x.shape[1] // chunk
+    xc = x.reshape(bt, nt, chunk, g, k, p).permute(1, 0, 3, 4, 2, 5)   # [nt,b,g,k,c,p]
+    dtc = dt.reshape(bt, nt, chunk, g, k).permute(1, 0, 3, 4, 2)      # [nt,b,g,k,c]
+    Bc = B.reshape(bt, nt, chunk, g, n).permute(1, 0, 3, 2, 4)         # [nt,b,g,c,n]
+    Cc = C.reshape(bt, nt, chunk, g, n).permute(1, 0, 3, 2, 4)
+    mask = torch.arange(chunk, device=x.device)[:, None] >= torch.arange(
+        chunk, device=x.device)[None, :]
+    Af = A.float().reshape(g, k)
+    S = state.float().reshape(bt, g, k, p, n)
+    ys = []
+    for i in range(nt):
+        x_f, dt_f = xc[i].float(), dtc[i].float()
+        B_f, C_f = Bc[i].float(), Cc[i].float()
+        cl = torch.cumsum(Af[None, :, :, None] * dt_f, dim=-1)    # [b,g,k,c]
+        y_state = torch.einsum("bgkpn,bgcn,bgkc->bgkcp", S, C_f, torch.exp(cl))
+        diff = cl[..., :, None] - cl[..., None, :]
+        L = torch.exp(torch.clamp(diff, max=30.0)) * mask
+        G = torch.einsum("bgin,bgjn->bgij", C_f, B_f)
+        M = G[:, :, None] * L                                      # [b,g,k,i,j]
+        y = y_state + torch.einsum("bgkij,bgkj,bgkjp->bgkip", M, dt_f, x_f)
+        cl_last = cl[..., -1]
+        decay_tail = torch.exp(torch.clamp(cl_last[..., None] - cl, max=30.0))
+        S = (torch.exp(cl_last)[..., None, None] * S
+             + torch.einsum("bgkc,bgkcp,bgcn->bgkpn", decay_tail * dt_f, x_f, B_f))
+        ys.append(y)
+    y = torch.stack(ys).permute(1, 0, 4, 2, 3, 5).reshape(bt, nt * chunk, h, p)
+    return y[:, :t].to(x.dtype), S.reshape(bt, h, p, n)
 
 
 def mamba2_ssd_bwd(x, dt, A, B, C, state, dy, ds_out=None, chunk: int = 128):

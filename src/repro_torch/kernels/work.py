@@ -76,9 +76,10 @@ def wkv6_work(b: int, t: int, h: int, d: int, chunk: int) -> Tuple[int, int, int
     return flops * heads, trans * heads, nbytes
 
 
-def ssd_work(b: int, t: int, h: int, p: int, n: int, chunk: int) -> Tuple[int, int, int]:
+def ssd_work(b: int, t: int, h: int, p: int, n: int, chunk: int,
+             groups: int = 1) -> Tuple[int, int, int]:
     """K3: flops (exponentials apart), exponentials and bytes of ref.mamba2_ssd on real
-    rows; C B^T is counted once per batch, as the function needs it."""
+    rows; C B^T is counted once per batch and group of B and C, as the function needs it."""
     def per_chunk(c):
         pairs = c * (c + 1) // 2
         shared = 2 * pairs * n                    # C B^T, causal half
@@ -90,8 +91,9 @@ def ssd_work(b: int, t: int, h: int, p: int, n: int, chunk: int) -> Tuple[int, i
         trans = pairs + 2 * c + 1
         return flops, trans, shared
     flops, trans, shared = _over_chunks(t, chunk, per_chunk)
-    nbytes = 4 * (2 * b * t * h * p + b * t * h + h + 2 * b * t * n + 2 * b * h * p * n)
-    return flops * b * h + shared * b, trans * b * h, nbytes
+    nbytes = 4 * (2 * b * t * h * p + b * t * h + h + 2 * b * t * groups * n
+                  + 2 * b * h * p * n)
+    return flops * b * h + shared * b * groups, trans * b * h, nbytes
 
 
 def wkv6_bwd_work(b: int, t: int, h: int, d: int, chunk: int) -> Tuple[int, int, int]:
@@ -146,6 +148,18 @@ def decode_attention_work(b: int, n_valid: int, kv: int, g: int, hd: int,
     rows read once, q read and out written in q's dtype (the splits' scratch apart)."""
     flops = 4 * hd * b * kv * g * n_valid
     nbytes = 2 * b * n_valid * kv * hd * 2 + 2 * b * kv * g * hd * q_itemsize
+    return flops, nbytes
+
+
+def mamba2_step_work(b: int, h: int, p: int, n: int, groups: int) -> Tuple[int, int]:
+    """K6: one token of a Mamba2 layer, conv width 4 over din + 2 G N channels: the
+    conv's 8 flops a channel, the state's decay, update and product with C (6 a state
+    element), D x and the gated norm (8 a channel); the fp32 state read and written
+    once, the in_proj's bf16 output read, the bf16 conv state read and written, the
+    bf16 output written (weights, dt_bias, A and D apart)."""
+    din, c = h * p, h * p + 2 * groups * n
+    flops = b * (8 * c + 6 * h * p * n + 8 * din)
+    nbytes = 2 * 4 * b * h * p * n + 2 * b * (din + c + h) + 2 * 2 * b * c * 3 + 2 * b * din
     return flops, nbytes
 
 

@@ -5,7 +5,8 @@ fixed seed, the reference's on either device (there is no checkpoint
 restore), then serves a batch of synthetic requests through prefill + cached decode and
 prints the generated tokens.  Every family is served (``--arch mixtral-8x22b``,
 ``--arch arctic-480b``, ``--arch rwkv6-1.6b``, ``--arch zamba2-7b``, the
-dense ones)."""
+dense ones), and the port's own ``--arch zamba2-7b-instruct``, the published
+Zamba2-7B hybrid."""
 
 from __future__ import annotations
 
@@ -14,14 +15,14 @@ from typing import List, Optional
 
 import torch
 
-from ..configs import ARCH_NAMES, get_arch
+from ..configs import ARCH_NAMES, PORT_ARCHS, get_arch
 from ..models import get_model
 from ..serve.server import BatchServer, Request
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="codeqwen1.5-7b", choices=ARCH_NAMES)
+    ap.add_argument("--arch", default="codeqwen1.5-7b", choices=ARCH_NAMES + list(PORT_ARCHS))
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--batch", type=int, default=2)

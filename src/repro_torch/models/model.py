@@ -16,7 +16,7 @@ block in place of the MLP; their load-balance loss is not part of
 ``loss``, as in the reference.  For rwkv6 (family ``ssm``) and zamba2
 (``hybrid``) the cache is the model's recurrent state (and, for zamba2,
 the shared block's K/V): a dict the server hands back to ``decode``
-unread.
+unread.  zamba2-7b-instruct, the published Zamba2-7B hybrid, is served only.
 """
 
 from __future__ import annotations
@@ -53,6 +53,19 @@ def get_model(cfg: ArchConfig) -> ModelApi:
             decode=lambda p, tok, cache, cache_len:
                 rwkv6.decode_step(cfg, p, tok, cache, cache_len),
             cache_spec=lambda batch, smax=0, kv="bfloat16": rwkv6.state_spec(cfg, batch),
+        )
+    if cfg.family == "hybrid" and zamba2.published(cfg):     # the published Zamba2 block
+        return ModelApi(
+            cfg=cfg,
+            init=lambda seed=0, dtype=torch.bfloat16, device="cuda":
+                zamba2.init_pub_params(cfg, seed, dtype, device),
+            forward=lambda p, toks: zamba2.pub_prefill(cfg, p, toks, toks.shape[1],
+                                                       last_only=False)[0],
+            loss=lambda p, b: zamba2.pub_loss_fn(cfg, p, b),
+            prefill=lambda p, toks, smax, kv="bfloat16": zamba2.pub_prefill(cfg, p, toks, smax),
+            decode=lambda p, tok, cache, cache_len:
+                zamba2.pub_decode_step(cfg, p, tok, cache, cache_len),
+            cache_spec=lambda batch, smax, kv="bfloat16": zamba2.pub_state_spec(cfg, batch, smax),
         )
     if cfg.family == "hybrid":       # zamba2
         return ModelApi(

@@ -47,6 +47,7 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from ..parallel import ctx, spmd
+from ..serve import graphs
 from . import layers, moe
 from .layers import Params
 
@@ -285,13 +286,18 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
                 cache: Cache, cache_len: int) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  token [B,1]; cache from ``prefill``; cache_len: the
     number of positions already in it.  The new token's k/v are written into
-    ``cache`` in place.  Returns (logits [B,1,V], cache)."""
-    h = layers.embed(params["emb"], token)
-    rs = _residual_scale(cfg)
+    ``cache`` in place.  Returns (logits [B,1,V], cache).  On the decode kernel's
+    route, off a mesh and for a dense block, the step runs as segments that a
+    server on the card captures once a wave and replays (``_decode_segments``)."""
     int8 = "k_scale" in cache
     smax = cache["k"].shape[2] * (layers._tp_size() if ctx.kv_split() == "sequence" else 1)
     write_pos = cache_len % smax if cfg.swa_window else cache_len
     n_valid = min(cache_len + 1, smax)
+    if _segmented(cfg, cache):
+        return _decode_segments(cfg, params, token, cache, cache_len, write_pos,
+                                n_valid), cache
+    h = layers.embed(params["emb"], token)
+    rs = _residual_scale(cfg)
     gather = layers.gatherer("layers", stacked=True)
     for i, lp in enumerate(layers.unstack(params["layers"])):
         lp = gather(lp)
@@ -302,3 +308,59 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
         h = h + rs * out
         h = h + rs * _mix(cfg, lp, h)
     return layers.unembed(params["emb"], h), cache
+
+
+def _segmented(cfg: ArchConfig, cache: Cache) -> bool:
+    """Whether a decode step runs as ``serve.graphs`` segments around each layer's
+    decode kernel (``_decode_segments``): off a mesh, a dense block (an MoE block's
+    routing is not captured) over a bf16 cache on the kernel's route (the cache lies
+    where q does)."""
+    return (cfg.family != "moe" and "k_scale" not in cache and ctx.get_mesh() is None
+            and ops.takes_decode_attention(cache["k"], cache["k"]))
+
+
+def _decode_segments(cfg: ArchConfig, params: Params, token: torch.Tensor, cache: Cache,
+                     cache_len: int, write_pos: int, n_valid: int) -> torch.Tensor:
+    """``decode_step``'s logits, its operations in the same order, as segments
+    (``serve.graphs``) between the layers' decode kernels, the only launches that
+    take the step's length: the embedding and the first layer's q/k/v and cache
+    write; then, after each layer's attention, the rest of that layer and the next
+    one's q/k/v and cache write, or the head.  The position and the slot are tensors
+    that enter the first segment, which hands them on, so that the later ones read
+    them where they lie."""
+    if not 0 <= write_pos < cache["k"].shape[2]:
+        raise IndexError(f"cache write at slot {write_pos} outside [0, {cache['k'].shape[2]})")
+    rs = _residual_scale(cfg)
+    lps = layers.unstack(params["layers"])
+    last = len(lps) - 1
+    b, dev = token.shape[0], token.device
+
+    def qkv(i, h, pos, slot):
+        q, k, v = layers._qkv(cfg, lps[i]["attn"], layers.rms_norm(h, lps[i]["ln1"]), pos)
+        for dst, new in ((cache["k"][i], k), (cache["v"][i], v)):
+            dst.index_copy_(1, slot, new.to(dst.dtype))
+        return q
+
+    def first(tok, pos, slot):
+        h = layers.embed(params["emb"], tok)
+        return h, qkv(0, h, pos, slot), pos, slot
+
+    def after(i, h, out, pos, slot):
+        h = h + rs * layers._out_proj(out, lps[i]["attn"]["wo"], False)
+        h = h + rs * _mix(cfg, lps[i], h)
+        if i == last:
+            return layers.unembed(params["emb"], h)
+        return h, qkv(i + 1, h, pos, slot)
+
+    h, q, pos, slot = graphs.segment(
+        ("dense", -1), first, token,
+        torch.full((b, 1), cache_len, dtype=torch.int32, device=dev),
+        torch.full((1,), write_pos, dtype=torch.long, device=dev))
+    for i in range(len(lps)):
+        hq = q.shape[2] * q.shape[3]
+        out = ops.decode_attention(q, cache["k"][i], cache["v"][i], n_valid).reshape(b, 1, hq)
+        if i == last:
+            return graphs.segment(("dense", i), lambda hh, oo: after(last, hh, oo, None, None),
+                                  h, out)
+        h, q = graphs.segment(("dense", i), lambda hh, oo, pp, ss, i=i: after(i, hh, oo, pp, ss),
+                              h, out, pos, slot)

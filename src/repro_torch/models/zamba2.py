@@ -30,16 +30,18 @@ tail converted at each layer's edge, ``_conv_edges``; the K/V as
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops, ref
-from ..parallel import spmd
+from ..parallel import ctx, spmd
+from ..serve import graphs
 from . import layers, transformer
 from .layers import Params, _dense_init, _mm, _normal
 
@@ -376,3 +378,280 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     return layers.unembed(params["emb"], h), {
         "conv": torch.stack(convs), "ssd": torch.stack(ssds),
         "k": state["k"], "v": state["v"]}
+
+
+# ------------------------------------------------ the published Zamba2 hybrid layer
+#
+# Zyphra's Zamba2-7B (``configs/zamba2_7b_instruct.py``), beside the twin above:
+# with e the embedding output, kept for the whole pass, layer i is
+#   h = h + Mamba_i(RMS_i(h + T_j))   at site j (layer hybrid_layer_ids[j]),
+#   h = h + Mamba_i(RMS_i(h))         elsewhere,
+# where T_j = Linear_j(S_{j % n}(h, e)) and the shared block S is
+#   u = RMS([h | e]); a = attn(u) W_o (heads over the 2d-wide u, RoPE on every dim,
+#   the config's softmax scale); m = RMS(a);
+#   g | p = m W_gu + (m A_j) B_j (the site's adapter); S = (act(g) * p) W_down,
+# with no residual inside it.  Mamba2 takes in_proj -> z | x | B | C | dt (B and C
+# in G groups), a causal conv with bias over x | B | C then SiLU, dt = softplus(dt +
+# dt_bias), the SSD scan (head h reading group h // (H/G)) plus D x, then the gated
+# norm: y * silu(z) in fp32, RMS over each of the G groups of channels, and out_proj.
+# Serving only: no loss, no mesh.  Each site's block runs in a ``zamba2.shared``
+# span and each run of consecutive Mamba2 layers in a ``zamba2.mamba`` span; the
+# parts between a decode step's attentions are ``serve.graphs`` segments.
+# ``models.get_model`` takes these functions for a config that ``published`` names.
+
+def published(cfg: ArchConfig) -> bool:
+    """Whether ``cfg`` is the published hybrid (it names its hybrid layers)."""
+    return bool(cfg.hybrid_layer_ids)
+
+
+def site_layers(cfg: ArchConfig) -> Tuple[int, ...]:
+    """The layers that run a shared block first: the config's, below its depth."""
+    return tuple(i for i in cfg.hybrid_layer_ids if i < cfg.n_layers)
+
+
+def _pub_widths(cfg: ArchConfig):
+    """(din, G * N, heads) of a published Mamba2 layer."""
+    din = _din(cfg)
+    return din, cfg.ssm_groups * cfg.ssm_state, din // cfg.ssm_head_dim
+
+
+def _refuse_unsupported(what: str) -> None:
+    if layers.tp_mesh() is not None or ctx.param_placements() is not None:
+        raise NotImplementedError(f"the published Zamba2 hybrid has no mesh path ({what})")
+
+
+def init_pub_mamba_layer(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+    d = cfg.d_model
+    din, gn, nh = _pub_widths(cfg)
+    dev = gen.device
+    # dt log-uniform in [1e-3, 0.1], floored at 1e-4, and dt_bias its softplus inverse
+    u = torch.rand(nh, generator=gen, device=dev, dtype=torch.float32)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).clamp(min=1e-4)
+    return {
+        "ln": torch.ones(d, dtype=dtype, device=dev),
+        "in_proj": _dense_init(gen, d, 2 * din + 2 * gn + nh, dtype),   # z | x | B | C | dt
+        "conv_w": _normal(gen, (CONV_K, din + 2 * gn), 0.2, dtype),
+        "conv_b": _normal(gen, (din + 2 * gn,), 0.02, dtype),
+        "A_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32, device=dev)),
+        "D": torch.ones(nh, dtype=torch.float32, device=dev),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "norm": torch.ones(din, dtype=dtype, device=dev),
+        "out_proj": _dense_init(gen, din, d, dtype),
+    }
+
+
+def init_pub_shared(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+    d, f, hq = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd
+    dev = gen.device
+    d_in = 2 * d if cfg.attn_concat_embed else d
+    return {
+        "ln1": torch.ones(d_in, dtype=dtype, device=dev),
+        "wqkv": _dense_init(gen, d_in, hq + 2 * cfg.n_kv_heads * cfg.hd, dtype),   # q | k | v
+        "wo": _dense_init(gen, hq, d, dtype),
+        "ln2": torch.ones(d, dtype=dtype, device=dev),
+        "w_gu": _dense_init(gen, d, 2 * f, dtype),                                # g | p
+        "w_down": _dense_init(gen, f, d, dtype),
+    }
+
+
+def init_pub_site(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
+    d, r = cfg.d_model, cfg.adapter_rank
+    return {"lin": _dense_init(gen, d, d, dtype),
+            "ad_a": _dense_init(gen, d, r, dtype),
+            "ad_b": _dense_init(gen, r, 2 * cfg.d_ff, dtype)}
+
+
+def init_pub_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
+                    device="cuda") -> Params:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``: the
+    published hybrid's tree (``perfbench/reference/hybrid_layout.py`` lays it out)."""
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    return {
+        "emb": layers.init_embeddings(cfg, gen, dtype),
+        "mamba": layers.init_stacked(cfg.n_layers, lambda: init_pub_mamba_layer(cfg, gen, dtype)),
+        "shared": layers.init_stacked(cfg.shared_blocks, lambda: init_pub_shared(cfg, gen, dtype)),
+        "sites": layers.init_stacked(len(site_layers(cfg)),
+                                     lambda: init_pub_site(cfg, gen, dtype)),
+    }
+
+
+def pub_state_spec(cfg: ArchConfig, batch: int, smax: int):
+    din, gn, nh = _pub_widths(cfg)
+    kv = (len(site_layers(cfg)), batch, smax, cfg.n_kv_heads, cfg.hd)
+    return {
+        "conv": ((cfg.n_layers, batch, din + 2 * gn, CONV_K - 1), torch.bfloat16),
+        "ssd": ((cfg.n_layers, batch, nh, cfg.ssm_head_dim, cfg.ssm_state), torch.float32),
+        "k": (kv, torch.bfloat16),
+        "v": (kv, torch.bfloat16),
+    }
+
+
+def pub_mamba_layer(cfg: ArchConfig, p: Params, x: torch.Tensor, A: torch.Tensor,
+                    conv_state: torch.Tensor, ssd_state: torch.Tensor) -> torch.Tensor:
+    """x [B,T,d], the layer's input -> its output [B,T,d]; A = -exp(A_log) [H].
+    ``conv_state`` [B, din+2GN, K-1] and ``ssd_state`` [B,H,P,N] fp32 are read and
+    overwritten with the new ones.  T > 1 runs the chunked scan (``ops.mamba2_ssd``);
+    one token everything after in_proj as one step (``ops.mamba2_step``), in place."""
+    b, t, d = x.shape
+    din, gn, nh = _pub_widths(cfg)
+    G, N, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    u = _mm(F.rms_norm(x, (d,), p["ln"], cfg.rms_eps), p["in_proj"])
+    if t == 1:
+        y = ops.mamba2_step(u[:, 0], conv_state, p["conv_w"], p["conv_b"], p["dt_bias"], A,
+                            p["D"], ssd_state, p["norm"], G, cfg.rms_eps)
+        return _mm(y[:, None], p["out_proj"])
+    z, xbc, dt = torch.split(u, [din, din + 2 * gn, nh], dim=-1)
+    xbc_pad = torch.cat([conv_state.to(xbc.dtype), xbc.transpose(1, 2)], dim=2)
+    conv_state.copy_(xbc_pad[:, :, -(CONV_K - 1):])
+    conv = F.conv1d(xbc_pad, p["conv_w"].t().unsqueeze(1), p["conv_b"], groups=din + 2 * gn)
+    xs, B, C = torch.split(F.silu(conv.transpose(1, 2)), [din, gn, gn], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])                        # [B,T,H]
+    xh = xs.reshape(b, t, nh, P).float()
+    B, C = (v.float().reshape(b, t, G, N).contiguous() for v in (B, C))
+    y, s_new = ops.mamba2_ssd(xh.contiguous(), dt, A, B, C, ssd_state, chunk=128)
+    ssd_state.copy_(s_new)
+    y = (y + p["D"][:, None] * xh).reshape(b, t, G, din // G) \
+        * F.silu(z.float()).reshape(b, t, G, din // G)
+    y = F.rms_norm(y, (din // G,), eps=cfg.rms_eps).reshape(b, t, din)
+    return _mm(y.to(x.dtype) * p["norm"], p["out_proj"])
+
+
+def _site_pre(cfg: ArchConfig, sp: Params, h: torch.Tensor, e: torch.Tensor):
+    """A site's attention inputs before RoPE: q [B,T,H,hd], k, v [B,T,KV,hd] from
+    block ``sp`` over h and the embeddings e [B,T,d]."""
+    b, t, _ = h.shape
+    hq, hk = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    u = torch.cat([h, e], dim=-1) if cfg.attn_concat_embed else h
+    q, k, v = torch.split(_mm(F.rms_norm(u, (u.shape[-1],), sp["ln1"], cfg.rms_eps),
+                              sp["wqkv"]), [hq, hk, hk], dim=-1)
+    return (q.reshape(b, t, cfg.n_heads, cfg.hd), k.reshape(b, t, cfg.n_kv_heads, cfg.hd),
+            v.reshape(b, t, cfg.n_kv_heads, cfg.hd))
+
+
+def _site_post(cfg: ArchConfig, sp: Params, st: Params, h: torch.Tensor,
+               o: torch.Tensor) -> torch.Tensor:
+    """h + T_j: the rest of block ``sp`` after its attention's output o [B,T,H*hd]
+    (W_o, the norm, the GeGLU MLP with the site's own adapter ``st``) and the site's
+    linear."""
+    m = F.rms_norm(_mm(o, sp["wo"]), (h.shape[-1],), sp["ln2"], cfg.rms_eps)
+    gu = _mm(m, sp["w_gu"])
+    gu += _mm(_mm(m, st["ad_a"]), st["ad_b"])
+    g, up = gu.chunk(2, dim=-1)
+    act = F.gelu(g) if cfg.mlp_act == "gelu" else F.silu(g)
+    return h + _mm(_mm(act * up, sp["w_down"]), st["lin"])
+
+
+def _pub_layers(cfg: ArchConfig, params: Params, e: torch.Tensor, state: State,
+               attend) -> torch.Tensor:
+    """Every layer over the embeddings e, the state updated in place;
+    ``attend(j, q, k, v)`` -> [B,T,H*hd] is site j's attention.  Each run of Mamba2
+    layers, and each site's parts before and after its attention, is a segment
+    (``serve.graphs``): a graph where the server captures a decode step's segments."""
+    sites = site_layers(cfg)
+    mamba = layers.unstack(params["mamba"])
+    shared = layers.unstack(params["shared"])
+    own = layers.unstack(params["sites"])
+
+    def run(lo, hi, h, x):
+        for i in range(lo, hi):
+            lp = mamba[i]
+            h = h + pub_mamba_layer(cfg, lp, x, -torch.exp(lp["A_log"]), state["conv"][i],
+                                    state["ssd"][i])
+            x = h
+        return h
+
+    h = e
+    bounds = (0, *sites, cfg.n_layers)
+    for r, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        x = h
+        if r > 0:           # the run starts at site r - 1
+            j = r - 1
+            sp, st = shared[j % cfg.shared_blocks], own[j]
+            with obs.span("zamba2.shared"):
+                q, k, v = graphs.segment(("pre", j),
+                                         lambda hh, ee, sp=sp: _site_pre(cfg, sp, hh, ee), h, e)
+                o = attend(j, q, k, v)
+                x = graphs.segment(("post", j),
+                                   lambda hh, oo, sp=sp, st=st: _site_post(cfg, sp, st, hh, oo),
+                                   h, o)
+        if hi == lo:
+            h = x
+            continue
+        with obs.span("zamba2.mamba"):
+            h = graphs.segment(("run", r),
+                               lambda hh, xx, lo=lo, hi=hi: run(lo, hi, hh, xx), h, x)
+    return h
+
+
+def _rope_tables(position: int, half: int, theta: float, device):
+    """cos, sin [1,1,1,half] of one position, as ``layers.rope`` computes them."""
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))
+    angles = freqs * float(position)
+    return torch.cos(angles)[None, None, None], torch.sin(angles)[None, None, None]
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """``layers.rope`` of x [B,1,H,hd] at the position of ``_rope_tables``."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _pub_logits(cfg: ArchConfig, emb: Params, h: torch.Tensor) -> torch.Tensor:
+    return _mm(F.rms_norm(h, (h.shape[-1],), emb["ln_f"], cfg.rms_eps), emb["tok"].t())
+
+
+def pub_prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, smax: int,
+                last_only: bool = True) -> Tuple[torch.Tensor, State]:
+    """The prompt [B,T] from a zero state -> (logits [B,1,V] of its last position,
+    or [B,T,V] of every one, the state), the sites' K/V in a cache of ``smax``
+    slots in the compute dtype; raises if the prompt does not fit."""
+    _refuse_unsupported("prefill")
+    b, t = tokens.shape
+    if t > smax:
+        raise ValueError(f"prompt of {t} tokens does not fit a cache of {smax}")
+    e = layers.embed(params["emb"], tokens)
+    spec = pub_state_spec(cfg, b, smax)
+    state = {name: torch.zeros(shape, dtype=dtype if name == "ssd" else e.dtype,
+                               device=tokens.device)
+             for name, (shape, dtype) in spec.items()}
+    positions = transformer._positions(b, t, tokens.device)
+
+    def attend(j, q, k, v):
+        q, k = (layers.rope(x, positions, cfg.rope_theta) for x in (q, k))
+        state["k"][j, :, :t] = k
+        state["v"][j, :, :t] = v
+        kvh = cfg.n_kv_heads
+        o = ops.flash_attention(q.reshape(b, t, kvh, cfg.n_heads // kvh, cfg.hd).contiguous(),
+                                k.contiguous(), v.contiguous(), scale=cfg.attn_scale)
+        return o.reshape(b, t, cfg.n_heads * cfg.hd)
+
+    h = _pub_layers(cfg, params, e, state, attend)
+    return _pub_logits(cfg, params["emb"], h[:, -1:] if last_only else h), state
+
+
+def pub_decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor, state: State,
+                    cache_len: int) -> Tuple[torch.Tensor, State]:
+    """One token [B,1] at position ``cache_len`` through every layer: the state
+    (conv tails, SSD states, the sites' K/V in slot ``cache_len``) updated in
+    place.  Returns (logits [B,1,V], state)."""
+    _refuse_unsupported("decode")
+    b = token.shape[0]
+    e = layers.embed(params["emb"], token)
+    cos, sin = _rope_tables(cache_len, cfg.hd // 2, cfg.rope_theta, token.device)
+
+    def attend(j, q, k, v):
+        q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
+        ck, cv = state["k"][j], state["v"][j]
+        layers._write_slot(ck, k, cache_len)
+        layers._write_slot(cv, v, cache_len)
+        o = ops.decode_attention(q.contiguous(), ck, cv, cache_len + 1, cfg.attn_scale)
+        return o.reshape(b, 1, cfg.n_heads * cfg.hd)
+
+    h = _pub_layers(cfg, params, e, state, attend)
+    return _pub_logits(cfg, params["emb"], h), state
+
+
+def pub_loss_fn(cfg: ArchConfig, params: Params, batch) -> torch.Tensor:
+    raise NotImplementedError(f"{cfg.name}: training the published Zamba2 hybrid is not "
+                              "supported (no K1-bwd at its head dim, no K3-bwd with groups)")

@@ -6,7 +6,10 @@ left-padded with token 0 (and, as in the reference, no pad mask is applied,
 so pad tokens are attended to), decoding is greedy over the real vocab, and
 the cache length starts at the wave's longest prompt.  The cache is what
 the model's ``prefill`` returns (a KV cache, or rwkv6's and zamba2's
-recurrent state) and is handed back to ``decode`` unread.
+recurrent state) and is handed back to ``decode`` unread.  On the card every
+decode step of a wave but the first runs with the server's ``graphs.StepGraphs``
+on, so the segments a model marks in its step are captured once a wave and
+replayed (``serve.graphs``); a model that marks none runs as it would without.
 
 ``placed_prefill`` and ``placed_decode`` are the model's prefill and decode
 on a mesh, on DTensors placed as the reference's dry run places its
@@ -22,6 +25,7 @@ the reference's does.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional
 
@@ -35,6 +39,7 @@ from ..models.layers import padded_vocab
 from ..parallel import ctx
 from ..parallel import sharding as shd
 from ..train.optimizer import flatten_with_paths, unflatten
+from . import graphs
 
 
 @dataclasses.dataclass
@@ -57,6 +62,7 @@ class BatchServer:
         self.batch = batch
         self.smax = smax
         self.device = resolve_device(device)
+        self.graphs = graphs.StepGraphs(self.device) if self.device.type == "cuda" else None
 
     @torch.inference_mode()
     def serve(self, requests: List[Request]) -> List[Request]:
@@ -82,8 +88,8 @@ class BatchServer:
                     outs = [[t] for t in cur.tolist()]
                 cache_len = max_p
                 steps = max((r.max_new for r in wave), default=0)
-                for _ in range(max(steps - 1, 0)):
-                    with obs.span("serve.decode"):
+                for i in range(max(steps - 1, 0)):
+                    with self._graphed(i), obs.span("serve.decode"):
                         logits, cache = self.api.decode(self.params, cur[:, None], cache,
                                                         cache_len)
                         cache_len += 1
@@ -93,11 +99,20 @@ class BatchServer:
                         for out, t in zip(outs, new):
                             out.append(t)
                 del cache   # free this wave's cache before the next wave allocates one
+                if self.graphs is not None:
+                    self.graphs.reset()
             for i, r in enumerate(wave):
                 if r.rid >= 0:
                     r.out = outs[i][: r.max_new]
                     done.append(r)
         return done
+
+    def _graphed(self, step: int):
+        """The context of a wave's decode step ``step``: its segments graphed on the
+        card from the second step on."""
+        if self.graphs is None or step == 0:
+            return contextlib.nullcontext()
+        return self.graphs.on()
 
 
 # ------------------------------------------------------------------ on a mesh

@@ -30,6 +30,7 @@ from repro_torch.kernels.checksum import checksum as checksum_kernel
 from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.kernels.mamba2_ssd import ssd_bwd, ssd_fwd
+from repro_torch.kernels.mamba2_step import mamba2_step as step_kernel
 from repro_torch.kernels.rwkv6_scan import wkv6_bwd, wkv6_fwd
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
@@ -1150,3 +1151,227 @@ def test_decode_step_launches_the_kernel_once_a_layer(cuda, monkeypatch):
         _, cache8 = api.prefill(params, toks, 320, "int8")
         api.decode(params, nxt, cache8, 300)
         assert decode_kernel.launches == cfg.n_layers
+
+
+# ------------------------------------------------------------------ Zamba2-7B's sizes
+
+ZAMBA2_SCALE = (224 / 2) ** -0.5    # the published shared block's softmax scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,kv,g,window,q_offset,dtype,scale", [
+    (2, 300, 300, 4, 1, 0, 0, torch.bfloat16, ZAMBA2_SCALE),
+    (1, 200, 260, 2, 2, 64, 60, torch.bfloat16, ZAMBA2_SCALE),   # window, offset, G 2
+    (2, 130, 130, 2, 1, 0, 0, torch.bfloat16, None),             # the default scale
+    (1, 70, 70, 2, 1, 0, 0, torch.float32, ZAMBA2_SCALE),
+    (1, 77, 300, 2, 2, 100, 223, torch.float32, None),
+])
+def test_flash_kernel_at_head_dim_224(cuda, b, tq, tk, kv, g, window, q_offset, dtype, scale):
+    """Zamba2-7B's shared block: heads of 224 (bf16 on the tensor cores in 32-column
+    panels and 64-key tiles, fp32 on the CUDA cores), with its softmax scale."""
+    q, k, v = _inputs(21, b, tq, tk, kv, g, 224, dtype, cuda)
+    out, lse = flash_attention_fwd(q, k, v, window=window, q_offset=q_offset, scale=scale)
+    torch.cuda.synchronize()
+    want, want_lse = ref._flash_fwd_impl(q, k, v, q_offset, window, 512, 1024, scale)
+    _close(out, want, TOL[dtype])
+    _close(lse, want_lse, 2e-3)
+
+
+@pytest.mark.cuda
+def test_head_dim_224_and_a_scale_have_a_forward_only(cuda):
+    q, k, v = _inputs(22, 1, 64, 64, 2, 1, 224, torch.bfloat16, cuda)
+    out, lse = flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q, k, v, out, lse, out)
+    with pytest.raises(ValueError, match="scale"):
+        flash_attention_fwd(q, k, v, scale=0.0)
+    q, k, v = _inputs(22, 1, 64, 64, 2, 1, 64, torch.bfloat16, cuda)
+    out = ops.flash_attention(q.requires_grad_(), k, v, scale=0.1)
+    with pytest.raises(NotImplementedError, match="scale"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,smax,kv,g,n_valid,q_dtype,scale", [
+    (32, 2304, 32, 1, 2100, torch.bfloat16, ZAMBA2_SCALE),   # the Zamba2-7B decode cell
+    (32, 2304, 32, 1, 1, torch.bfloat16, ZAMBA2_SCALE),
+    (2, 300, 4, 2, 300, torch.float32, ZAMBA2_SCALE),        # several splits, G 2
+    (2, 300, 4, 1, 150, torch.bfloat16, None),
+])
+def test_decode_kernel_at_head_dim_224(cuda, b, smax, kv, g, n_valid, q_dtype, scale):
+    q, k, v, (kc, vc) = _decode_inputs(23, b, smax, kv, g, 224, q_dtype, cuda, n_valid)
+    out = decode_kernel(q, k, v, n_valid, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    want = ref.decode_attention(q.float(), kc.float(), vc.float(), n_valid, scale)
+    _close(out, want, TOL[q_dtype])
+
+
+def _grouped_ssd_inputs(seed, b, t, h, groups, device):
+    x, dt, A, _, _, s = _ssd_inputs(seed, b, t, h, device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    B, C = ((torch.randn((b, t, groups, 64), generator=gen) * 0.5).to(device) for _ in range(2))
+    return x, dt, A, B, C, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,groups", [
+    (2, 300, 4, 2), (1, 129, 6, 2), (2, 2049, 4, 2), (3, 65, 2, 2),
+    (4, 2048, 112, 2),      # Zamba2-7B's prefill: 112 heads, 2 groups of B and C
+])
+def test_ssd_kernel_with_grouped_b_and_c(cuda, b, t, h, groups):
+    xs = _grouped_ssd_inputs(24, b, t, h, groups, cuda)
+    y, state = ssd_fwd(*xs)
+    torch.cuda.synchronize()
+    want_y, want_state = ref.mamba2_ssd(*xs, chunk=128)
+    _close(y, want_y, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_one_group_as_it_always_did(cuda):
+    """B and C [Bt,T,1,N] launch what [Bt,T,N] does, bit for bit; a gradient asked of
+    a grouped call raises."""
+    x, dt, A, B, C, s = _ssd_inputs(25, 2, 300, 4, cuda)
+    one = ssd_fwd(x, dt, A, B, C, s)
+    grouped = ssd_fwd(x, dt, A, B[:, :, None].contiguous(), C[:, :, None].contiguous(), s)
+    assert all(torch.equal(a, b) for a, b in zip(one, grouped))
+    x, dt, A, B, C, s = _grouped_ssd_inputs(25, 1, 64, 4, 2, cuda)
+    with pytest.raises(NotImplementedError, match="groups"):
+        ops.mamba2_ssd(x.requires_grad_(), dt, A, B, C, s)
+    with pytest.raises(ValueError, match="do not divide"):
+        ssd_fwd(*_grouped_ssd_inputs(25, 1, 64, 4, 3, cuda))
+
+
+@pytest.mark.cuda
+def test_published_zamba2_serves_through_the_kernels(cuda, monkeypatch):
+    """Zamba2-7B at its published widths, cut to 4 layers with a site of each shared
+    block: a bf16 prefill and three decode steps through K1 (hd 224), K3 (2 groups),
+    K5 (hd 224) and K6, each the expected number of times (the second step captures
+    its segments as CUDA graphs and the third replays them, as ``BatchServer`` runs a
+    wave's steps: a replay counts the launches it holds), bit for bit the steps run
+    eagerly, and no further from the same model in fp32 on the plain paths (``ref``)
+    than twice the bf16 plain paths are.  The fp32 model on the card is refused by
+    the kernels, not sent to the plain paths."""
+    import contextlib
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import mamba2_ssd
+    from repro_torch.models import get_model
+    from repro_torch.serve import graphs
+    cfg = dataclasses.replace(get_arch("zamba2-7b-instruct"), n_layers=4,
+                              hybrid_layer_ids=(1, 3), vocab=4096)
+    api = get_model(cfg)
+    params = api.init(0, torch.bfloat16, "cuda")
+    params32 = {k: (v.float() if isinstance(v, torch.Tensor) else
+                    {n: w.float() for n, w in v.items()}) for k, v in params.items()}
+    toks = torch.randint(0, cfg.vocab, (2, 300), generator=torch.Generator().manual_seed(26))
+
+    def serve(p, graphed=False):
+        steps = graphs.StepGraphs(cuda)
+        with torch.no_grad():
+            logits, cache = api.prefill(p, toks[:, :297].to(cuda), 320)
+            out = [logits[:, -1]]
+            for i in range(297, 300):
+                with steps.on() if graphed and i > 297 else contextlib.nullcontext():
+                    logits, cache = api.decode(p, toks[:, i:i + 1].to(cuda), cache, i)
+                out.append(logits[:, -1])
+        return torch.stack(out, 1).float()
+
+    def err(a, b):
+        return ((a - b).abs() / (1 + b.abs())).max().item()
+
+    for fn in (flash_attention_fwd, mamba2_ssd.ssd_fwd, decode_kernel, step_kernel):
+        monkeypatch.setattr(fn, "launches", 0)
+    got = serve(params, graphed=True)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, mamba2_ssd.ssd_fwd.launches,
+            decode_kernel.launches, step_kernel.launches) == (2, 4, 6, 12)
+    assert torch.equal(serve(params), got)
+    with pytest.raises(ValueError, match="bf16"):
+        serve(params32)
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, window=0, q_offset=0,
+                        scale=None: ref.flash_attention(q, k, v, q_offset, window, scale=scale))
+    monkeypatch.setattr(ops, "mamba2_ssd", lambda *a, chunk=128: ref.mamba2_ssd(*a, chunk=chunk))
+    monkeypatch.setattr(ops, "decode_attention", ref.decode_attention)
+    monkeypatch.setattr(ops, "mamba2_step", ref.mamba2_step)
+    plain = serve(params)
+    want = serve(params32)
+    assert torch.isfinite(got).all()
+    assert err(got, want) <= 2 * err(plain, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen1.5-32b", "chameleon-34b"])
+def test_dense_decode_steps_replay_as_graphs_bit_for_bit(arch, cuda, monkeypatch):
+    """A dense model at its widths (tied head and depth-scaled residual; q/k/v bias;
+    qk-norm), cut to 2 layers: a bf16 prefill and four decode steps, the second
+    capturing its segments as CUDA graphs and the later ones replaying them, as
+    ``BatchServer`` runs a wave's steps, give the eager steps' logits and cache bit
+    for bit, with the decode kernel once a layer a step."""
+    import contextlib
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.serve import graphs
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2, vocab=4096)
+    api = get_model(cfg)
+    params = api.init(0, torch.bfloat16, "cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 301), generator=torch.Generator().manual_seed(30))
+
+    def serve(graphed):
+        steps = graphs.StepGraphs(cuda)
+        with torch.no_grad():
+            logits, cache = api.prefill(params, toks[:, :297].to(cuda), 320)
+            out = [logits[:, -1]]
+            for i in range(297, 301):
+                with steps.on() if graphed and i > 297 else contextlib.nullcontext():
+                    logits, cache = api.decode(params, toks[:, i:i + 1].to(cuda), cache, i)
+                out.append(logits[:, -1].clone())       # a replay overwrites its output
+        return torch.stack(out, 1), cache
+
+    monkeypatch.setattr(decode_kernel, "launches", 0)
+    got, got_cache = serve(graphed=True)
+    torch.cuda.synchronize()
+    assert decode_kernel.launches == 2 * 4
+    want, want_cache = serve(graphed=False)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, want)
+    assert all(torch.equal(got_cache[n], want_cache[n]) for n in want_cache)
+
+
+def _step_inputs(seed, b, h, p, n, groups, device):
+    """One token's in_proj output, conv tail and weights (bf16) and the fp32 state and
+    per-head parameters of a Mamba2 layer, at the published block's scales."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=gen)  # noqa: E731
+    din, c = h * p, h * p + 2 * groups * n
+    bf = torch.bfloat16
+    xs = (r(b, din + c + h).to(bf), r(b, c, 3).to(bf), (r(4, c) * 0.2).to(bf),
+          (r(c) * 0.02).to(bf), r(h) - 4.0, -torch.arange(1, h + 1, dtype=torch.float32),
+          torch.ones(h), r(b, h, p, n) * 0.2, (1 + 0.1 * r(din)).to(bf))
+    return [x.to(device) for x in xs] + [groups, 1e-5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,p,n,groups", [
+    (32, 112, 64, 64, 2),       # Zamba2-7B's decode cell: a wave of 32, 112 heads, 2 groups
+    (3, 8, 64, 64, 1), (2, 8, 32, 16, 2),
+])
+def test_decode_step_kernel_matches_plain(cuda, b, h, p, n, groups):
+    """K6 against ``ref.mamba2_step`` on the same inputs, two steps running (the group
+    tickets left at 0 after each): the output within the bf16 tolerance, the state
+    within it, the conv tail bit for bit; a rerun bit for bit."""
+    xs = _step_inputs(31, b, h, p, n, groups, cuda)
+    mine = [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
+    again = [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
+    for step in range(2):
+        out = step_kernel(*mine)
+        want = ref.mamba2_step(*xs)
+        torch.cuda.synchronize()
+        _close(out, want, TOL[torch.bfloat16])
+        _close(mine[7], xs[7], TOL[torch.bfloat16])
+        assert torch.equal(mine[1], xs[1]), step
+    first = step_kernel(*again)
+    assert torch.equal(first, step_kernel(*[x.clone() if isinstance(x, torch.Tensor) else x
+                                            for x in _step_inputs(31, b, h, p, n, groups, cuda)]))

@@ -13,6 +13,8 @@
   sends the call to the card and the cache is bf16 and not split by its
   sequence: on the CPU, with an int8 cache, or with the sequence split, the
   einsums run and nothing launches.
+* On that route a dense decode step runs as ``serve.graphs`` segments around each
+  layer's kernel, bit for bit the step it was.
 * ``ref.decode_attention`` (the plain version the card tests hold the kernel
   to) in float32 against the softmax written out in float64.
 """
@@ -178,6 +180,57 @@ def _attention(cache: str):
         k, v = k.to({"bf16": torch.bfloat16, "fp32": torch.float32}[cache]), \
             v.to({"bf16": torch.bfloat16, "fp32": torch.float32}[cache])
     return layers.attention_decode(cfg, p, x, k, v, 10, 10, 11, kv_scale=scales)[0]
+
+
+class _Graphs:
+    """A stand-in for a server's ``StepGraphs``: each segment recorded, then run on
+    copies of its inputs, as a replay reads the buffers it was captured with."""
+
+    def __init__(self):
+        self.keys = []
+
+    def run(self, key, fn, inputs):
+        self.keys.append(key)
+        return fn(*[x.clone() for x in inputs])
+
+
+@pytest.mark.parametrize("arch,swa", [("minicpm-2b", 0), ("minicpm-2b", 16), ("qwen1.5-32b", 0),
+                                      ("phi3-medium-14b", 0), ("chameleon-34b", 0),
+                                      ("mixtral-8x22b", 0)])
+def test_dense_decode_step_runs_as_segments_around_the_kernel(arch, swa, monkeypatch):
+    """On the kernel's route (here ``ref.decode_attention`` in its place) a dense
+    decode step is one segment for the embedding and the first layer's q/k/v and
+    cache write, and one after each layer's attention (``serve.graphs``), the kernel
+    between them; under a server's graphs, eagerly, and as one ``attention_decode``
+    a layer it gives the same logits and cache, bit for bit.  An MoE step, whose
+    routing is not captured, marks no segment."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import graphs
+    cfg = dataclasses.replace(get_arch(arch).reduced(), swa_window=swa)
+    api = get_model(cfg)
+    params = api.init(0, torch.bfloat16, "cpu")
+    monkeypatch.setattr(ops, "takes_decode_attention", lambda q, cache: True)
+    monkeypatch.setattr(ops, "decode_attention", ref.decode_attention)
+    toks = torch.randint(0, cfg.vocab, (B, 23), generator=torch.Generator().manual_seed(3))
+
+    def step():
+        with torch.no_grad():
+            _, cache = api.prefill(params, toks[:, :22], 24)
+            logits, cache = api.decode(params, toks[:, 22:], cache, 22)
+        return logits, cache
+
+    eager = step()
+    fake = _Graphs()
+    monkeypatch.setattr(graphs, "_active", fake)
+    graphed = step()
+    monkeypatch.setattr(graphs, "_active", None)
+    monkeypatch.setattr(transformer, "_segmented", lambda cfg, cache: False)
+    layered = step()
+    want = [] if cfg.family == "moe" else [("dense", i) for i in range(-1, cfg.n_layers)]
+    assert fake.keys == want
+    for got in (graphed, layered):
+        assert torch.equal(got[0], eager[0])
+        assert all(torch.equal(got[1][n], eager[1][n]) for n in eager[1])
 
 
 @pytest.mark.parametrize("cache", ["bf16", "int8", "fp32"])

@@ -169,4 +169,10 @@ def test_reduced_config_takes_the_scan_kernels_sizes_on_the_card(monkeypatch):
             for main in (launch_train.main, launch_serve.main):
                 with pytest.raises(Stop):
                     main(["--arch", arch, "--device", device])
-                assert dataclasses.asdict(seen.pop()) == want, (arch, device, main)
+                got = seen.pop()
+                # the reference's fields equal, the port's own (the published Zamba2
+                # block's) at their defaults
+                own = {f.name: f.default for f in dataclasses.fields(got) if f.name not in want}
+                assert {k: v for k, v in dataclasses.asdict(got).items() if k in want} == want, \
+                    (arch, device, main)
+                assert {k: getattr(got, k) for k in own} == own, (arch, device, main)
